@@ -1,0 +1,47 @@
+"""Hand-written CUDA kernels for the MWU hot path, one folder per kernel.
+
+Each folder holds ``ops.py`` (the wrapper the solver calls) and ``ref.py``
+(its plain PyTorch version); the CUDA sources are in ``csrc/`` and
+``loader.py`` builds and binds them. A wrapper given CUDA tensors launches
+its kernel or raises; given CPU tensors it runs the plain version. There is
+no backend switch: the tensor's device decides.
+
+:func:`launch_counts` reports how many times each kernel was launched on
+the card since :func:`reset_launch_counts`.
+"""
+from .axpy_reduce import axpy_reduce
+from .incidence_gather import incidence_gather
+from .linesearch_probe import linesearch_probe
+from .loader import LAUNCHES
+from .softmax_weights import softmax_weights
+
+__all__ = [
+    "KERNELS",
+    "axpy_reduce",
+    "incidence_gather",
+    "linesearch_probe",
+    "softmax_weights",
+    "launch_counts",
+    "reset_launch_counts",
+]
+
+#: kernel name -> (CUDA source, the TPU kernel it replaces)
+KERNELS = {
+    "incidence_gather": ("src/repro_torch/kernels/csrc/incidence_gather.cu",
+                         "src/repro/kernels/incidence_gather/kernel.py:48"),
+    "softmax_weights": ("src/repro_torch/kernels/csrc/softmax_weights.cu",
+                        "src/repro/kernels/softmax_weights/kernel.py:82"),
+    "linesearch_probe": ("src/repro_torch/kernels/csrc/linesearch_probe.cu",
+                         "src/repro/kernels/linesearch_probe/kernel.py:83"),
+    "axpy_reduce": ("src/repro_torch/kernels/csrc/axpy_reduce.cu",
+                    "src/repro/kernels/axpy_reduce/kernel.py:55"),
+}
+
+
+def launch_counts() -> dict[str, int]:
+    """Launches on the card per kernel since the last reset."""
+    return {name: LAUNCHES[name] for name in KERNELS}
+
+
+def reset_launch_counts() -> None:
+    LAUNCHES.clear()
