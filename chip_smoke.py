@@ -115,7 +115,7 @@ def kernel_rows(K, refs, n_vertices: int, n_items: int, n_edges: int, dtype, eta
 
     def row(name, shape, err, bar, ok, kernel, plain, reps, nbytes, ops, library=None):
         b_ms, b_by = bound(nbytes, ops, dtype)
-        r = dict(name=name, dtype=str(dtype).removeprefix("torch."), shape=shape, max_abs_err=err, bar=bar,
+        r = dict(name=name, dtype=str(dtype).removeprefix("torch."), shape=shape, max_abs_err=err, bar=bar, within_bar=ok,
                  ms=device_ms(kernel, reps), plain_ms=device_ms(plain, reps), bound_ms=b_ms, bound_by=b_by,
                  library_ms=None if library is None else call_ms(library, reps),
                  call_ms=call_ms(kernel, reps), plain_call_ms=call_ms(plain, reps))
@@ -233,7 +233,9 @@ def full_solve(n_users: int, failures: list) -> dict:
 
 def profile_call(prob, bound: float) -> dict:
     """Where one feasibility solve's time goes: the solve at ``bound`` timed
-    alone, then again under torch.profiler for device time by kernel."""
+    alone, then again under torch.profiler for device time by kernel. The
+    two runs may take different iteration counts (index_add_ sums with
+    atomics), so the idle share compares time per iteration."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -246,7 +248,7 @@ def profile_call(prob, bound: float) -> dict:
     torch.cuda.synchronize()
     wall_ms = 1e3 * (time.perf_counter() - t0)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        solver.feasible(prob, bound)
+        profiled = solver.feasible(prob, bound)
         torch.cuda.synchronize()
     # device-side events only: the operators that launched them carry the
     # same device time again
@@ -254,8 +256,11 @@ def profile_call(prob, bound: float) -> dict:
                       if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0), reverse=True)
     busy_ms = sum(k[0] for k in kernels)
     port_ms = sum(k[0] for k in kernels if "rt::" in k[2])
-    out = dict(bound=bound, iters=res.iters, probes=res.ls_probes, wall_ms=wall_ms,
-               device_busy_ms=busy_ms, device_idle_share=1.0 - busy_ms / wall_ms if busy_ms else None,
+    wall_per_iter = wall_ms / max(res.iters, 1)
+    device_per_iter = busy_ms / max(profiled.iters, 1)
+    out = dict(bound=bound, iters=res.iters, probes=res.ls_probes, wall_ms=wall_ms, wall_ms_per_iter=wall_per_iter,
+               profiled_iters=profiled.iters, device_busy_ms=busy_ms, device_ms_per_iter=device_per_iter,
+               device_idle_share=1.0 - device_per_iter / wall_per_iter if busy_ms else None,
                port_kernels_ms=port_ms, other_device_ms=busy_ms - port_ms)
     print(f"  profile of one feasibility solve: {json.dumps(out)}", flush=True)
     for ms, count, key in kernels[:16]:
@@ -352,7 +357,7 @@ def main() -> int:
         kernels.append(dict(name=name, route="cuda", source=source, replaces=replaces,
                             launches=info["launches"][name], **{k: r[k] for k in (
                                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                                "call_ms", "plain_call_ms", "shape", "dtype", "bar")}))
+                                "call_ms", "plain_call_ms", "shape", "dtype", "bar", "within_bar")}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
