@@ -4,8 +4,9 @@
     python3 chip_smoke.py [--n-users N]
 
 Builds the CUDA kernels of ``src/repro_torch/kernels/csrc`` with nvcc for
-sm_90a and drives the port's main path, in four phases; any failed phase
-exits non-zero before the result lines are printed.
+sm_90a and drives the port's two paths, the MWU graph-LP solve and the
+hubert-xlarge encoder forward, in five phases; any failed phase exits
+non-zero before the result lines are printed.
 
 1. Card: its name and power limit (nvidia-smi) and the kernels' build time.
 2. Kernels vs their plain PyTorch versions on the card, at the main path's
@@ -15,6 +16,16 @@ exits non-zero before the result lines are printed.
    which for short vectors is the host's cost; one library call computing
    the same function where there is one; and the bound (bytes read once
    and written once over 3.35 TB/s, or operations over the card's peak).
+   Flash attention gets rows at published widths: (a) hubert-xlarge's
+   attention (B 16, S 1500, 16 heads, d 80, bidirectional) in bf16 and f32,
+   (b) minitron-4b's (B 1, S 4096, 24 over 8 heads, d 128, causal) and (c)
+   mixtral-8x22b's (B 1, S 6144, 48 over 8 heads, d 128, causal, window
+   4096), in bf16. Within bar means |kernel - plain| <= bar * (1 + |plain|)
+   elementwise (tests/test_kernels.py's atol = rtol). At these sizes every
+   call is bound by the device, so the plain version is timed eagerly (its
+   f32 scores take up to 7 GB, too much to capture twice in a CUDA graph);
+   the library time is ``scaled_dot_product_attention`` with the same mask,
+   a yardstick the port never calls.
 3. The full-size solve: bipartite matching (bmatch) at float64 on the
    Netflix Prize shape, ``bipartite_ratings(480_189, 17_770,
    avg_ratings=209, seed=0)`` (498k vertices, 98.6M edges), through
@@ -28,9 +39,21 @@ exits non-zero before the result lines are printed.
    count (items and ratings per user stay).
 4. Small solves, card vs CPU, for all six families: same status, bound
    within rel 1e-5, objective within rel 2*eps.
+5. The hubert-xlarge encoder forward at full width: 48 layers, d_model
+   1280, 16 heads of d 80, ``attn_impl="pallas"``, bf16 compute over f32
+   params from a seeded random init, on 16 utterances x 1500 frames (30 s
+   at 50 frames/s; frames N(0, 0.02^2)), ``forward`` + ``logits`` under
+   ``torch.inference_mode``. The launch counts of one forward must show
+   flash attention 48 times; the logits must be finite and agree with the
+   dense-attention forward on the same weights within a relative L2 error
+   of 5e-2 (bf16 rounds at other places in the two paths, through 48
+   residual layers). Time per forward, frames/s, peak memory, and a
+   torch.profiler breakdown (flash, matmuls, the rest) with the device's
+   idle share.
 
 The line before the last is ``{"kernels": [...]}``, one entry per kernel;
-the last is ``{"ok": true, "device": {...}}``. The script exits non-zero
+the last is ``{"ok": true, "device": {...}}``. The flash entry takes row
+(a) in bf16 and its launches from phase 5. The script exits non-zero
 without a result when no CUDA device is present or when it is run outside
 the repository.
 """
@@ -47,8 +70,10 @@ import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
-# peak rates outside the tensor cores (NVIDIA H100 SXM data sheet)
-PEAK_OPS_PER_S = {torch.float32: 67e12, torch.float64: 34e12}
+# peak rates: f32 and f64 outside the tensor cores, bf16 on them (dense;
+# NVIDIA H100 SXM data sheet)
+PEAK_OPS_PER_S = {torch.float32: 67e12, torch.float64: 34e12, torch.bfloat16: 989e12}
+LOGITS_REL_L2_BAR = 5e-2  # pallas vs dense forward of phase 5, bf16 through 48 layers
 EPS = 0.1
 
 
@@ -180,6 +205,78 @@ def kernel_rows(K, refs, n_vertices: int, n_items: int, n_edges: int, dtype, eta
     return rows
 
 
+def scored_pairs(S: int, causal: bool, window) -> int:
+    """(query, key) pairs that attention scores: S^2 bidirectional, S(S+1)/2
+    causal, the band for a window."""
+    q = np.arange(S)
+    lo = np.maximum(0, q - window + 1) if window else np.zeros(S, np.int64)
+    hi = q if causal else np.full(S, S - 1)
+    return int((hi - lo + 1).sum())
+
+
+FLASH_CASES = [  # tag, B, S, Hq, Hkv, d, causal, window, dtype
+    ("a", 16, 1500, 16, 16, 80, False, None, torch.bfloat16),  # hubert-xlarge
+    ("a", 16, 1500, 16, 16, 80, False, None, torch.float32),
+    ("b", 1, 4096, 24, 8, 128, True, None, torch.bfloat16),  # minitron-4b at train_4k
+    ("c", 1, 6144, 48, 8, 128, True, 4096, torch.bfloat16),  # mixtral-8x22b, sliding window
+]
+
+
+def flash_rows(K, failures: list) -> list[dict]:
+    """Flash attention vs its plain version at published widths."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.ref import flash_attention_plain
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    rows = []
+    for tag, B, S, Hq, Hkv, d, causal, window, dtype in FLASH_CASES:
+        q = torch.randn(B, S, Hq, d, generator=gen, device=dev).to(dtype)
+        k, v = (torch.randn(B, S, Hkv, d, generator=gen, device=dev).to(dtype) for _ in range(2))
+        bar = 3e-5 if dtype == torch.float32 else 2e-2
+
+        def kernel():
+            return K.flash_attention(q, k, v, causal=causal, window=window)
+
+        def plain():
+            return flash_attention_plain(q, k, v, causal=causal, window=window)
+
+        mask = None
+        if window is not None:
+            i = torch.arange(S, device=dev)
+            mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
+
+        def library():
+            return F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                                                  attn_mask=mask, is_causal=causal and mask is None,
+                                                  enable_gqa=Hq != Hkv).transpose(1, 2)
+
+        got, ref = kernel().float(), plain().float()
+        diff = (got - ref).abs()
+        err = diff.max().item()
+        ok = bool((diff <= bar * (1 + ref.abs())).all())
+        lib_diff = (library().float() - ref).abs()
+        lib_ok = bool((lib_diff <= bar * (1 + ref.abs())).all())
+        del got, ref, diff, lib_diff
+        size = torch.finfo(dtype).bits // 8
+        b_ms, b_by = bound(2 * B * S * (Hq + Hkv) * d * size, 4 * B * Hq * d * scored_pairs(S, causal, window),
+                           dtype)
+        plain_ms = call_ms(plain, 3)
+        r = dict(name="flash_attention", case=tag, dtype=str(dtype).removeprefix("torch."),
+                 shape=[B, S, Hq, Hkv, d], causal=causal, window=window, max_abs_err=err, bar=bar, within_bar=ok,
+                 ms=device_ms(kernel, 20), plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                 library_ms=device_ms(library, 20), call_ms=call_ms(kernel, 20), plain_call_ms=plain_ms)
+        check(failures, ok, f"flash_attention ({tag}) {r['dtype']} B {B} S {S} heads {Hq}/{Hkv} d {d} causal {causal} "
+                            f"window {window}: max_abs_err {err:.3g} (bar {bar}); device ms: kernel {r['ms']:.4f}, "
+                            f"plain {plain_ms:.4f}, SDPA {r['library_ms']:.4f} (within bar: {lib_ok}), bound "
+                            f"{b_ms:.4f} ({b_by}), {b_ms / r['ms']:.0%} of bound; eager call {r['call_ms']:.4f}")
+        rows.append(r)
+        del q, k, v, mask
+        torch.cuda.empty_cache()
+    return rows
+
+
 # -- phase 3 -----------------------------------------------------------------
 def full_solve(n_users: int, failures: list) -> dict:
     from repro_torch import kernels as K
@@ -222,7 +319,10 @@ def full_solve(n_users: int, failures: list) -> dict:
     check(failures, rel <= 1.5 * EPS, f"objective {sol.objective:.3f} within 1.5*eps of exact {exact} (rel {rel:.4f})")
     check(failures, info["max_Mx"] <= 1 + 1e-9, f"host-recomputed max(Mx) = {info['max_Mx']!r} <= 1 + 1e-9")
     for name, count in launches.items():
-        check(failures, count > 0, f"{name} launched {count} times in the solve")
+        if name == "flash_attention":  # the LM plane's kernel, off this path
+            check(failures, count == 0, f"{name} launched {count} times in the solve")
+        else:
+            check(failures, count > 0, f"{name} launched {count} times in the solve")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,power.draw,power.limit,temperature.gpu",
                           "--format=csv,noheader"], capture_output=True, text=True, check=True).stdout.strip()
     print(f"  after the solve: sm clock, power draw, power limit, temperature = {smi}", flush=True)
@@ -302,6 +402,99 @@ def small_solves(failures: list) -> None:
                               f"{b.mwu_iters_total} ({sols['cpu_s']:.1f} s)")
 
 
+# -- phase 5 -----------------------------------------------------------------
+def _device_kernels(prof) -> list[tuple[float, int, str]]:
+    """(device ms, calls, name) of each kernel, device-side events only: the
+    operators that launched them carry the same device time again."""
+    from torch.autograd import DeviceType
+
+    return sorted(((e.self_device_time_total / 1e3, e.count, e.key) for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0), reverse=True)
+
+
+def encoder_forward(K, failures: list) -> dict:
+    """hubert-xlarge's encode forward at full width (phase 5)."""
+    from dataclasses import replace
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get
+    from repro_torch.models import Model
+
+    cfg = replace(get("hubert-xlarge"), attn_impl="pallas")
+    B, S = 16, 1500
+    t0 = time.perf_counter()
+    model = Model(cfg, device="cuda", seed=0)
+    frames = torch.randn(B, S, cfg.d_model, generator=torch.Generator(device="cuda").manual_seed(1),
+                         device="cuda") * 0.02
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"  {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} heads of d {cfg.d_head}, "
+          f"d_ff {cfg.d_ff}, {n_params / 1e6:.1f}M f32 params, init {init_s:.1f} s; frames {B} x {S}", flush=True)
+
+    def run(m):
+        return m.logits(m({"frames": frames}))
+
+    with torch.inference_mode():
+        run(model)  # warm-up: cuBLAS handles and heuristics
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = run(model)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        launches = K.launch_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        walls = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run(model)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        wall_s = float(np.median(walls))
+
+        V = cfg.vocab_size
+        finite = bool(torch.isfinite(logits[..., :V]).all())
+        pad_ok = bool((logits[..., V:] == -1e30).all())
+        dense = Model(replace(cfg, attn_impl="dense"), device="cuda")
+        dense.load_state_dict(model.state_dict())
+        ref = run(dense)
+        del dense
+        rel = ((logits[..., :V] - ref[..., :V]).norm() / ref[..., :V].norm()).item()
+        del ref
+        torch.cuda.empty_cache()
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            run(model)
+            torch.cuda.synchronize()
+    kernels = _device_kernels(prof)
+    busy = sum(k[0] for k in kernels)
+    flash_ms = sum(k[0] for k in kernels if "rt::flash" in k[2])
+    mm_ms = sum(k[0] for k in kernels if any(w in k[2].lower() for w in ("gemm", "nvjet", "xmma", "cutlass")))
+    info = dict(config=cfg.name, batch=B, frames=S, layers=cfg.n_layers, first_forward_s=first_s,
+                wall_ms=1e3 * wall_s, wall_ms_runs=[1e3 * w for w in walls], frames_per_s=B * S / wall_s,
+                max_memory_gb=peak_gb, launches=launches, logits_shape=list(logits.shape), logits_finite=finite,
+                pad_vocab_masked=pad_ok, rel_l2_vs_dense=rel,
+                profile=dict(device_busy_ms=busy, flash_ms=flash_ms, matmul_ms=mm_ms, other_ms=busy - flash_ms - mm_ms,
+                             device_idle_share=1.0 - busy / (1e3 * wall_s)))
+    print("  " + json.dumps(info), flush=True)
+    for ms, count, key in kernels[:14]:
+        print(f"    {ms:10.2f} ms {count:7d} x  {key[:110]}", flush=True)
+    check(failures, launches["flash_attention"] == cfg.n_layers,
+          f"flash_attention launched {launches['flash_attention']} times in one forward ({cfg.n_layers} layers)")
+    check(failures, all(n == 0 for name, n in launches.items() if name != "flash_attention"),
+          f"no MWU kernel launched in the forward ({launches})")
+    check(failures, finite and pad_ok and list(logits.shape) == [B, S, cfg.padded_vocab],
+          f"logits {list(logits.shape)} finite over the vocab ({finite}), pad slots -1e30 ({pad_ok})")
+    check(failures, rel <= LOGITS_REL_L2_BAR,
+          f"logits vs the dense-attention forward: relative L2 {rel:.4g} (bar {LOGITS_REL_L2_BAR})")
+    return info
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n-users", type=int, default=480_189, help="users of the full-size bmatch graph")
@@ -327,7 +520,7 @@ def main() -> int:
     lib, build_s = loader.build()
     print(f"  nvcc build of {len(list(loader.CSRC.glob('*.cu')))} sources: {build_s:.1f} s -> {lib.name}", flush=True)
     for line in (loader.BUILD_DIR / "nvcc.log").read_text().splitlines():
-        if "registers" in line or "spill" in line or line.startswith("=="):
+        if "registers" in line or "spill" in line or "Compiling entry" in line or line.startswith("=="):
             print("  " + line.strip(), flush=True)
 
     print("== phase 2: kernels vs plain versions on the card", flush=True)
@@ -339,6 +532,8 @@ def main() -> int:
     rows = []
     for dtype in (torch.float32, torch.float64):
         rows += kernel_rows(K, refs, n_vertices, n_items, n_edges, dtype, eta, failures)
+    torch.backends.cuda.matmul.allow_tf32 = False  # the f32 plain attention's products in full f32
+    rows += flash_rows(K, failures)
     end_phase("2", failures)
 
     print("== phase 3: full-size bmatch solve", flush=True)
@@ -348,16 +543,26 @@ def main() -> int:
     print("== phase 4: small solves, card vs CPU", flush=True)
     small_solves(failures)
     end_phase("4", failures)
+
+    print("== phase 5: hubert-xlarge encoder forward at full width", flush=True)
+    enc = encoder_forward(K, failures)
+    end_phase("5", failures)
     print(f"  total {time.perf_counter() - t_start:.1f} s", flush=True)
 
-    # one entry per kernel: its float64 row at the main path's largest shape
+    # one entry per kernel: for the MWU kernels their float64 row at the
+    # solve's largest shape and the solve's launches; for flash attention
+    # row (a) in bf16 and the launches of one encoder forward
     kernels = []
     for name, (source, replaces) in K.KERNELS.items():
-        r = max((r for r in rows if r["name"] == name and r["dtype"] == "float64"), key=lambda r: r["shape"][0])
-        kernels.append(dict(name=name, route="cuda", source=source, replaces=replaces,
-                            launches=info["launches"][name], **{k: r[k] for k in (
-                                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                                "call_ms", "plain_call_ms", "shape", "dtype", "bar", "within_bar")}))
+        if name == "flash_attention":
+            r = next(r for r in rows if r["name"] == name and r["case"] == "a" and r["dtype"] == "bfloat16")
+            launches = enc["launches"][name]
+        else:
+            r = max((r for r in rows if r["name"] == name and r["dtype"] == "float64"), key=lambda r: r["shape"][0])
+            launches = info["launches"][name]
+        kernels.append(dict(name=name, route="cuda", source=source, replaces=replaces, launches=launches,
+                            **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                                 "call_ms", "plain_call_ms", "shape", "dtype", "bar", "within_bar")}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -1,0 +1,20 @@
+"""starcoder2-15b [dense]: 40L, d_model 6144, 48H GQA kv=4, d_ff 24576,
+vocab 49152 (arXiv:2402.19173; hf). GQA + RoPE; GELU MLP + layernorm
+(starcoder2 keeps the GPT-style MLP). Full attention.
+"""
+from .base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="starcoder2-15b",
+    family="dense",
+    n_layers=40,
+    d_model=6144,
+    n_heads=48,
+    n_kv_heads=4,
+    d_head=128,
+    d_ff=24576,
+    vocab_size=49152,
+    rope_theta=100_000.0,
+    mlp_type="gelu",
+    norm_type="layernorm",
+)

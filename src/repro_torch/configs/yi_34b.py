@@ -1,0 +1,20 @@
+"""yi-34b [dense]: 60L, d_model 7168, 56H GQA kv=8, d_ff 20480, vocab 64000.
+
+Llama-architecture GQA decoder (arXiv:2403.04652; hf). SwiGLU, RMSNorm,
+RoPE. Pure full attention => long_500k cell is skipped (DESIGN.md §6).
+"""
+from .base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="yi-34b",
+    family="dense",
+    n_layers=60,
+    d_model=7168,
+    n_heads=56,
+    n_kv_heads=8,
+    d_head=128,
+    d_ff=20480,
+    vocab_size=64000,
+    rope_theta=5_000_000.0,
+    mlp_type="swiglu",
+)

@@ -1,6 +1,7 @@
-"""Hand-written CUDA kernels for the MWU hot path, one folder per kernel.
+"""Hand-written CUDA kernels, one folder per kernel: the four of the MWU
+hot path and the flash attention of the LM plane's encoder forward.
 
-Each folder holds ``ops.py`` (the wrapper the solver calls) and ``ref.py``
+Each folder holds ``ops.py`` (the wrapper its callers call) and ``ref.py``
 (its plain PyTorch version); the CUDA sources are in ``csrc/`` and
 ``loader.py`` builds and binds them. A wrapper given CUDA tensors launches
 its kernel or raises; given CPU tensors it runs the plain version. There is
@@ -10,6 +11,7 @@ no backend switch: the tensor's device decides.
 the card since :func:`reset_launch_counts`.
 """
 from .axpy_reduce import axpy_reduce
+from .flash_attention import flash_attention
 from .incidence_gather import incidence_gather
 from .linesearch_probe import linesearch_probe
 from .loader import LAUNCHES
@@ -18,6 +20,7 @@ from .softmax_weights import softmax_weights
 __all__ = [
     "KERNELS",
     "axpy_reduce",
+    "flash_attention",
     "incidence_gather",
     "linesearch_probe",
     "softmax_weights",
@@ -35,6 +38,8 @@ KERNELS = {
                          "src/repro/kernels/linesearch_probe/kernel.py:83"),
     "axpy_reduce": ("src/repro_torch/kernels/csrc/axpy_reduce.cu",
                     "src/repro/kernels/axpy_reduce/kernel.py:55"),
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention/kernel.py:86"),
 }
 
 

@@ -63,13 +63,18 @@ _I64 = ctypes.c_int64
 _INT = ctypes.c_int
 _F64 = ctypes.c_double
 
-# C signature of each entry point (the same for its f32 and f64 variants)
-_SIGNATURES = {
-    "rt_incidence_gather": [_PTR, _PTR, _PTR, _PTR, _I64, _PTR],
-    "rt_softmax_weights": [_PTR, _F64, _I64, _INT, _PTR, _PTR, _PTR, _PTR],
-    "rt_linesearch_probe": [_PTR, _PTR, _F64, _F64, _I64, _INT, _PTR, _PTR, _PTR],
-    "rt_axpy_reduce": [_PTR, _PTR, _F64, _I64, _INT, _PTR, _PTR, _PTR, _PTR],
+# C signature of each entry point, and the dtypes it is built for (one
+# symbol each: name + _f32 / _f64 / _bf16)
+_FLOAT = (torch.float32, torch.float64)
+_ENTRY_POINTS = {
+    "rt_incidence_gather": ([_PTR, _PTR, _PTR, _PTR, _I64, _PTR], _FLOAT),
+    "rt_softmax_weights": ([_PTR, _F64, _I64, _INT, _PTR, _PTR, _PTR, _PTR], _FLOAT),
+    "rt_linesearch_probe": ([_PTR, _PTR, _F64, _F64, _I64, _INT, _PTR, _PTR, _PTR], _FLOAT),
+    "rt_axpy_reduce": ([_PTR, _PTR, _F64, _I64, _INT, _PTR, _PTR, _PTR, _PTR], _FLOAT),
+    # q, k, v, o; B, S, Hq, Hkv, D; (batch, seq, head) strides of q, k, v, o; causal, window; stream
+    "rt_flash_attention": ([_PTR] * 4 + [_INT] * 5 + [_I64] * 12 + [_INT, _INT, _PTR], (torch.bfloat16, torch.float32)),
 }
+_SUFFIX = {torch.float32: "_f32", torch.float64: "_f64", torch.bfloat16: "_bf16"}
 
 
 def _sources() -> list[Path]:
@@ -140,9 +145,9 @@ def load() -> ctypes.CDLL:
     """The kernel library, built on first use and bound once per process."""
     path, _ = build()
     lib = ctypes.CDLL(str(path))
-    for name, argtypes in _SIGNATURES.items():
-        for suffix in ("_f32", "_f64"):
-            fn = getattr(lib, name + suffix)
+    for name, (argtypes, dtypes) in _ENTRY_POINTS.items():
+        for dtype in dtypes:
+            fn = getattr(lib, name + _SUFFIX[dtype])
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
     lib.rt_error_string.argtypes = [ctypes.c_int]
@@ -151,8 +156,11 @@ def load() -> ctypes.CDLL:
 
 
 def kernel_fn(name: str, dtype: torch.dtype):
-    """The C entry point ``name`` for ``dtype`` (float32 or float64)."""
-    return getattr(load(), name + ("_f64" if dtype == torch.float64 else "_f32"))
+    """The C entry point ``name`` for ``dtype``; raises for a dtype it is not built for."""
+    dtypes = _ENTRY_POINTS[name][1]
+    if dtype not in dtypes:
+        raise TypeError(f"{name}: no kernel for {dtype}; built for {', '.join(map(str, dtypes))}")
+    return getattr(load(), name + _SUFFIX[dtype])
 
 
 def check_status(rc: int, name: str) -> None:

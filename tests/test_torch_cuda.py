@@ -1,5 +1,5 @@
-"""The port on the card: each CUDA kernel vs its plain version, and solves
-on the card vs the same solves on the CPU.
+"""The port on the card: each CUDA kernel vs its plain version, solves and
+an encoder forward on the card vs the same on the CPU.
 
 Every test here is marked ``cuda`` and skips where no card is present.
 The file imports neither jax nor ``repro``, so on a machine with a card
@@ -11,13 +11,18 @@ import numpy as np
 import pytest
 import torch
 
+from dataclasses import replace
+
 from repro_torch import kernels as K
 from repro_torch.api import MWUOptions, Solver, Status
+from repro_torch.configs import get
 from repro_torch.graphs import bipartite_ratings, build, generalized_matching_problem, rgg
 from repro_torch.kernels.axpy_reduce.ref import axpy_reduce_ref
+from repro_torch.kernels.flash_attention.ref import flash_attention_plain
 from repro_torch.kernels.incidence_gather.ref import incidence_gather_ref
 from repro_torch.kernels.linesearch_probe.ref import linesearch_probe_ref
 from repro_torch.kernels.softmax_weights.ref import softmax_weights_ref
+from repro_torch.models import Model
 
 EPS = 0.1
 
@@ -64,7 +69,7 @@ def test_kernels_match_plain_on_card(cuda, n, dtype):
     assert torch.equal(g.cpu(), incidence_gather_ref(idx, jdx, y))
     torch.cuda.synchronize()
     assert K.launch_counts() == {"incidence_gather": 1, "softmax_weights": 1, "linesearch_probe": 2,
-                                 "axpy_reduce": 1}
+                                 "axpy_reduce": 1, "flash_attention": 0}
 
 
 @pytest.mark.cuda
@@ -111,3 +116,92 @@ def test_card_solve_matches_cpu(cuda, family):
     assert counts["softmax_weights"] > 0 and counts["axpy_reduce"] > 0
     assert (counts["incidence_gather"] > 0) == (family != "dom-set")  # dom-set's ops are scatter-based
     assert (counts["linesearch_probe"] > 0) == (family != "gen-match")  # masked probes stay plain
+
+
+FLASH_TOLS = {torch.float32: 3e-5, torch.bfloat16: 2e-2}  # tests/test_kernels.py
+
+
+def _qkv(shape_q, shape_kv, dtype, device, seed):
+    gen = torch.Generator().manual_seed(seed)
+    return [torch.randn(s, generator=gen).to(dtype).to(device) for s in (shape_q, shape_kv, shape_kv)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 24), (False, None)])
+@pytest.mark.parametrize("S", [16, 63, 130])
+@pytest.mark.parametrize("dh", [32, 80, 128])
+def test_flash_attention_matches_plain_on_card(cuda, dh, S, causal, window, dtype):
+    """The sweep of tests/test_kernels.py (GQA 4 over 2 heads), at hubert's d 80 and the decoders' 128 too."""
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain version's f32 products in full f32
+    q, k, v = _qkv((2, S, 4, dh), (2, S, 2, dh), dtype, cuda, S + dh)
+    K.reset_launch_counts()
+    got = K.flash_attention(q, k, v, causal=causal, window=window)
+    ref = flash_attention_plain(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert K.launch_counts()["flash_attention"] == 1
+    assert got.dtype == dtype and got.shape == q.shape
+    tol = FLASH_TOLS[dtype]
+    torch.testing.assert_close(got.float(), ref.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh,hq,hkv", [(16, 8, 2), (64, 6, 1), (80, 16, 16)])
+def test_flash_attention_long_rows_on_card(cuda, dh, hq, hkv):
+    """Many key tiles, a ragged tail (S 1500 = 23.4 tiles of 64), GQA, MQA and MHA; bf16, bidirectional
+    and windowed."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v = _qkv((1, 1500, hq, dh), (1, 1500, hkv, dh), torch.bfloat16, cuda, dh)
+    for causal, window in [(False, None), (True, 200)]:
+        got = K.flash_attention(q, k, v, causal=causal, window=window)
+        ref = flash_attention_plain(q, k, v, causal=causal, window=window)
+        torch.testing.assert_close(got.float(), ref.float(), atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.cuda
+def test_flash_attention_rejects_bad_inputs(cuda):
+    q, k, v = _qkv((1, 8, 2, 32), (1, 8, 2, 32), torch.float32, cuda, 0)
+    with pytest.raises(TypeError):
+        K.flash_attention(q.half(), k.half(), v.half())  # no float16 kernel
+    with pytest.raises(ValueError):
+        K.flash_attention(*_qkv((1, 8, 2, 48), (1, 8, 2, 48), torch.float32, cuda, 0))  # head dim 48
+    with pytest.raises(ValueError):
+        K.flash_attention(q, k.cpu(), v)
+    wide = _qkv((1, 8, 2, 34), (1, 8, 2, 34), torch.float32, cuda, 0)
+    with pytest.raises(ValueError):
+        K.flash_attention(*(t[..., :32] for t in wide))  # head stride of 136 bytes: rows not 16-byte aligned
+    with pytest.raises(ValueError):
+        K.flash_attention(q, k[:, :, :1].expand(1, 8, 3, 32), v)  # 2 query heads over 3 kv heads
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["hubert-cut", "hubert-xlarge", "minitron-4b", "starcoder2-15b"])
+def test_model_forward_card_matches_cpu(cuda, arch):
+    """Model.forward + logits at S 40 > attn_chunk 16, attn_impl pallas, f32:
+    the card (flash kernel, cuBLAS) vs the CPU (plain versions), the same
+    weights. "hubert-cut" is hubert at its real d_head 80 and MHA, 2 layers
+    of width 160; the others are the configs' reduced(). Bar 1e-4 of the
+    largest logit: f32 on both sides, sums in other orders."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if arch == "hubert-cut":
+        cfg = replace(get("hubert-xlarge"), n_layers=2, d_model=160, n_heads=2, n_kv_heads=2, d_head=80, d_ff=640,
+                      attn_chunk=16, dtype="float32", param_dtype="float32", attn_impl="pallas")
+    else:
+        cfg = replace(get(arch).reduced(), attn_impl="pallas")
+    cpu = Model(cfg, device="cpu", seed=1)
+    card = Model(cfg, device=cuda)
+    card.load_state_dict(cpu.state_dict())
+    gen = torch.Generator().manual_seed(2)
+    if cfg.modality == "audio_frames":
+        batch = {"frames": torch.randn(2, 40, cfg.d_model, generator=gen) * 0.02}
+    else:
+        batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 40), generator=gen)}
+    K.reset_launch_counts()
+    with torch.inference_mode():
+        ref = cpu.logits(cpu(batch))
+        got = card.logits(card({k: t.to(cuda) for k, t in batch.items()})).cpu()
+    assert K.launch_counts()["flash_attention"] == cfg.n_layers
+    V = cfg.vocab_size
+    assert torch.equal(got[..., V:], ref[..., V:])
+    scale = ref[..., :V].abs().max()
+    torch.testing.assert_close(got[..., :V] / scale, ref[..., :V] / scale, atol=1e-4, rtol=0)

@@ -116,15 +116,22 @@ def test_builders_keep_int32_edges():
 
 
 def test_import_without_jax():
-    """repro_torch imports, and solves on the CPU, with jax unimportable."""
+    """repro_torch imports, solves and runs an encoder forward on the CPU, with jax unimportable."""
     src = Path(__file__).resolve().parents[1] / "src"
     code = (
         "import sys; sys.modules['jax'] = None\n"
         "import repro_torch, repro_torch.api, repro_torch.graphs, repro_torch.kernels\n"
+        "import repro_torch.configs, repro_torch.models, repro_torch.kernels.flash_attention\n"
         "from repro_torch.api import MWUOptions, Solver\n"
         "from repro_torch.graphs import build, grid2d\n"
         "sol = Solver(MWUOptions(eps=0.1), batch_width=2).solve(build('match', grid2d(3), device='cpu'))\n"
         "assert sol.feasible and 3.4 <= sol.objective <= 4.0 + 1e-9, sol.objective\n"
+        "import torch\n"
+        "from dataclasses import replace\n"
+        "cfg = replace(repro_torch.configs.get('hubert-xlarge').reduced(), attn_impl='pallas')\n"
+        "m = repro_torch.models.Model(cfg, device='cpu')\n"
+        "x = m.logits(m({'frames': torch.zeros(1, 20, cfg.d_model)}))\n"
+        "assert x.shape == (1, 20, cfg.padded_vocab) and bool(torch.isfinite(x).all())\n"
         "assert not any(m == 'repro' or m.startswith('repro.') for m in sys.modules)\n"
         "print('ok')\n"
     )
