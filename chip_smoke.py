@@ -25,7 +25,12 @@ non-zero before the result lines are printed.
    call is bound by the device, so the plain version is timed eagerly (its
    f32 scores take up to 7 GB, too much to capture twice in a CUDA graph);
    the library time is ``scaled_dot_product_attention`` with the same mask,
-   a yardstick the port never calls.
+   a yardstick the port never calls. Each flash row also prints its
+   achieved TFLOP/s (4 d flops per scored pair over the device time) and,
+   in bf16, the kernel's tile choices (swizzle, boxes, stages, tile rows,
+   shared memory) as the built library reports them; the bf16 kernel's
+   ptxas lines (registers, spills) are printed per head dim, and a spill at
+   d 80 or 128 fails the phase.
 3. The full-size solve: bipartite matching (bmatch) at float64 on the
    Netflix Prize shape, ``bipartite_ratings(480_189, 17_770,
    avg_ratings=209, seed=0)`` (498k vertices, 98.6M edges), through
@@ -222,11 +227,39 @@ FLASH_CASES = [  # tag, B, S, Hq, Hkv, d, causal, window, dtype
 ]
 
 
+def flash_ptxas(failures: list) -> None:
+    """The bf16 flash kernel's ptxas lines (registers, spills, shared memory)
+    from the build's nvcc.log, one block per head dim; no spills at the
+    models' head dims, 80 and 128."""
+    import re
+
+    from repro_torch.kernels import loader
+
+    blocks, current = {}, None
+    for line in (loader.BUILD_DIR / "nvcc.log").read_text().splitlines():
+        if "Compiling entry function" in line:
+            m = re.search(r"flash_bf16_kernelILi(\d+)E", line)
+            current = int(m.group(1)) if m else None
+            if current is not None:
+                blocks[current] = []
+        elif current is not None and ("registers" in line or "spill" in line or "smem" in line):
+            blocks[current].append(line.strip())
+    for d in sorted(blocks):
+        print(f"  ptxas, flash_bf16_kernel<{d}>: " + " | ".join(blocks[d]), flush=True)
+    for d in (80, 128):
+        spills = [int(n) for line in blocks.get(d, []) for n in re.findall(r"(\d+) bytes spill", line)]
+        check(failures, bool(spills) and not any(spills),
+              f"flash_bf16_kernel<{d}>: no spills in ptxas's report ({spills or 'no report'})")
+
+
 def flash_rows(K, failures: list) -> list[dict]:
     """Flash attention vs its plain version at published widths."""
     import torch.nn.functional as F
 
+    from repro_torch.kernels.flash_attention.ops import bf16_config
     from repro_torch.kernels.flash_attention.ref import flash_attention_plain
+
+    flash_ptxas(failures)
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -260,17 +293,21 @@ def flash_rows(K, failures: list) -> list[dict]:
         lib_ok = bool((lib_diff <= bar * (1 + ref.abs())).all())
         del got, ref, diff, lib_diff
         size = torch.finfo(dtype).bits // 8
-        b_ms, b_by = bound(2 * B * S * (Hq + Hkv) * d * size, 4 * B * Hq * d * scored_pairs(S, causal, window),
-                           dtype)
+        flops = 4 * B * Hq * d * scored_pairs(S, causal, window)
+        b_ms, b_by = bound(2 * B * S * (Hq + Hkv) * d * size, flops, dtype)
         plain_ms = call_ms(plain, 3)
         r = dict(name="flash_attention", case=tag, dtype=str(dtype).removeprefix("torch."),
                  shape=[B, S, Hq, Hkv, d], causal=causal, window=window, max_abs_err=err, bar=bar, within_bar=ok,
                  ms=device_ms(kernel, 20), plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                 library_ms=device_ms(library, 20), call_ms=call_ms(kernel, 20), plain_call_ms=plain_ms)
+                 library_ms=device_ms(library, 20), call_ms=call_ms(kernel, 20), plain_call_ms=plain_ms,
+                 config=bf16_config(d) if dtype == torch.bfloat16 else None)
+        r["tflops"] = flops / (r["ms"] * 1e-3) / 1e12
+        r["library_tflops"] = flops / (r["library_ms"] * 1e-3) / 1e12
         check(failures, ok, f"flash_attention ({tag}) {r['dtype']} B {B} S {S} heads {Hq}/{Hkv} d {d} causal {causal} "
-                            f"window {window}: max_abs_err {err:.3g} (bar {bar}); device ms: kernel {r['ms']:.4f}, "
-                            f"plain {plain_ms:.4f}, SDPA {r['library_ms']:.4f} (within bar: {lib_ok}), bound "
-                            f"{b_ms:.4f} ({b_by}), {b_ms / r['ms']:.0%} of bound; eager call {r['call_ms']:.4f}")
+                            f"window {window}: max_abs_err {err:.3g} (bar {bar}); device ms: kernel {r['ms']:.4f} "
+                            f"({r['tflops']:.1f} TFLOP/s), plain {plain_ms:.4f}, SDPA {r['library_ms']:.4f} "
+                            f"({r['library_tflops']:.1f} TFLOP/s, within bar: {lib_ok}), bound {b_ms:.4f} ({b_by}), "
+                            f"{b_ms / r['ms']:.0%} of bound; eager call {r['call_ms']:.4f}; tiles {r['config']}")
         rows.append(r)
         del q, k, v, mask
         torch.cuda.empty_cache()

@@ -11,6 +11,8 @@ version in ``ref.py``.
 positions are their indices 0..S-1. ``block_q``/``block_k`` were the TPU's
 VMEM tiling; the CUDA kernel picks its own tiles and ignores them.
 """
+import ctypes
+
 import torch
 
 from .. import loader
@@ -27,7 +29,7 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window) -> None:
             raise TypeError(f"flash_attention: {name} is {t.dtype}, q is {q.dtype}")
         if t.dim() != 4:
             raise ValueError(f"flash_attention: {name} must be (B, S, H, dh), got shape {tuple(t.shape)}")
-        # rows are read as 16-byte vectors
+        # rows are read as 16-byte vectors (f32) or through TMA tensor maps (bf16)
         if t.stride(3) != 1 or t.data_ptr() % 16 or any(s * t.element_size() % 16 for s in t.stride()[:3]):
             raise ValueError(f"flash_attention: {name} needs a contiguous head dim and 16-byte aligned rows, "
                              f"got strides {t.stride()}")
@@ -38,8 +40,11 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window) -> None:
         raise ValueError(f"flash_attention: {Hq} query heads are not a multiple of {k.shape[2]} kv heads")
     if dh not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head dim {dh} not built; supported: {HEAD_DIMS}")
-    if S == 0 or B * Hq > 65535:
-        raise ValueError(f"flash_attention: needs 0 < S and B*Hq <= 65535, got S {S}, B*Hq {B * Hq}")
+    if S == 0:
+        raise ValueError("flash_attention: needs S > 0")
+    # the f32 body puts (batch, head) on the grid's y axis; the bf16 body walks a flat grid
+    if q.dtype == torch.float32 and B * Hq > 65535:
+        raise ValueError(f"flash_attention: float32 needs B*Hq <= 65535, got {B * Hq}")
     if window is not None and window < 1:
         raise ValueError(f"flash_attention: window must be None or >= 1, got {window}")
 
@@ -60,3 +65,14 @@ def flash_attention(q, k, v, positions=None, *, causal=True, window=None, block_
     loader.check_status(rc, "flash_attention")
     loader.LAUNCHES["flash_attention"] += 1
     return o
+
+
+_CONFIG_KEYS = ("swizzle_bytes", "box_cols", "boxes", "stages", "block_q", "block_k", "smem_bytes", "threads")
+
+
+def bf16_config(dh: int) -> dict:
+    """The tile choices of the bf16 kernel at head dim ``dh``, as the built
+    library reports them (builds it on first use)."""
+    out = (ctypes.c_int * len(_CONFIG_KEYS))()
+    loader.check_status(loader.load().rt_flash_bf16_config(dh, out), "flash_attention config")
+    return dict(zip(_CONFIG_KEYS, out))

@@ -152,6 +152,8 @@ def load() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
     lib.rt_error_string.argtypes = [ctypes.c_int]
     lib.rt_error_string.restype = ctypes.c_char_p
+    lib.rt_flash_bf16_config.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    lib.rt_flash_bf16_config.restype = ctypes.c_int
     return lib
 
 

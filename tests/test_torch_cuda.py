@@ -126,36 +126,68 @@ def _qkv(shape_q, shape_kv, dtype, device, seed):
     return [torch.randn(s, generator=gen).to(dtype).to(device) for s in (shape_q, shape_kv, shape_kv)]
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("causal,window", [(True, None), (True, 24), (False, None)])
-@pytest.mark.parametrize("S", [16, 63, 130])
-@pytest.mark.parametrize("dh", [32, 80, 128])
-def test_flash_attention_matches_plain_on_card(cuda, dh, S, causal, window, dtype):
-    """The sweep of tests/test_kernels.py (GQA 4 over 2 heads), at hubert's d 80 and the decoders' 128 too."""
+def _check_flash(q, k, v, causal, window):
+    """One kernel launch against the plain version at the bar of q's dtype."""
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain version's f32 products in full f32
-    q, k, v = _qkv((2, S, 4, dh), (2, S, 2, dh), dtype, cuda, S + dh)
     K.reset_launch_counts()
     got = K.flash_attention(q, k, v, causal=causal, window=window)
     ref = flash_attention_plain(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     assert K.launch_counts()["flash_attention"] == 1
-    assert got.dtype == dtype and got.shape == q.shape
-    tol = FLASH_TOLS[dtype]
+    assert got.dtype == q.dtype and got.shape == q.shape
+    tol = FLASH_TOLS[q.dtype]
     torch.testing.assert_close(got.float(), ref.float(), atol=tol, rtol=tol)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dh,hq,hkv", [(16, 8, 2), (64, 6, 1), (80, 16, 16)])
-def test_flash_attention_long_rows_on_card(cuda, dh, hq, hkv):
-    """Many key tiles, a ragged tail (S 1500 = 23.4 tiles of 64), GQA, MQA and MHA; bf16, bidirectional
-    and windowed."""
-    torch.backends.cuda.matmul.allow_tf32 = False
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 24), (True, 200), (False, None)])
+@pytest.mark.parametrize("S", [1, 16, 63, 64, 127, 128, 129, 130])
+@pytest.mark.parametrize("dh", [16, 32, 64, 80, 128])
+def test_flash_attention_matches_plain_on_card(cuda, dh, S, causal, window, dtype):
+    """The sweep of tests/test_kernels.py (GQA 4 over 2 heads) at every head dim, with S on both sides of the
+    bf16 kernel's 64-row warpgroup and 128-row tile edges, and windows inside one tile (24) and across two (200)."""
+    q, k, v = _qkv((2, S, 4, dh), (2, S, 2, dh), dtype, cuda, S + dh)
+    _check_flash(q, k, v, causal, window)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal,window", [(False, None), (True, 200), (False, 100)])
+@pytest.mark.parametrize("dh,hq,hkv", [(16, 8, 2), (32, 6, 2), (64, 6, 1), (80, 16, 16), (128, 8, 1)])
+def test_flash_attention_long_rows_on_card(cuda, dh, hq, hkv, causal, window):
+    """Many key tiles and a ragged tail (S 1500 = 11.7 tiles of 128), GQA groups 1, 3, 4, 6 and 8; bf16,
+    bidirectional, causal-windowed and bidirectional-windowed."""
     q, k, v = _qkv((1, 1500, hq, dh), (1, 1500, hkv, dh), torch.bfloat16, cuda, dh)
-    for causal, window in [(False, None), (True, 200)]:
-        got = K.flash_attention(q, k, v, causal=causal, window=window)
-        ref = flash_attention_plain(q, k, v, causal=causal, window=window)
-        torch.testing.assert_close(got.float(), ref.float(), atol=2e-2, rtol=2e-2)
+    _check_flash(q, k, v, causal, window)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh", [80, 128])
+def test_flash_attention_ring_wraps_on_card(cuda, dh):
+    """S 4096 causal at 2 heads: 32 key tiles pass the stage ring (4 stages at d 80, 2 at 128) many times."""
+    q, k, v = _qkv((1, 4096, 2, dh), (1, 4096, 2, dh), torch.bfloat16, cuda, 7)
+    _check_flash(q, k, v, True, None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dh", [16, 80, 128])
+def test_flash_attention_fused_qkv_views_on_card(cuda, dh, dtype):
+    """q, k and v as strided views of one fused (B, S, 3, H, d) projection: the kernels read strides (the bf16
+    kernel through its tensor maps), nothing is copied."""
+    gen = torch.Generator().manual_seed(dh)
+    qkv = torch.randn(2, 300, 3, 4, dh, generator=gen).to(dtype).to(cuda)
+    q, k, v = qkv.unbind(2)
+    assert not q.is_contiguous() and q.stride(1) == 3 * 4 * dh
+    _check_flash(q, k, v, False, None)
+
+
+@pytest.mark.cuda
+def test_flash_attention_many_blocks_on_card(cuda):
+    """B*Hq = 65,600 (batch 4,100 x 16 heads) in bf16: more blocks than the 65,535 of a grid's y axis and
+    than many waves of 132 SMs; the bf16 kernel walks a flat grid."""
+    q, k, v = _qkv((4100, 3, 16, 16), (4100, 3, 16, 16), torch.bfloat16, cuda, 1)
+    _check_flash(q, k, v, True, None)
 
 
 @pytest.mark.cuda
@@ -172,6 +204,8 @@ def test_flash_attention_rejects_bad_inputs(cuda):
         K.flash_attention(*(t[..., :32] for t in wide))  # head stride of 136 bytes: rows not 16-byte aligned
     with pytest.raises(ValueError):
         K.flash_attention(q, k[:, :, :1].expand(1, 8, 3, 32), v)  # 2 query heads over 3 kv heads
+    with pytest.raises(ValueError):  # the f32 body's grid holds at most 65,535 (batch, head) pairs
+        K.flash_attention(*_qkv((1, 2, 65540, 16), (1, 2, 65540, 16), torch.float32, cuda, 0))
 
 
 @pytest.mark.cuda
