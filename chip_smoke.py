@@ -79,6 +79,12 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 # NVIDIA H100 SXM data sheet)
 PEAK_OPS_PER_S = {torch.float32: 67e12, torch.float64: 34e12, torch.bfloat16: 989e12}
 LOGITS_REL_L2_BAR = 5e-2  # pallas vs dense forward of phase 5, bf16 through 48 layers
+# bf16 flash rows, whole tensor: ||kernel - plain|| / ||plain||. The two
+# differ by where p is rounded to bf16 (unnormalised in the kernel, after
+# the division in the plain version): ~3e-3 at every bf16 row. The bar is
+# twice that, so a fault of 1% (a few unmasked keys in a row of 1,500)
+# fails it; the elementwise bar alone lets such a fault through.
+FLASH_REL_L2_BAR = 6e-3
 EPS = 0.1
 
 
@@ -229,14 +235,14 @@ FLASH_CASES = [  # tag, B, S, Hq, Hkv, d, causal, window, dtype
 
 def flash_ptxas(failures: list) -> None:
     """The bf16 flash kernel's ptxas lines (registers, spills, shared memory)
-    from the build's nvcc.log, one block per head dim; no spills at the
+    from the loaded build's compiler log, one block per head dim; no spills at the
     models' head dims, 80 and 128."""
     import re
 
     from repro_torch.kernels import loader
 
     blocks, current = {}, None
-    for line in (loader.BUILD_DIR / "nvcc.log").read_text().splitlines():
+    for line in loader.build_log().read_text().splitlines():
         if "Compiling entry function" in line:
             m = re.search(r"flash_bf16_kernelILi(\d+)E", line)
             current = int(m.group(1)) if m else None
@@ -250,6 +256,20 @@ def flash_ptxas(failures: list) -> None:
         spills = [int(n) for line in blocks.get(d, []) for n in re.findall(r"(\d+) bytes spill", line)]
         check(failures, bool(spills) and not any(spills),
               f"flash_bf16_kernel<{d}>: no spills in ptxas's report ({spills or 'no report'})")
+
+
+def tail_fault_rel_l2(q, k, v, block_k: int, ref) -> float:
+    """Relative L2, against ``ref``, of the output that a bidirectional
+    kernel would give if the zero-filled keys past S in its last key tile
+    scored 0 instead of being masked: what the whole-tensor bar must catch."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.ref import flash_attention_plain
+
+    S = q.shape[1]
+    q, k, v = (F.pad(t, (0, 0, 0, 0, 0, -S % block_k)) for t in (q, k, v))
+    fault = flash_attention_plain(q, k, v, causal=False)[:, :S].float()
+    return ((fault - ref).norm() / ref.norm()).item()
 
 
 def flash_rows(K, failures: list) -> list[dict]:
@@ -285,12 +305,24 @@ def flash_rows(K, failures: list) -> list[dict]:
                                                   attn_mask=mask, is_causal=causal and mask is None,
                                                   enable_gqa=Hq != Hkv).transpose(1, 2)
 
+        config = bf16_config(d) if dtype == torch.bfloat16 else None
         got, ref = kernel().float(), plain().float()
         diff = (got - ref).abs()
         err = diff.max().item()
+        rel = (diff.norm() / ref.norm()).item()
         ok = bool((diff <= bar * (1 + ref.abs())).all())
         lib_diff = (library().float() - ref).abs()
         lib_ok = bool((lib_diff <= bar * (1 + ref.abs())).all())
+        if config is not None:
+            rel_ok = rel <= FLASH_REL_L2_BAR
+            check(failures, rel_ok, f"flash_attention ({tag}) bfloat16: relative L2 vs plain {rel:.4g} "
+                                    f"(bar {FLASH_REL_L2_BAR})")
+            ok = ok and rel_ok
+            if not causal and window is None and S % config["block_k"]:
+                fault = tail_fault_rel_l2(q, k, v, config["block_k"], ref)
+                check(failures, fault > FLASH_REL_L2_BAR,
+                      f"flash_attention ({tag}): unmasked zero keys past S would give relative L2 {fault:.4g}, "
+                      f"beyond the bar {FLASH_REL_L2_BAR}")
         del got, ref, diff, lib_diff
         size = torch.finfo(dtype).bits // 8
         flops = 4 * B * Hq * d * scored_pairs(S, causal, window)
@@ -298,13 +330,14 @@ def flash_rows(K, failures: list) -> list[dict]:
         plain_ms = call_ms(plain, 3)
         r = dict(name="flash_attention", case=tag, dtype=str(dtype).removeprefix("torch."),
                  shape=[B, S, Hq, Hkv, d], causal=causal, window=window, max_abs_err=err, bar=bar, within_bar=ok,
-                 ms=device_ms(kernel, 20), plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                 rel_l2=rel, ms=device_ms(kernel, 20), plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                  library_ms=device_ms(library, 20), call_ms=call_ms(kernel, 20), plain_call_ms=plain_ms,
-                 config=bf16_config(d) if dtype == torch.bfloat16 else None)
+                 config=config)
         r["tflops"] = flops / (r["ms"] * 1e-3) / 1e12
         r["library_tflops"] = flops / (r["library_ms"] * 1e-3) / 1e12
         check(failures, ok, f"flash_attention ({tag}) {r['dtype']} B {B} S {S} heads {Hq}/{Hkv} d {d} causal {causal} "
-                            f"window {window}: max_abs_err {err:.3g} (bar {bar}); device ms: kernel {r['ms']:.4f} "
+                            f"window {window}: max_abs_err {err:.3g} (bar {bar}), relative L2 {rel:.3g}; "
+                            f"device ms: kernel {r['ms']:.4f} "
                             f"({r['tflops']:.1f} TFLOP/s), plain {plain_ms:.4f}, SDPA {r['library_ms']:.4f} "
                             f"({r['library_tflops']:.1f} TFLOP/s, within bar: {lib_ok}), bound {b_ms:.4f} ({b_by}), "
                             f"{b_ms / r['ms']:.0%} of bound; eager call {r['call_ms']:.4f}; tiles {r['config']}")
@@ -556,7 +589,7 @@ def main() -> int:
     print(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}", flush=True)
     lib, build_s = loader.build()
     print(f"  nvcc build of {len(list(loader.CSRC.glob('*.cu')))} sources: {build_s:.1f} s -> {lib.name}", flush=True)
-    for line in (loader.BUILD_DIR / "nvcc.log").read_text().splitlines():
+    for line in lib.with_suffix(".log").read_text().splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line or line.startswith("=="):
             print("  " + line.strip(), flush=True)
 

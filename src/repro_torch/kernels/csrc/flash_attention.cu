@@ -20,7 +20,8 @@
 // Key tiles wholly above the diagonal or outside the window band are not
 // visited. The bf16 body takes the softmax in base 2: the scores are scaled
 // by scale * log2(e) after the dot and exponentiated with ex2.approx, which
-// is exp() of the scaled scores up to float rounding.
+// is exp() of the scaled scores up to float rounding; a masked score is
+// -1e30 after that scaling, as in the f32 body.
 //
 // Bound on the H100: operations. 4*D flops per scored (query, key) pair
 // over 989 TFLOP/s (bf16 tensor cores) or 67 TFLOP/s (f32 FMA); at
@@ -345,10 +346,10 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
 }
 
 // One tile of the online softmax for this thread's two rows (s[e] in row
-// (e / 2) % 2): raw scores in, unnormalised probabilities p =
-// exp2(s * scale_log2 - m) out; m and l (this thread's share of the row sum,
-// of p before any rounding) are updated and c gets the factors that rescale
-// the older sums.
+// (e / 2) % 2): scores in (raw, or already scaled and then scale_log2 = 1),
+// unnormalised probabilities p = exp2(s * scale_log2 - m) out; m and l
+// (this thread's share of the row sum, of p before any rounding) are
+// updated and c gets the factors that rescale the older sums.
 template <int N>
 __device__ __forceinline__ void online_softmax(float (&s)[N], float (&m)[2], float (&l)[2], float (&c)[2],
                                                float scale_log2) {
@@ -494,7 +495,6 @@ __global__ void __launch_bounds__(Bf16Tile<D>::THREADS, 1)
   const int cw = wg - 1;
   const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32, g = lane / 4, tq4 = lane % 4;
   const float scale_log2 = p.scale * 1.4426950408889634f;  // softmax in base 2: exp(x) = exp2(x log2 e)
-  const float masked_raw = kMasked / scale_log2;            // a raw score that scales to -1e30
   const uint32_t q_wg = q_s + cw * 64 * SW;                 // this warpgroup's 64 rows of every Q box
 
   // Ping-pong (FlashAttention-3): the two warpgroups take turns to issue
@@ -539,12 +539,16 @@ __global__ void __launch_bounds__(Bf16Tile<D>::THREADS, 1)
     };
     auto softmax = [&](int t) {
       const int k0 = t * BK;
-      if (!tile_open(p, wq_first, wq_last, k0, BK)) {
+      const bool open = tile_open(p, wq_first, wq_last, k0, BK);
+      if (!open) {
+        // An edge tile is scaled first and masked after, so that a masked
+        // score is exactly -1e30 whatever the scale.
 #pragma unroll
         for (int e = 0; e < BK / 2; ++e)
-          if (!visible(p, row[(e >> 1) & 1], k0 + 8 * (e >> 2) + 2 * tq4 + (e & 1))) s_acc[e] = masked_raw;
+          s_acc[e] = visible(p, row[(e >> 1) & 1], k0 + 8 * (e >> 2) + 2 * tq4 + (e & 1)) ? s_acc[e] * scale_log2
+                                                                                             : kMasked;
       }
-      online_softmax(s_acc, m, l, c, scale_log2);
+      online_softmax(s_acc, m, l, c, open ? scale_log2 : 1.f);
     };
 
     // Key tile t0: its scores and softmax. Then tile i's QK^T and tile

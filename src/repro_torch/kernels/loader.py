@@ -37,6 +37,7 @@ __all__ = [
     "LAUNCHES",
     "load",
     "build",
+    "build_log",
     "partial_blocks",
     "check_status",
     "stream_handle",
@@ -100,8 +101,8 @@ def build() -> tuple[Path, float]:
     """Compile the library if it is not built yet; returns (path, seconds).
 
     The seconds are those of this call: 0.0-ish when the library exists.
-    The compiler's output (``-Xptxas -v``: registers, spills) is kept in
-    ``build/nvcc.log``.
+    The compiler's output (``-Xptxas -v``: registers, spills) is kept
+    beside the library, under the same source hash (``build_log``).
     """
     t0 = time.perf_counter()
     path = _library_path()
@@ -111,6 +112,11 @@ def build() -> tuple[Path, float]:
         if not path.exists():
             _compile(path)
     return path, time.perf_counter() - t0
+
+
+def build_log() -> Path:
+    """The compiler's output for the library that the current sources build."""
+    return _library_path().with_suffix(".log")
 
 
 def _compile(path: Path) -> None:
@@ -129,7 +135,7 @@ def _compile(path: Path) -> None:
             log.append(f"== {src.name} (rc {p.returncode})\n{out}")
             if p.returncode != 0:
                 failed.append(src.name)
-        (BUILD_DIR / "nvcc.log").write_text("\n".join(log))
+        path.with_suffix(".log").write_text("\n".join(log))
         if failed:
             raise RuntimeError(f"nvcc failed on {failed}:\n" + "\n".join(log))
         tmp_lib = Path(tmp) / path.name
