@@ -30,7 +30,10 @@ non-zero before the result lines are printed.
    in bf16, the kernel's tile choices (swizzle, boxes, stages, tile rows,
    shared memory) as the built library reports them; the bf16 kernel's
    ptxas lines (registers, spills) are printed per head dim, and a spill at
-   d 80 or 128 fails the phase.
+   d 80 or 128 fails the phase. The Newton search runs on three seeded
+   states a dtype: equal bit for bit to the host loop over the probe
+   kernel, and within ls_eps * alpha of its plain version (the same loop
+   over plain PyTorch probes), whose time is the row's plain time.
 3. The full-size solve: bipartite matching (bmatch) at float64 on the
    Netflix Prize shape, ``bipartite_ratings(480_189, 17_770,
    avg_ratings=209, seed=0)`` (498k vertices, 98.6M edges), through
@@ -39,11 +42,17 @@ non-zero before the result lines are printed.
    matching (scipy's Hopcroft-Karp; the bipartite matching LP is
    integral) and max(Mx), recomputed on the host, at most 1 + 1e-9.
    The launch counts of this phase show that the solve went through every
-   kernel. One more feasibility solve at the certified bound is timed, then
-   profiled for the device time by kernel. ``--n-users`` cuts the user
+   MWU kernel but the probe's: the Newton search, launched once an
+   iteration, probes inside its own launch. One more feasibility solve at
+   the certified bound is timed, then profiled for the device time by
+   kernel, the search's share and the host reads (device-to-host copies)
+   an iteration. ``--n-users`` cuts the user
    count (items and ratings per user stay).
 4. Small solves, card vs CPU, for all six families: same status, bound
-   within rel 1e-5, objective within rel 2*eps.
+   within rel 1e-5, objective within rel 2*eps. Then match and vcover on
+   rgg(12) with ``step_rule="binary"``: its host loop launches the probe
+   kernel once a probe, and those launches are the probe's count in the
+   kernels line.
 5. The hubert-xlarge encoder forward at full width: 48 layers, d_model
    1280, 16 heads of d 80, ``attn_impl="pallas"``, bf16 compute over f32
    params from a seeded random init, on 16 utterances x 1500 frames (30 s
@@ -178,29 +187,35 @@ def kernel_rows(K, refs, n_vertices: int, n_items: int, n_edges: int, dtype, eta
         lambda: refs["incidence_gather"](u, v, w), 10, E * (4 + 4 + size) + n * size, E, lambda: torch.mv(mt, w))
     del u, v, w, crow, mt
 
-    # softmax weights and line-search probe, on the packing side (n) and the
-    # one-row objective side (1)
+    # softmax weights on the packing side (n) and the one-row objective side
+    # (1); the two-sided probe at the solve's shape, both sides in one launch
+    reps = 200
     for m in (n, 1):
         y = torch.rand(m, generator=gen, device=dev, dtype=dtype) * 1.1
-        dy = torch.rand(m, generator=gen, device=dev, dtype=dtype) * 1e-3
         lse, wk = K.softmax_weights(y, eta, 1.0)
+        lse2, wk2 = K.softmax_weights(y, eta, 1.0)
         lse_r, w_r = refs["softmax_weights"](y, eta, 1.0)
         lse_err = abs(lse.item() - lse_r.item())
         err = max(lse_err, (wk - w_r).abs().max().item())
         ok = lse_err <= tol * max(1.0, abs(lse_r.item())) and (wk - w_r).abs().max().item() <= tol
-        reps = 200
-        row("softmax_weights", [m], err, tol, ok, lambda: K.softmax_weights(y, eta, 1.0),
+        same = torch.equal(wk, wk2) and lse.item() == lse2.item()
+        check(failures, same, f"softmax_weights {dtype} [{m}]: two launches bitwise equal")
+        row("softmax_weights", [m], err, tol, ok and same, lambda: K.softmax_weights(y, eta, 1.0),
             lambda: refs["softmax_weights"](y, eta, 1.0), reps, 2 * m * size, 7 * m)
+        del y
 
-        errs, oks = [], []
-        for sign in (1.0, -1.0):
-            got = K.linesearch_probe(y, dy, 7.5, eta, sign)
-            ref = refs["linesearch_probe"](y, dy, 7.5, eta, sign)
-            errs.append((got - ref).abs().max().item())
-            oks.append(errs[-1] <= tol * max(1.0, ref.abs().max().item()) and got[2].item() == ref[2].item())
-        row("linesearch_probe", [m], max(errs), tol, all(oks), lambda: K.linesearch_probe(y, dy, 7.5, eta, 1.0),
-            lambda: refs["linesearch_probe"](y, dy, 7.5, eta, 1.0), reps, 2 * m * size, 9 * m)
-        del y, dy
+    y, dy = (torch.rand(n, generator=gen, device=dev, dtype=dtype) * s for s in (1.1, 1e-3))
+    z, dz = (torch.rand(1, generator=gen, device=dev, dtype=dtype) * s for s in (1.1, 1e-3))
+    got, again = (K.linesearch_probe2(y, dy, z, dz, 7.5, eta) for _ in range(2))
+    ref = refs["linesearch_probe2"](y, dy, z, dz, 7.5, eta)
+    err = (got - ref).abs().max().item()
+    ok = err <= tol * max(1.0, ref.abs().max().item()) and got[2].item() == ref[2].item() and got[5].item() == ref[5].item()
+    same = torch.equal(got, again)
+    check(failures, same, f"linesearch_probe {dtype} [{n}, 1]: two launches bitwise equal")
+    row("linesearch_probe", [n, 1], err, tol, ok and same, lambda: K.linesearch_probe2(y, dy, z, dz, 7.5, eta),
+        lambda: refs["linesearch_probe2"](y, dy, z, dz, 7.5, eta), reps, 2 * (n + 1) * size, 9 * (n + 1))
+    del y, dy, z, dz
+    rows.append(search_row(K, n, dtype, eta, failures))
 
     # fused update at E (the x update)
     y = torch.rand(E, generator=gen, device=dev, dtype=dtype)
@@ -214,6 +229,77 @@ def kernel_rows(K, refs, n_vertices: int, n_items: int, n_edges: int, dtype, eta
     del y, dy
     torch.cuda.empty_cache()
     return rows
+
+
+def search_state(n: int, kind: str, seed: int, dtype) -> list:
+    """A mid-solve MWU state (tests/test_torch_stepsize.py's _state) with n
+    packing rows and the one objective row of bmatch: y, z, dy, dz."""
+    rng = np.random.default_rng(seed)
+    y, dy, dz = rng.random(n) * 0.3, rng.random(n) * 1e-3, rng.random(1) * 4e-3 + 1e-4
+    z = {"far": rng.random(1) * 0.3, "near": 1.0 - dz * rng.uniform(0.5, 3.0, 1),
+         "done": 1.0 - dz * rng.uniform(0.2, 0.9, 1)}[kind]
+    return [torch.from_numpy(t).to(dtype).cuda() for t in (y, z, dy, dz)]
+
+
+def search_row(K, n: int, dtype, eta: float, failures: list) -> dict:
+    """The Newton search kernel on seeded n + 1 states. Against the host loop
+    over the probe kernel (stepsize._newton_step_host): alpha bit for bit,
+    probes and completes equal. Against its plain version, the same loop
+    over plain PyTorch probes on the card (ref.newton_search_ref), whose
+    probes differ from the kernel's by rounding: completes equal and alpha
+    within ls_eps * alpha, the search's own resolution. The row times the
+    "far" state from a cold start (alpha0 1, as the solve's first
+    iteration): ms a search (one launch replayed from a CUDA graph), its
+    probes, and ms a probe counting the alpha = 0 sweep; the plain version
+    and the host loop over the probe kernel are timed a search on the host
+    clock (their probes read back one by one)."""
+    import struct
+
+    from repro_torch.core import stepsize
+    from repro_torch.kernels.linesearch_probe.ref import newton_search_ref
+
+    def host_ms(fn) -> float:
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            fn()
+        return 1e3 * (time.perf_counter() - t0) / 20
+
+    size = torch.finfo(dtype).bits // 8
+    for kind, alpha0 in (("far", 1.0), ("near", 37.0), ("done", None)):
+        y, z, dy, dz = search_state(n, kind, 1, dtype)
+        host = stepsize._newton_step_host(y, z, dy, dz, eta, ls_eps=EPS, alpha0=alpha0)
+        dev = stepsize.newton_step(y, z, dy, dz, eta, ls_eps=EPS, alpha0=alpha0)
+        p_alpha, p_probes, p_completes = newton_search_ref(y, dy, z, dz, eta, EPS, alpha0).tolist()
+        same = (struct.pack("d", dev.alpha), dev.probes, dev.completes) == \
+            (struct.pack("d", host.alpha), host.probes, host.completes)
+        bar = EPS * max(dev.alpha, p_alpha)
+        near = dev.completes == bool(p_completes) and abs(dev.alpha - p_alpha) <= bar
+        check(failures, same, f"newton_search {dtype} [{n}, 1] {kind}, alpha0 {alpha0}: card {tuple(dev)} | host "
+                              f"loop {tuple(host)}")
+        check(failures, near, f"newton_search {dtype} [{n}, 1] {kind}, alpha0 {alpha0}: plain search "
+                              f"({p_alpha!r}, {int(p_probes)}, {bool(p_completes)}), |alpha - plain| "
+                              f"{abs(dev.alpha - p_alpha):.3g} (bar {bar:.3g})")
+        if kind == "far":
+            timed, err, probes, ok, far_bar = (y, z, dy, dz, alpha0), abs(dev.alpha - p_alpha), dev.probes, \
+                same and near, bar
+    y, z, dy, dz, alpha0 = timed
+    ms = device_ms(lambda: K.newton_search(y, dy, z, dz, eta, EPS, alpha0), 50)
+    plain_ms = host_ms(lambda: newton_search_ref(y, dy, z, dz, eta, EPS, alpha0).tolist())
+    loop_ms = host_ms(lambda: stepsize._newton_step_host(y, z, dy, dz, eta, ls_eps=EPS, alpha0=alpha0))
+    call = call_ms(lambda: stepsize.newton_step(y, z, dy, dz, eta, ls_eps=EPS, alpha0=alpha0), 50)
+    # bound: the inputs read once; operations of every sweep the search took
+    b_ms, b_by = bound(2 * (n + 1) * size, 9 * (n + 1) * (probes + 1), dtype)
+    r = dict(name="newton_search", dtype=str(dtype).removeprefix("torch."), shape=[n, 1], max_abs_err=err,
+             bar=far_bar, within_bar=ok, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+             call_ms=call, plain_call_ms=plain_ms, host_loop_ms=loop_ms, probes=probes,
+             ms_per_probe=ms / (probes + 1))
+    check(failures, ok, f"newton_search {r['dtype']} [{n}, 1]: {probes} probes; device ms a search {ms:.4f} "
+                        f"({r['ms_per_probe']:.4f} a probe with the alpha = 0 sweep), bound {b_ms:.4f} ({b_by}); "
+                        f"host clock ms a search: plain {plain_ms:.4f}, host loop over the probe kernel "
+                        f"{loop_ms:.4f}, newton_step with its read {call:.4f}")
+    return r
 
 
 def scored_pairs(S: int, causal: bool, window) -> int:
@@ -391,6 +477,11 @@ def full_solve(n_users: int, failures: list) -> dict:
     for name, count in launches.items():
         if name == "flash_attention":  # the LM plane's kernel, off this path
             check(failures, count == 0, f"{name} launched {count} times in the solve")
+        elif name == "linesearch_probe":  # the Newton search probes inside its own launch (phase 4 runs it)
+            check(failures, count == 0, f"{name} launched {count} times in the solve")
+        elif name == "newton_search":
+            check(failures, count == sol.mwu_iters_total,
+                  f"{name} launched {count} times in the solve, once an iteration ({sol.mwu_iters_total})")
         else:
             check(failures, count > 0, f"{name} launched {count} times in the solve")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,power.draw,power.limit,temperature.gpu",
@@ -426,12 +517,17 @@ def profile_call(prob, bound: float) -> dict:
                       if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0), reverse=True)
     busy_ms = sum(k[0] for k in kernels)
     port_ms = sum(k[0] for k in kernels if "rt::" in k[2])
+    search_ms = sum(k[0] for k in kernels if "newton_search" in k[2])
+    # host reads: the device-to-host copies (.item(), .tolist()) the solve made
+    reads = sum(e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA and "DtoH" in e.key)
     wall_per_iter = wall_ms / max(res.iters, 1)
     device_per_iter = busy_ms / max(profiled.iters, 1)
     out = dict(bound=bound, iters=res.iters, probes=res.ls_probes, wall_ms=wall_ms, wall_ms_per_iter=wall_per_iter,
                profiled_iters=profiled.iters, device_busy_ms=busy_ms, device_ms_per_iter=device_per_iter,
                device_idle_share=1.0 - device_per_iter / wall_per_iter if busy_ms else None,
-               port_kernels_ms=port_ms, other_device_ms=busy_ms - port_ms)
+               port_kernels_ms=port_ms, other_device_ms=busy_ms - port_ms, newton_search_ms=search_ms,
+               newton_search_share=search_ms / busy_ms if busy_ms else None, host_reads=reads,
+               host_reads_per_iter=reads / max(profiled.iters, 1))
     print(f"  profile of one feasibility solve: {json.dumps(out)}", flush=True)
     for ms, count, key in kernels[:16]:
         print(f"    {ms:10.2f} ms {count:7d} x  {key[:110]}", flush=True)
@@ -470,6 +566,37 @@ def small_solves(failures: list) -> None:
                               f"{a.objective:.6g} iters {a.mwu_iters_total} ({sols['cuda_s']:.1f} s) | cpu "
                               f"{Status.NAMES[b.status]} bound {b.bound:.6g} objective {b.objective:.6g} iters "
                               f"{b.mwu_iters_total} ({sols['cpu_s']:.1f} s)")
+
+
+def binary_solves(failures: list) -> dict:
+    """The binary step rule, card vs CPU: a host loop over the two-sided
+    probe kernel (one launch a probe), the path that still launches it."""
+    from repro_torch import kernels as K
+    from repro_torch.api import MWUOptions, Solver, Status
+    from repro_torch.graphs import build, rgg
+
+    g = rgg(12, seed=0)
+    opts = MWUOptions(eps=EPS, step_rule="binary")
+    families = ("match", "vcover")
+    sols = {(f, "cpu"): Solver(opts).solve(build(f, g, device="cpu")) for f in families}
+    probs = {f: build(f, g, device="cuda") for f in families}
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    for family in probs:
+        sols[family, "cuda"] = Solver(opts).solve(probs[family])
+    torch.cuda.synchronize()
+    launches = K.launch_counts()
+    for family in probs:
+        a, b = sols[family, "cuda"], sols[family, "cpu"]
+        same = a.status == b.status == Status.FEASIBLE and abs(a.bound - b.bound) <= 1e-5 * abs(b.bound)
+        same = same and abs(a.objective - b.objective) <= 2 * EPS * abs(b.objective)
+        check(failures, same, f"{family}, binary rule: card {Status.NAMES[a.status]} bound {a.bound:.6g} objective "
+                              f"{a.objective:.6g} probes {a.ls_probes_total} | cpu {Status.NAMES[b.status]} bound "
+                              f"{b.bound:.6g} objective {b.objective:.6g} probes {b.ls_probes_total}")
+    check(failures, launches["linesearch_probe"] > 0 and launches["newton_search"] == 0,
+          f"binary-rule solves launched linesearch_probe {launches['linesearch_probe']} times, newton_search "
+          f"{launches['newton_search']}")
+    return launches
 
 
 # -- phase 5 -----------------------------------------------------------------
@@ -577,7 +704,7 @@ def main() -> int:
     from repro_torch.kernels import loader
     from repro_torch.kernels.axpy_reduce.ref import axpy_reduce_ref
     from repro_torch.kernels.incidence_gather.ref import incidence_gather_ref
-    from repro_torch.kernels.linesearch_probe.ref import linesearch_probe_ref
+    from repro_torch.kernels.linesearch_probe.ref import linesearch_probe2_ref
     from repro_torch.kernels.softmax_weights.ref import softmax_weights_ref
     from repro_torch.core.mwu import make_eta
 
@@ -595,9 +722,9 @@ def main() -> int:
 
     print("== phase 2: kernels vs plain versions on the card", flush=True)
     refs = dict(incidence_gather=incidence_gather_ref, softmax_weights=softmax_weights_ref,
-                linesearch_probe=linesearch_probe_ref, axpy_reduce=axpy_reduce_ref)
+                linesearch_probe2=linesearch_probe2_ref, axpy_reduce=axpy_reduce_ref)
     n_vertices, n_items, n_edges = 497_959, 17_770, 98_609_647  # the full-size bmatch graph
-    eta = make_eta(n_vertices + 1, EPS)
+    eta = float(make_eta(n_vertices + 1, EPS))
     failures: list = []
     rows = []
     for dtype in (torch.float32, torch.float64):
@@ -612,6 +739,7 @@ def main() -> int:
 
     print("== phase 4: small solves, card vs CPU", flush=True)
     small_solves(failures)
+    binary_launches = binary_solves(failures)
     end_phase("4", failures)
 
     print("== phase 5: hubert-xlarge encoder forward at full width", flush=True)
@@ -620,8 +748,9 @@ def main() -> int:
     print(f"  total {time.perf_counter() - t_start:.1f} s", flush=True)
 
     # one entry per kernel: for the MWU kernels their float64 row at the
-    # solve's largest shape and the solve's launches; for flash attention
-    # row (a) in bf16 and the launches of one encoder forward
+    # solve's largest shape and the solve's launches (the probe kernel's from
+    # phase 4's binary-rule solves); for flash attention row (a) in bf16 and
+    # the launches of one encoder forward
     kernels = []
     for name, (source, replaces) in K.KERNELS.items():
         if name == "flash_attention":
@@ -629,7 +758,7 @@ def main() -> int:
             launches = enc["launches"][name]
         else:
             r = max((r for r in rows if r["name"] == name and r["dtype"] == "float64"), key=lambda r: r["shape"][0])
-            launches = info["launches"][name]
+            launches = (binary_launches if name == "linesearch_probe" else info["launches"])[name]
         kernels.append(dict(name=name, route="cuda", source=source, replaces=replaces, launches=launches,
                             **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                                                  "call_ms", "plain_call_ms", "shape", "dtype", "bar", "within_bar")}))

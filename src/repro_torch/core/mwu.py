@@ -14,12 +14,14 @@ iteration runs on the tensors' device:
 - two softmax-weight sweeps (``smoothing``: the softmax kernel),
 - two transposed products (``operators``: the gather kernel for incidence),
 - two scatter-add products (``index_add_``),
-- one step-size search (``stepsize``: two probe-kernel calls per probe),
+- one step-size search (``stepsize``: for the Newton rule on the card, one
+  launch of the search kernel; else one two-sided probe launch a probe),
 - three fused updates of x, y and z (the axpy kernel), whose min of z
   is the loop condition.
 
-The host reads max(d), each probe's six scalars and min(z) back per
-iteration. There is no backend option: CUDA tensors run the CUDA kernels,
+The host reads max(d), the step-size search's result and min(z) back per
+iteration: three reads with the Newton rule on the card, one more a probe
+on the host loops. There is no backend option: CUDA tensors run the CUDA kernels,
 CPU tensors their plain versions.
 
 State kept across iterations (paper Alg. 2 lines 3, 10, 15): x and the

@@ -13,30 +13,36 @@ once min(z + alpha dz) >= 1 while f(alpha) >= 1, then shrinks the step to
 the smallest completing alpha.
 
 The reference runs these searches as ``lax.while_loop``s on the device.
-Here they are Python loops over host floats: each probe evaluates both
-sides on the device (two :func:`repro_torch.kernels.linesearch_probe`
-calls for unmasked problems, the CUDA kernel on the card) and reads the
-six results back in one copy, which is one host sync per probe. The
-iteration caps and the probe counting are the reference's, so the same
-state gives the same alpha, ``completes`` and probe count, except where
-an ulp of difference decides one of the search's comparisons.
+Here the Newton search of an unmasked problem on the card is one launch
+of :func:`repro_torch.kernels.newton_search`, which runs the whole search
+there and is read back once. Elsewhere (the binary rule, masked problems,
+the CPU) the searches are Python loops over host floats: each probe
+evaluates both sides on the device (one
+:func:`repro_torch.kernels.linesearch_probe2` call for unmasked problems,
+the CUDA kernel on the card) and reads the six results back in one copy,
+which is one host sync per probe. The Newton search's host loop is the
+search kernel's plain version (``kernels/linesearch_probe/ref.py``); over
+the probe kernel on the card it is ``_newton_step_host``, and the search
+kernel gives the same alpha (bit for bit), probes and ``completes`` as
+that loop on the same state. The iteration caps and the probe counting
+are the reference's, so the same state gives the same alpha,
+``completes`` and probe count as the reference, except where an ulp of
+difference decides one of the search's comparisons.
 """
 from __future__ import annotations
 
-import math
 from typing import Callable, NamedTuple
 
 import torch
 
-from ..kernels import linesearch_probe
+from ..kernels import linesearch_probe2, newton_search
+from ..kernels.linesearch_probe.ref import (MAX_BIN_ITERS, Probe, fmax, newton_search_loop, ratio, refine_completion,
+                                            two_sided_probe_fn)
 from .smoothing import logsumexp_shifted
 
 __all__ = ["StepSizeResult", "standard_step", "binary_search_step", "newton_step", "make_probe_fn", "STEP_RULES"]
 
 _MAX_EXP_ITERS = 64  # 2^64 dynamic range is enough for any float32/64 alpha
-_MAX_BIN_ITERS = 64
-_MAX_NEWTON_ITERS = 30
-_MAX_BACKOFF_ITERS = 64
 
 
 class StepSizeResult(NamedTuple):
@@ -45,45 +51,19 @@ class StepSizeResult(NamedTuple):
     completes: bool  # this step satisfies all covering constraints
 
 
-class _Probe(NamedTuple):
-    """f(alpha) and its pieces at one probe point (host floats)."""
-
-    f: float
-    phi: float
-    psi: float
-    dphi: float
-    dpsi: float
-    min_z: float  # min of covering values at this alpha
-
-
 def _masked_min(v: torch.Tensor, mask) -> torch.Tensor:
     if mask is None:
         return v.min()
     return torch.where(mask, v, torch.inf).min()
 
 
-# NaN-propagating max/min/clip, as jnp.maximum/minimum/clip behave
-def _fmax(a: float, b: float) -> float:
-    return math.nan if (a != a or b != b) else (a if a >= b else b)
+def make_probe_fn(y, z, dy, dz, eta: float, p_mask=None, c_mask=None, with_grad=False) -> Callable[[float], Probe]:
+    """Close over the iteration state; returns probe(alpha) -> Probe.
 
-
-def _fmin(a: float, b: float) -> float:
-    return math.nan if (a != a or b != b) else (a if a <= b else b)
-
-
-def _ratio(phi: float, psi: float, tiny: float) -> float:
-    # covering must improve and packing must not decrease for the
-    # invariant to be meaningful; on degenerate steps psi can be ~0.
-    return math.inf if psi <= tiny else phi / _fmax(psi, tiny)
-
-
-def make_probe_fn(y, z, dy, dz, eta: float, p_mask=None, c_mask=None, with_grad=False) -> Callable[[float], _Probe]:
-    """Close over the iteration state; returns probe(alpha) -> _Probe.
-
-    Unmasked problems evaluate a probe as two fused probe sweeps (packing
-    side sign +1, covering side sign -1), which give the Newton slopes for
-    free; ``with_grad`` only matters on the masked path, as in the
-    reference.
+    Unmasked problems evaluate a probe as one two-sided probe sweep
+    (packing side sign +1, covering side sign -1), which gives the Newton
+    slopes for free; ``with_grad`` only matters on the masked path, as in
+    the reference.
     """
     tiny = torch.finfo(y.dtype).tiny
 
@@ -91,19 +71,9 @@ def make_probe_fn(y, z, dy, dz, eta: float, p_mask=None, c_mask=None, with_grad=
         buf = torch.empty(6, dtype=y.dtype, device=y.device)
 
         def sweep(alpha):
-            linesearch_probe(y, dy, alpha, eta, 1.0, out=buf[:3])
-            linesearch_probe(z, dz, alpha, eta, -1.0, out=buf[3:])
-            return buf.tolist()  # the one host sync of a probe
+            return linesearch_probe2(y, dy, z, dz, alpha, eta, out=buf).tolist()  # the one host sync of a probe
 
-        lse_y0, _, _, lse_z0, _, _ = sweep(0.0)
-
-        def probe_kernel(alpha: float) -> _Probe:
-            lse_ya, dpsi, _, lse_za, dphi, min_z = sweep(alpha)
-            psi = (lse_ya - lse_y0) / eta
-            phi = -(lse_za - lse_z0) / eta  # smin = -lse(-eta z)/eta
-            return _Probe(f=_ratio(phi, psi, tiny), phi=phi, psi=psi, dphi=dphi, dpsi=dpsi, min_z=min_z)
-
-        return probe_kernel
+        return two_sided_probe_fn(sweep, eta, tiny)
 
     ay = eta * y
     az = -eta * z
@@ -115,7 +85,7 @@ def make_probe_fn(y, z, dy, dz, eta: float, p_mask=None, c_mask=None, with_grad=
     lse_z0, _ = logsumexp_shifted(az)
     lse_y0, lse_z0 = torch.stack([lse_y0, lse_z0]).tolist()
 
-    def probe(alpha: float) -> _Probe:
+    def probe(alpha: float) -> Probe:
         ya = eta * (y + alpha * dy)
         za = -eta * (z + alpha * dz)
         if p_mask is not None:
@@ -134,7 +104,7 @@ def make_probe_fn(y, z, dy, dz, eta: float, p_mask=None, c_mask=None, with_grad=
         # Psi = smax(y+a dy) - smax(y);  Phi = smin(z+a dz) - smin(z)
         psi = (lse_ya - lse_y0) / eta
         phi = -(lse_za - lse_z0) / eta
-        return _Probe(f=_ratio(phi, psi, tiny), phi=phi, psi=psi, dphi=dphi, dpsi=dpsi, min_z=min_z)
+        return Probe(f=ratio(phi, psi, tiny), phi=phi, psi=psi, dphi=dphi, dpsi=dpsi, min_z=min_z)
 
     return probe
 
@@ -145,25 +115,6 @@ def standard_step(y, z, dy, dz, eta, p_mask=None, c_mask=None, ls_eps=0.1, alpha
     return StepSizeResult(alpha=1.0, probes=0, completes=min_z >= 1)
 
 
-def _refine_completion(probe, hi: float, ls_eps: float) -> tuple[float, int]:
-    """Smallest alpha in (0, hi] with min_z(alpha) >= 1 (monotone in alpha).
-
-    The completing step must not overshoot: covering overshoot translates
-    directly into packing violation beyond (1+eps). Bisect to within
-    ls_eps relative width; the result still satisfies the bang-for-buck
-    invariant because f is decreasing (smaller alpha => larger f).
-    """
-    lo, h, n = 0.0, hi, 0
-    while h - lo > ls_eps * h and n < _MAX_BIN_ITERS:
-        mid = 0.5 * (lo + h)
-        if probe(mid).min_z >= 1:
-            h = mid
-        else:
-            lo = mid
-        n += 1
-    return _fmax(h, 1.0), n
-
-
 def binary_search_step(y, z, dy, dz, eta, p_mask=None, c_mask=None, ls_eps=0.1, alpha0=None) -> StepSizeResult:
     """Algorithm 3: exponential bracket + binary search, warm-startable.
 
@@ -172,7 +123,7 @@ def binary_search_step(y, z, dy, dz, eta, p_mask=None, c_mask=None, ls_eps=0.1, 
     (paper, Alg. 2 line 12).
     """
     probe = make_probe_fn(y, z, dy, dz, eta, p_mask, c_mask)
-    a0 = 1.0 if alpha0 is None else _fmax(alpha0, 1.0)
+    a0 = 1.0 if alpha0 is None else fmax(alpha0, 1.0)
     p0 = probe(a0)
 
     # --- upward exponential phase: double while f >= 1 ------------------
@@ -199,7 +150,7 @@ def binary_search_step(y, z, dy, dz, eta, p_mask=None, c_mask=None, ls_eps=0.1, 
 
     # --- binary phase ----------------------------------------------------
     n_bin, done = 0, completed_up
-    while not done and ub - lb > ls_eps * lb and n_bin < _MAX_BIN_ITERS:
+    while not done and ub - lb > ls_eps * lb and n_bin < MAX_BIN_ITERS:
         beta = 0.5 * (lb + ub)
         p = probe(beta)
         ok = p.f >= 1
@@ -216,7 +167,7 @@ def binary_search_step(y, z, dy, dz, eta, p_mask=None, c_mask=None, ls_eps=0.1, 
     completes = _masked_min(z + alpha * dz, c_mask).item() >= 1
     n_ref = 0
     if completes:
-        alpha, n_ref = _refine_completion(probe, alpha, ls_eps)
+        alpha, n_ref = refine_completion(probe, alpha, ls_eps)
     return StepSizeResult(alpha=alpha, probes=n_exp + n_bin + n_ref, completes=completes)
 
 
@@ -224,36 +175,23 @@ def newton_step(y, z, dy, dz, eta, p_mask=None, c_mask=None, ls_eps=0.1, alpha0=
     """Warm-started, safeguarded Newton on g(alpha) = f(alpha) - 1 (§4.2).
 
     After convergence, multiplicatively backs off by (1 - ls_eps) until the
-    bang-for-buck invariant (16) holds, as the paper prescribes.
+    bang-for-buck invariant (16) holds, as the paper prescribes. An
+    unmasked search is one call of :func:`repro_torch.kernels.newton_search`
+    (on the card one launch, read once; on the CPU its plain version, the
+    host loop); a masked one runs the host loop over masked probes.
     """
+    if p_mask is None and c_mask is None:
+        alpha, probes, completes = newton_search(y, dy, z, dz, eta, ls_eps, alpha0).tolist()
+        return StepSizeResult(alpha=alpha, probes=int(probes), completes=bool(completes))
+    return _newton_step_host(y, z, dy, dz, eta, p_mask, c_mask, ls_eps, alpha0)
+
+
+def _newton_step_host(y, z, dy, dz, eta, p_mask=None, c_mask=None, ls_eps=0.1, alpha0=None) -> StepSizeResult:
+    """``newton_step`` as a host loop over ``make_probe_fn``'s probes (one
+    host sync each): the masked path, and over the probe kernel on the card
+    the search kernel's oracle."""
     probe = make_probe_fn(y, z, dy, dz, eta, p_mask, c_mask, with_grad=True)
-    tiny = torch.finfo(y.dtype).tiny
-    a = 1.0 if alpha0 is None else _fmax(alpha0, 1e-6)
-    p, n, done = probe(a), 1, False
-    while not done and n < _MAX_NEWTON_ITERS:
-        # f' = (Phi' Psi - Phi Psi') / Psi^2   (negative: f is decreasing)
-        psi2 = _fmax(p.psi * p.psi, tiny)
-        fp = _fmin((p.dphi * p.psi - p.phi * p.dpsi) / psi2, -tiny)  # enforce the known sign
-        raw = a - (p.f - 1.0) / fp
-        # trust-region safeguard: at most 8x move per iteration
-        a2 = _fmax(_fmin(_fmax(raw, a * 0.125), a * 8.0), 1e-12)
-        p2 = probe(a2)
-        done = abs(a2 - a) <= ls_eps * a or (p2.f >= 1 and p2.min_z >= 1)
-        a, p, n = a2, p2, n + 1
-
-    # back off multiplicatively until invariant satisfied (paper §4.2)
-    n_bo = 0
-    while p.f < 1 and n_bo < _MAX_BACKOFF_ITERS:
-        a *= 1.0 - ls_eps
-        p = probe(a)
-        n_bo += 1
-
-    # completion refinement: smallest alpha that satisfies covering
-    completes = p.min_z >= 1 and p.f >= 1
-    n_ref = 0
-    if completes:
-        a, n_ref = _refine_completion(probe, a, ls_eps)
-    return StepSizeResult(alpha=a, probes=n + n_bo + n_ref, completes=completes)
+    return StepSizeResult(*newton_search_loop(probe, torch.finfo(y.dtype).tiny, ls_eps, alpha0))
 
 
 STEP_RULES = {

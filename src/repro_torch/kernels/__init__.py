@@ -1,5 +1,7 @@
 """Hand-written CUDA kernels, one folder per kernel: the four of the MWU
-hot path and the flash attention of the LM plane's encoder forward.
+hot path and the flash attention of the LM plane's encoder forward. The
+line-search probe's folder also holds the Newton step-size search, which
+runs the whole search over its probes in one launch (``newton_search``).
 
 Each folder holds ``ops.py`` (the wrapper its callers call) and ``ref.py``
 (its plain PyTorch version); the CUDA sources are in ``csrc/`` and
@@ -13,7 +15,7 @@ the card since :func:`reset_launch_counts`.
 from .axpy_reduce import axpy_reduce
 from .flash_attention import flash_attention
 from .incidence_gather import incidence_gather
-from .linesearch_probe import linesearch_probe
+from .linesearch_probe import linesearch_probe, linesearch_probe2, newton_search
 from .loader import LAUNCHES
 from .softmax_weights import softmax_weights
 
@@ -23,6 +25,8 @@ __all__ = [
     "flash_attention",
     "incidence_gather",
     "linesearch_probe",
+    "linesearch_probe2",
+    "newton_search",
     "softmax_weights",
     "launch_counts",
     "reset_launch_counts",
@@ -36,6 +40,8 @@ KERNELS = {
                         "src/repro/kernels/softmax_weights/kernel.py:82"),
     "linesearch_probe": ("src/repro_torch/kernels/csrc/linesearch_probe.cu",
                          "src/repro/kernels/linesearch_probe/kernel.py:83"),
+    "newton_search": ("src/repro_torch/kernels/csrc/linesearch_probe.cu",
+                      "src/repro/core/stepsize.py:261"),
     "axpy_reduce": ("src/repro_torch/kernels/csrc/axpy_reduce.cu",
                     "src/repro/kernels/axpy_reduce/kernel.py:55"),
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",

@@ -1,1 +1,1 @@
-from .ops import linesearch_probe
+from .ops import linesearch_probe, linesearch_probe2, newton_search

@@ -39,6 +39,7 @@ __all__ = [
     "build",
     "build_log",
     "partial_blocks",
+    "scratch",
     "check_status",
     "stream_handle",
     "kernel_fn",
@@ -51,8 +52,10 @@ BUILD_DIR = Path(__file__).resolve().parent / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
 
-# Launch geometry of the reductions, as csrc/common.cuh uses it: 256
-# threads a block and at most one partial per resident block (132 SMs x 8).
+# Launch geometry of axpy_reduce's two-launch reduction, as
+# csrc/common.cuh uses it: 256 threads a block and at most one partial per
+# resident block (132 SMs x 8). The one-launch reductions size their grids
+# themselves.
 THREADS = 256
 MAX_PARTIALS = 132 * 8
 
@@ -69,8 +72,13 @@ _F64 = ctypes.c_double
 _FLOAT = (torch.float32, torch.float64)
 _ENTRY_POINTS = {
     "rt_incidence_gather": ([_PTR, _PTR, _PTR, _PTR, _I64, _PTR], _FLOAT),
-    "rt_softmax_weights": ([_PTR, _F64, _I64, _INT, _PTR, _PTR, _PTR, _PTR], _FLOAT),
-    "rt_linesearch_probe": ([_PTR, _PTR, _F64, _F64, _I64, _INT, _PTR, _PTR, _PTR], _FLOAT),
+    # v, se, n, part, stats, w, stream
+    "rt_softmax_weights": ([_PTR, _F64, _I64, _PTR, _PTR, _PTR, _PTR], _FLOAT),
+    # y, dy, ny, se_y, z, dz, nz, se_z, alpha, part, out, stream
+    "rt_linesearch_probe2": ([_PTR, _PTR, _I64, _F64, _PTR, _PTR, _I64, _F64, _F64, _PTR, _PTR, _PTR], _FLOAT),
+    # y, dy, ny, z, dz, nz, eta, ls_eps, alpha0, has_alpha0, tiny, part, out, stream
+    "rt_newton_search": ([_PTR, _PTR, _I64, _PTR, _PTR, _I64, _F64, _F64, _F64, _INT, _F64, _PTR, _PTR, _PTR],
+                         _FLOAT),
     "rt_axpy_reduce": ([_PTR, _PTR, _F64, _I64, _INT, _PTR, _PTR, _PTR, _PTR], _FLOAT),
     # q, k, v, o; B, S, Hq, Hkv, D; (batch, seq, head) strides of q, k, v, o; causal, window; stream
     "rt_flash_attention": ([_PTR] * 4 + [_INT] * 5 + [_I64] * 12 + [_INT, _INT, _PTR], (torch.bfloat16, torch.float32)),
@@ -160,6 +168,8 @@ def load() -> ctypes.CDLL:
     lib.rt_error_string.restype = ctypes.c_char_p
     lib.rt_flash_bf16_config.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
     lib.rt_flash_bf16_config.restype = ctypes.c_int
+    lib.rt_max_partials.argtypes = []
+    lib.rt_max_partials.restype = ctypes.c_int
     return lib
 
 
@@ -181,6 +191,20 @@ def check_status(rc: int, name: str) -> None:
 def partial_blocks(n: int) -> int:
     """Blocks of a reduction sweep over n elements (= partial states)."""
     return max(1, min(-(-n // THREADS), MAX_PARTIALS))
+
+
+def scratch(name: str, like: torch.Tensor, states: int) -> torch.Tensor:
+    """The partials' scratch of a one-launch reduction over ``like``: room for
+    ``states`` values of like's dtype per partial, as many partials as a grid
+    may have (the kernels size their grids themselves). Kept for the life
+    of the process, one per (name, device, current stream, dtype, size), so
+    that two launches share one only in stream order."""
+    return _scratch(name, like.device, stream_handle(like), like.dtype, states * load().rt_max_partials())
+
+
+@functools.lru_cache(maxsize=None)
+def _scratch(name: str, device: torch.device, stream: int, dtype: torch.dtype, numel: int) -> torch.Tensor:
+    return torch.empty(numel, dtype=dtype, device=device)
 
 
 def stream_handle(t: torch.Tensor) -> int:

@@ -20,13 +20,12 @@ def softmax_weights(v: torch.Tensor, eta: float, sign: float = 1.0):
     n = v.shape[0]
     if n == 0:
         raise ValueError("softmax_weights: empty vector")
-    nb = loader.partial_blocks(n)
-    part = torch.empty(2 * nb, dtype=dtype, device=v.device)
     stats = torch.empty(2, dtype=dtype, device=v.device)
     w = torch.empty(n, dtype=dtype, device=v.device)
     with torch.cuda.device(v.device):
+        part = loader.scratch("softmax_weights", v, 2)
         rc = loader.kernel_fn("rt_softmax_weights", dtype)(
-            v.data_ptr(), float(sign) * float(eta), n, nb, part.data_ptr(), stats.data_ptr(), w.data_ptr(),
+            v.data_ptr(), float(sign) * float(eta), n, part.data_ptr(), stats.data_ptr(), w.data_ptr(),
             loader.stream_handle(v),
         )
     loader.check_status(rc, "softmax_weights")

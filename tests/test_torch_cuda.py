@@ -7,6 +7,8 @@ and without jax it runs alone, skipping the repo's conftest.py:
 
     PYTHONPATH=src python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
+import struct
+
 import numpy as np
 import pytest
 import torch
@@ -20,7 +22,8 @@ from repro_torch.graphs import bipartite_ratings, build, generalized_matching_pr
 from repro_torch.kernels.axpy_reduce.ref import axpy_reduce_ref
 from repro_torch.kernels.flash_attention.ref import flash_attention_plain
 from repro_torch.kernels.incidence_gather.ref import incidence_gather_ref
-from repro_torch.kernels.linesearch_probe.ref import linesearch_probe_ref
+from repro_torch.core import stepsize
+from repro_torch.kernels.linesearch_probe.ref import linesearch_probe2_ref, linesearch_probe_ref, newton_search_ref
 from repro_torch.kernels.softmax_weights.ref import softmax_weights_ref
 from repro_torch.models import Model
 
@@ -57,6 +60,9 @@ def test_kernels_match_plain_on_card(cuda, n, dtype):
         ref = linesearch_probe_ref(y, dy, 7.5, 97.0, sign=sign)
         assert float((got - ref).abs().max()) <= tol * max(1.0, float(ref.abs().max()))
         assert float(got[2]) == float(ref[2])  # min(y + alpha dy): exact
+    got = K.linesearch_probe2(yc, dyc, yc[: n // 2 + 1], dyc[: n // 2 + 1], 7.5, 97.0).cpu()
+    ref = linesearch_probe2_ref(y, dy, y[: n // 2 + 1], dy[: n // 2 + 1], 7.5, 97.0)
+    assert float((got - ref).abs().max()) <= tol * max(1.0, float(ref.abs().max()))
 
     out, mn, mx = K.axpy_reduce(yc, dyc, 3.25)
     out_r, mn_r, mx_r = axpy_reduce_ref(y, dy, 3.25)
@@ -68,8 +74,149 @@ def test_kernels_match_plain_on_card(cuda, n, dtype):
     g = K.incidence_gather(idx.to(cuda), jdx.to(cuda), yc)
     assert torch.equal(g.cpu(), incidence_gather_ref(idx, jdx, y))
     torch.cuda.synchronize()
-    assert K.launch_counts() == {"incidence_gather": 1, "softmax_weights": 1, "linesearch_probe": 2,
-                                 "axpy_reduce": 1, "flash_attention": 0}
+    assert K.launch_counts() == {"incidence_gather": 1, "softmax_weights": 1, "linesearch_probe": 3,
+                                 "newton_search": 0, "axpy_reduce": 1, "flash_attention": 0}
+
+
+def _bits(x: float) -> bytes:
+    return struct.pack("d", x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [1, 3, 255, 256, 257, 9999, 497_959])
+@pytest.mark.parametrize("nz", ["1", "n"])
+def test_probe2_and_softmax_match_plain_on_card(cuda, n, nz, dtype):
+    """The two-sided probe (one launch) and the one-launch softmax weights
+    against their plain versions at the bars of tests/test_kernels.py, the
+    probe's mins exact, Sum w = 1; two launches on one input bitwise equal."""
+    tol = 1e-4 if dtype == torch.float32 else 1e-10
+    m = 1 if nz == "1" else n
+    gen = torch.Generator().manual_seed(n + m)
+    y, z = torch.rand(n, generator=gen, dtype=dtype), torch.rand(m, generator=gen, dtype=dtype)
+    dy, dz = (torch.rand(k, generator=gen, dtype=dtype) * 1e-3 for k in (n, m))
+    eta = float(10 * np.log(n + m + 1) / 0.1)  # the solver's eta at this size
+    args = [t.to(cuda) for t in (y, dy, z, dz)]
+    K.reset_launch_counts()
+    got, again = (K.linesearch_probe2(*args, 7.5, eta) for _ in range(2))
+    ref = linesearch_probe2_ref(y, dy, z, dz, 7.5, eta)
+    assert torch.equal(got, again)
+    got = got.cpu()
+    assert float((got - ref).abs().max()) <= tol * max(1.0, float(ref.abs().max()))
+    assert float(got[2]) == float(ref[2]) and float(got[5]) == float(ref[5])
+
+    (lse, w), (lse2, w2) = (K.softmax_weights(args[2], eta, sign=-1.0) for _ in range(2))
+    lse_r, w_r = softmax_weights_ref(z, eta, sign=-1.0)
+    assert torch.equal(w, w2) and float(lse) == float(lse2)
+    assert abs(float(lse) - float(lse_r)) <= tol * max(1.0, abs(float(lse_r)))
+    assert float((w.cpu() - w_r).abs().max()) <= tol
+    assert abs(float(w.sum()) - 1.0) <= tol
+    torch.cuda.synchronize()
+    assert K.launch_counts()["linesearch_probe"] == 2 and K.launch_counts()["softmax_weights"] == 2
+
+
+@pytest.mark.cuda
+def test_one_launch_reductions_on_views_on_card(cuda):
+    """Vectors off 16-byte alignment (views at an odd offset) take the
+    kernels' scalar loads: the same values as the plain versions."""
+    base = torch.rand(20_001, dtype=torch.float64, device=cuda)
+    v, dv = base[1:], base[:-1] * 1e-3
+    lse, w = K.softmax_weights(v, 80.0)
+    lse_r, w_r = softmax_weights_ref(v, 80.0)
+    assert float((w - w_r).abs().max()) <= 1e-10 and abs(float(lse - lse_r)) <= 1e-10 * abs(float(lse_r))
+    got = K.linesearch_probe2(v, dv, base[3:700], base[2:699] * 1e-3, 2.5, 80.0)
+    ref = linesearch_probe2_ref(v, dv, base[3:700], base[2:699] * 1e-3, 2.5, 80.0)
+    assert float((got - ref).abs().max()) <= 1e-10 * max(1.0, float(ref.abs().max()))
+
+
+@pytest.mark.cuda
+def test_one_launch_reductions_beyond_one_wave_on_card(cuda):
+    """40M elements: many more tiles than the co-resident grid has blocks,
+    so each block walks many tiles and the grid barrier still completes."""
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    y = torch.rand(40_000_000, generator=gen, device=cuda, dtype=torch.float64)
+    dy = torch.rand(40_000_000, generator=gen, device=cuda, dtype=torch.float64) * 1e-3
+    lse, w = K.softmax_weights(y, 30.0)
+    lse_r, w_r = softmax_weights_ref(y, 30.0)
+    assert float((w - w_r).abs().max()) <= 1e-10 and abs(float(lse - lse_r)) <= 1e-10 * abs(float(lse_r))
+    z, dz = y[:5].clone() * 0.3, dy[:5].clone()
+    got = stepsize.newton_step(y * 0.3, z, dy, dz, 30.0, ls_eps=0.1, alpha0=1.0)
+    host = stepsize._newton_step_host(y * 0.3, z, dy, dz, 30.0, ls_eps=0.1, alpha0=1.0)
+    assert (_bits(got.alpha), got.probes, got.completes) == (_bits(host.alpha), host.probes, host.completes)
+
+
+def _search_state(n, m, kind, seed, dtype, device):
+    """A mid-solve state (tests/test_torch_stepsize.py's _state) at n packing
+    and m covering rows."""
+    rng = np.random.default_rng(seed)
+    y, dy = rng.random(n) * 0.3, rng.random(n) * 1e-3
+    dz = rng.random(m) * 4e-3 + 1e-4
+    z = rng.random(m) * 0.3
+    if kind == "near":
+        z = 1.0 - dz * rng.uniform(0.5, 3.0, m)
+    elif kind == "done":
+        z = 1.0 - dz * rng.uniform(0.2, 0.9, m)
+    return [torch.from_numpy(t).to(dtype).to(device) for t in (y, z, dy, dz)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("alpha0", [None, 1.0, 37.0])
+@pytest.mark.parametrize("kind", ["far", "near", "done"])
+@pytest.mark.parametrize("m", ["1", "n"])
+@pytest.mark.parametrize("n", [1, 12, 300, 9999, 497_959])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_newton_search_matches_host_loop_on_card(cuda, dtype, n, m, kind, alpha0):
+    """The search kernel (one launch, one host read) against the host loop
+    over the two-sided probe kernel on the same state: the same alpha bit
+    for bit, the same probes and completes."""
+    y, z, dy, dz = _search_state(n, 1 if m == "1" else n, kind, n, dtype, cuda)
+    eta = float(10 * np.log(n + z.shape[0]) / 0.1) if n > 12 else 50.0
+    host = stepsize._newton_step_host(y, z, dy, dz, eta, ls_eps=0.1, alpha0=alpha0)
+    K.reset_launch_counts()
+    got = stepsize.newton_step(y, z, dy, dz, eta, ls_eps=0.1, alpha0=alpha0)
+    assert K.launch_counts()["newton_search"] == 1 and K.launch_counts()["linesearch_probe"] == 0
+    assert (_bits(got.alpha), got.probes, got.completes) == (_bits(host.alpha), host.probes, host.completes)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("alpha0", [None, 37.0])
+@pytest.mark.parametrize("kind", ["far", "near", "done"])
+@pytest.mark.parametrize("n", [1, 300, 497_959])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_newton_search_near_plain_search_on_card(cuda, dtype, n, kind, alpha0):
+    """The search kernel against its plain version, the same loop over plain
+    PyTorch probes (no code shared with the kernel's sweep and fold): the
+    same completes, alpha within ls_eps * alpha (the search's resolution;
+    the probes differ by rounding)."""
+    y, z, dy, dz = _search_state(n, 1, kind, n, dtype, cuda)
+    eta = float(10 * np.log(n + 1) / 0.1) if n > 12 else 50.0
+    got = stepsize.newton_step(y, z, dy, dz, eta, ls_eps=0.1, alpha0=alpha0)
+    alpha, _, completes = newton_search_ref(y, dy, z, dz, eta, 0.1, alpha0).tolist()
+    assert got.completes == bool(completes)
+    assert abs(got.alpha - alpha) <= 0.1 * max(got.alpha, alpha), (tuple(got), alpha)
+
+
+@pytest.mark.cuda
+def test_one_launch_reductions_on_two_streams_on_card(cuda):
+    """Launches on two streams at once keep their partials apart: each gives
+    its plain version's values."""
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    ins = [torch.rand(4, 2_000_000, generator=gen, device=cuda, dtype=torch.float64) * s for s in (1.0, 1.5)]
+    streams = [torch.cuda.Stream(cuda) for _ in ins]
+    torch.cuda.synchronize()
+    outs = []
+    for x, st in zip(ins, streams):
+        with torch.cuda.stream(st):
+            y, dy, z, dz = x[0], x[1] * 1e-3, x[2], x[3] * 1e-3
+            outs.append([(K.linesearch_probe2(y, dy, z, dz, 2.5, 40.0), K.softmax_weights(y, 40.0)[1])
+                         for _ in range(20)])
+    torch.cuda.synchronize()
+    for x, res in zip(ins, outs):
+        y, dy, z, dz = x[0], x[1] * 1e-3, x[2], x[3] * 1e-3
+        ref, w_r = linesearch_probe2_ref(y, dy, z, dz, 2.5, 40.0), softmax_weights_ref(y, 40.0)[1]
+        for got, w in res:
+            assert float((got - ref).abs().max()) <= 1e-10 * max(1.0, float(ref.abs().max()))
+            assert float((w - w_r).abs().max()) <= 1e-10
 
 
 @pytest.mark.cuda
@@ -115,7 +262,26 @@ def test_card_solve_matches_cpu(cuda, family):
     counts = K.launch_counts()
     assert counts["softmax_weights"] > 0 and counts["axpy_reduce"] > 0
     assert (counts["incidence_gather"] > 0) == (family != "dom-set")  # dom-set's ops are scatter-based
-    assert (counts["linesearch_probe"] > 0) == (family != "gen-match")  # masked probes stay plain
+    # unmasked Newton searches run on the card in one launch each; masked
+    # ones (gen-match) run the host loop over plain probes
+    assert (counts["newton_search"] > 0) == (family != "gen-match")
+    assert counts["linesearch_probe"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["match", "bmatch", "vcover"])
+def test_card_binary_solve_matches_cpu(cuda, family):
+    """The binary step rule on the card: a host loop over the two-sided
+    probe kernel, one launch a probe; bars as above."""
+    opts = MWUOptions(eps=EPS, step_rule="binary")
+    cpu = Solver(opts).solve(_problem(family, "cpu"))
+    K.reset_launch_counts()
+    card = Solver(opts).solve(_problem(family, cuda))
+    assert card.status == cpu.status == Status.FEASIBLE
+    assert card.bound == pytest.approx(cpu.bound, rel=1e-5)
+    assert card.objective == pytest.approx(cpu.objective, rel=2 * EPS)
+    counts = K.launch_counts()
+    assert counts["linesearch_probe"] > 0 and counts["newton_search"] == 0
 
 
 FLASH_TOLS = {torch.float32: 3e-5, torch.bfloat16: 2e-2}  # tests/test_kernels.py

@@ -1,10 +1,11 @@
-"""The port's four kernel functions vs the reference's Pallas kernels.
+"""The port's kernel functions vs the reference's Pallas kernels.
 
 On the CPU each ``repro_torch.kernels`` wrapper runs its plain version
 (its tensors lie on the CPU); it is held against the reference's Pallas
 kernel in interpret mode (``impl="pallas"``), at the sizes and bars of
 tests/test_kernels.py: the gather bit-exact, softmax and probe within
-1e-4 at f32 and 1e-10 at f64, axpy within min(TOL, 1e-6).
+1e-4 at f32 and 1e-10 at f64, axpy within min(TOL, 1e-6). The two-sided
+probe is held against two calls of the reference's probe, one a side.
 
 The CUDA kernels themselves are held against these plain versions on the
 card in tests/test_torch_cuda.py.
@@ -74,6 +75,24 @@ def test_linesearch_probe(n, sign, dtype):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n,nz", [(9, 1), (1024, 1), (3333, 1), (9, 9), (1024, 77), (3333, 3333)])
+def test_linesearch_probe2(n, nz, dtype):
+    """Both sides in one call: (y, dy) at sign +1, then (z, dz) at sign -1."""
+    rng = np.random.default_rng(n + nz)
+    tol = TOLS[dtype]
+    y, z = rng.random(n).astype(dtype), rng.random(nz).astype(dtype)
+    dy, dz = (rng.random(n) * 1e-3).astype(dtype), (rng.random(nz) * 1e-3).astype(dtype)
+    out = torch.empty(6, dtype=TORCH[dtype])
+    got = K.linesearch_probe2(*map(torch.from_numpy, (y, dy, z, dz)), 7.5, 97.0, out=out)
+    assert got.data_ptr() == out.data_ptr() and got.dtype == TORCH[dtype]
+    ref = [float(v) for x, dx, sign in ((y, dy, 1.0), (z, dz, -1.0))
+           for v in ref_probe(jnp.asarray(x), jnp.asarray(dx), jnp.asarray(7.5, dtype), jnp.asarray(97.0, dtype),
+                              sign=sign, impl="pallas")]
+    for a, b in zip(got.tolist(), ref):
+        assert abs(a - b) < tol, (a, b)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("n", SIZES)
 def test_axpy_reduce(n, dtype):
     rng = np.random.default_rng(n)
@@ -102,6 +121,8 @@ def test_cpu_calls_launch_nothing():
     K.axpy_reduce(x, x, 0.5)
     K.softmax_weights(x, 3.0)
     K.linesearch_probe(x, x, 0.5, 3.0)
+    K.linesearch_probe2(x, x, x[:3], x[:3], 0.5, 3.0)
+    K.newton_search(x, x * 1e-3, x[:3], x[:3] * 1e-3, 3.0, 0.1)
     K.incidence_gather(torch.zeros(4, dtype=torch.int32), torch.ones(4, dtype=torch.int32), x)
     assert K.launch_counts() == {name: 0 for name in K.KERNELS}
 

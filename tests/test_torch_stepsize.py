@@ -18,7 +18,9 @@ import pytest
 import torch
 
 from repro.core import stepsize as R
+from repro_torch import kernels as K
 from repro_torch.core import stepsize as T
+from repro_torch.kernels.linesearch_probe import ops as probe_ops
 
 LS_EPS = 0.1
 
@@ -81,6 +83,31 @@ def test_step_rule_parity(rule, masked, alpha0):
         assert abs(got.alpha - float(ref.alpha)) <= LS_EPS * float(ref.alpha), (seed, kind, got.alpha)
         completing += got.completes
     assert 0 < completing < len(CASES)  # both branches of the search are exercised
+
+
+@pytest.mark.parametrize("alpha0", [None, 1.0, 37.0])
+@pytest.mark.parametrize("masked", [False, True], ids=["plain", "masked"])
+def test_newton_step_takes_host_loop_off_card(monkeypatch, masked, alpha0):
+    """On CPU tensors newton_step runs a host loop and launches nothing: a
+    masked state through _newton_step_host, an unmasked one through the
+    search wrapper, whose CPU path is its plain version (the same loop over
+    plain probes); both give _newton_step_host's result."""
+    calls = []
+    host, plain = T._newton_step_host, probe_ops.newton_search_ref
+    monkeypatch.setattr(T, "_newton_step_host", lambda *a, **k: calls.append("host") or host(*a, **k))
+    monkeypatch.setattr(probe_ops, "newton_search_ref", lambda *a, **k: calls.append("plain") or plain(*a, **k))
+    K.reset_launch_counts()
+    for seed, kind in CASES:
+        args = [torch.from_numpy(t) for t in _state(seed, kind)]
+        pm, cm = (torch.from_numpy(m) for m in _masks(seed)) if masked else (None, None)
+        got = T.newton_step(*args, 50.0, pm, cm, ls_eps=LS_EPS, alpha0=alpha0)
+        assert got == host(*args, 50.0, pm, cm, ls_eps=LS_EPS, alpha0=alpha0)
+        if not masked:
+            y, z, dy, dz = args
+            alpha, probes, completes = K.newton_search(y, dy, z, dz, 50.0, LS_EPS, alpha0).tolist()
+            assert (alpha, int(probes), bool(completes)) == tuple(got)
+    assert calls == (["host"] * len(CASES) if masked else ["plain"] * (2 * len(CASES)))
+    assert K.launch_counts() == {name: 0 for name in K.KERNELS}
 
 
 @pytest.mark.parametrize("masked", [False, True], ids=["plain", "masked"])
