@@ -34,6 +34,15 @@ non-zero before the result lines are printed.
    states a dtype: equal bit for bit to the host loop over the probe
    kernel, and within ls_eps * alpha of its plain version (the same loop
    over plain PyTorch probes), whose time is the row's plain time.
+   ``step_direction`` (g gathered from w, as bmatch's solve runs it) must
+   give d bit for bit as the plain eager chain, in both of its sources, and
+   max(d) exactly. ``incidence_scatter`` runs M x with the items' Zipf
+   popularity of the bmatch graph (one item of ~740k entries): within
+   1e-4 (f32) / 1e-10 (f64) of its plain version relative to max(1,
+   |plain|), two launches bitwise equal, with the v side as the operator
+   cuts it into slabs of x and in one piece (that segment spans hundreds
+   of merge tiles); its library time is the two ``index_add_`` calls it
+   replaces.
 3. The full-size solve: bipartite matching (bmatch) at float64 on the
    Netflix Prize shape, ``bipartite_ratings(480_189, 17_770,
    avg_ratings=209, seed=0)`` (498k vertices, 98.6M edges), through
@@ -41,15 +50,22 @@ non-zero before the result lines are printed.
    The certified objective must be within 1.5*eps of the exact maximum
    matching (scipy's Hopcroft-Karp; the bipartite matching LP is
    integral) and max(Mx), recomputed on the host, at most 1 + 1e-9.
-   The launch counts of this phase show that the solve went through every
-   MWU kernel but the probe's: the Newton search, launched once an
-   iteration, probes inside its own launch. One more feasibility solve at
-   the certified bound is timed, then profiled for the device time by
-   kernel, the search's share and the host reads (device-to-host copies)
-   an iteration. ``--n-users`` cuts the user
-   count (items and ratings per user stay).
+   The scatter's CSR (bytes, build time) is built first. The solve runs
+   twice: the two must give the same feasibility calls, iterations,
+   probes, objective and x bits (no atomics in the scatter). The launch
+   counts of the first show that it went through every MWU kernel but the
+   probe's and the standalone gather's: the Newton search and the step
+   direction, each launched once an iteration, probe and gather inside
+   their own launches. One more feasibility solve at the certified bound
+   is timed, then profiled (the two repeat) for the device time by kernel,
+   the search's share and the host reads (device-to-host copies) an
+   iteration; the profile must show the scatter and step-direction kernels
+   and no ``index_add_`` kernel. ``--n-users`` cuts the user count (items
+   and ratings per user stay).
 4. Small solves, card vs CPU, for all six families: same status, bound
-   within rel 1e-5, objective within rel 2*eps. Then match and vcover on
+   within rel 1e-5, objective within rel 2*eps; each card solve run twice
+   repeats bit for bit, and their launches give the gather's count in the
+   kernels line. Then match and vcover on
    rgg(12) with ``step_rule="binary"``: its host loop launches the probe
    kernel once a probe, and those launches are the probe's count in the
    kernels line.
@@ -152,6 +168,9 @@ def bound(nbytes: int, ops: int, dtype) -> tuple[float, str]:
 def kernel_rows(K, refs, n_vertices: int, n_items: int, n_edges: int, dtype, eta: float,
                 failures: list) -> list[dict]:
     """Each kernel vs its plain version at the main path's shapes in ``dtype``."""
+    from repro_torch.core.operators import Incidence
+    from repro_torch.kernels.incidence_scatter import MERGE_TILE, segments
+
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     size = torch.finfo(dtype).bits // 8
@@ -185,7 +204,76 @@ def kernel_rows(K, refs, n_vertices: int, n_items: int, n_edges: int, dtype, eta
     check(failures, lib_err <= tol, f"sparse M^T w agrees with the gather ({lib_err:.3g})")
     row("incidence_gather", [E, n], err, 0.0, err == 0.0, lambda: K.incidence_gather(u, v, w),
         lambda: refs["incidence_gather"](u, v, w), 10, E * (4 + 4 + size) + n * size, E, lambda: torch.mv(mt, w))
-    del u, v, w, crow, mt
+    del crow, mt
+
+    # the step direction with its max, g gathered from w (bmatch's source):
+    # d bit-equal to the plain eager chain, max(d) exact; the read source on
+    # the same g too
+    h = torch.rand(E, generator=gen, device=dev, dtype=dtype) * 2.0
+    x = torch.rand(E, generator=gen, device=dev, dtype=dtype)
+    scale = float(torch.tensor(1.0 / eta, dtype=dtype))  # bmatch is pure packing
+    d, dmax = K.step_direction(h, x, scale, gather=(u, v, w))
+    d_r, dmax_r = refs["step_direction"](h, x, scale, gather=(u, v, w))
+    d2, dmax2 = K.step_direction(h, x, scale, g=refs["incidence_gather"](u, v, w))
+    same = torch.equal(d, d_r) and torch.equal(d2, d_r) and dmax.item() == dmax_r.item() == dmax2.item()
+    err = (d - d_r).abs().max().item()
+    positive = (d > 0).float().mean().item()
+    del d, d_r, d2
+    check(failures, same, f"step_direction {dtype} [{E}, {n}]: d bit-equal to the plain chain in both sources, "
+                          f"max(d) {dmax.item():.6g} exact ({positive:.1%} of d > 0)")
+    row("step_direction", [E, n], err, 0.0, same, lambda: K.step_direction(h, x, scale, gather=(u, v, w)),
+        lambda: refs["step_direction"](h, x, scale, gather=(u, v, w)), 10, E * (4 + 4 + 3 * size) + n * size, 6 * E)
+    del h, x, w
+    torch.cuda.empty_cache()
+
+    # the scatter M x on the same edges with the items' Zipf popularity of
+    # graphs/generators.py (item = n_items / rank, rank = U^-2 at zipf_a
+    # 1.5): item 0 holds ~E / sqrt(n_items) = 740k entries. The v side as
+    # the operator builds it (cut into slabs of x) and in one piece (no
+    # slabs: one segment of hundreds of merge tiles); in both many CSR rows
+    # cross merge-tile edges
+    v = (n - n_items) + torch.clamp((n_items * torch.rand(E, generator=gen, device=dev, dtype=torch.float64) ** 2)
+                                    .to(torch.int32), max=n_items - 1)
+    op = Incidence(u=u, v=v, n_vertices=n)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    a, b = op.csr
+    torch.cuda.synchronize()
+    t_csr = time.perf_counter() - t0
+    whole = segments(v, n, E, slab_cols=E)
+
+    def crossing(s) -> int:  # CSR rows whose merge items span two tiles or more
+        q = torch.arange(s.offsets.shape[0] - 1, device=dev)
+        return int(((q + s.offsets[:-1]) // MERGE_TILE != (q + s.offsets[1:]) // MERGE_TILE).sum())
+
+    longest = int((whole.offsets[1:] - whole.offsets[:-1]).max())
+    cross = [crossing(s) for s in (a, b, whole)]
+    check(failures, longest >= 2**18 and min(cross[1:]) > 0 and a.src is None and b.slabs > 1,
+          f"scatter segments: u side sorted (no permutation: {a.src is None}); v side in {b.slabs} slabs of rows "
+          f"[{b.lo}, {b.lo + b.span}); longest segment in one piece {longest} entries (>= 2^18); CSR rows across "
+          f"merge tiles (u, v, v in one piece) {cross}; CSR {(a.nbytes + b.nbytes) / 1e6:.1f} MB built in "
+          f"{t_csr:.2f} s")
+    x = torch.rand(E, generator=gen, device=dev, dtype=dtype)
+    got, again = K.incidence_scatter(x, a, b), K.incidence_scatter(x, a, b)
+    ref = refs["incidence_scatter"](x, a, b)
+    same = torch.equal(got, again)
+    err = ((got - ref).abs() / ref.abs().clamp(min=1.0)).max().item()
+    one, one_again = K.incidence_scatter(x, a, whole), K.incidence_scatter(x, a, whole)
+    one_err = ((one - ref).abs() / ref.abs().clamp(min=1.0)).max().item()
+    check(failures, torch.equal(one, one_again) and one_err <= tol,
+          f"incidence_scatter {dtype}, v side in one piece: two launches bitwise equal, {one_err:.3g} from the "
+          f"plain version (relative; bar {tol})")
+    del one, one_again, whole
+    lib_err = ((torch.zeros(n, dtype=dtype, device=dev).index_add_(0, u, x).index_add_(0, v, x) - ref).abs()
+               / ref.abs().clamp(min=1.0)).max().item()
+    del got, again, ref
+    check(failures, same, f"incidence_scatter {dtype} [{E}, {n}]: two launches bitwise equal")
+    check(failures, lib_err <= tol, f"index_add_ M x agrees with the plain version ({lib_err:.3g}, relative)")
+    row("incidence_scatter", [E, n], err, tol, err <= tol and same, lambda: K.incidence_scatter(x, a, b),
+        lambda: refs["incidence_scatter"](x, a, b), 10, E * (size + 4) + 2 * (n + 1) * 8 + n * size, 2 * E,
+        lambda: torch.zeros(n, dtype=dtype, device=dev).index_add_(0, u, x).index_add_(0, v, x))
+    del u, v, x, op, a, b
+    torch.cuda.empty_cache()
 
     # softmax weights on the packing side (n) and the one-row objective side
     # (1); the two-sided probe at the solve's shape, both sides in one launch
@@ -454,6 +542,15 @@ def full_solve(n_users: int, failures: list) -> dict:
     print(f"  exact maximum matching {exact} ({t_exact:.1f} s); builder with greedy bounds "
           f"[{prob.lo}, {prob.hi}] ({t_build:.1f} s)", flush=True)
 
+    # the scatter's CSR, built once per operator at its first card product
+    t0 = time.perf_counter()
+    sides = prob.P.csr
+    torch.cuda.synchronize()
+    t_csr = time.perf_counter() - t0
+    print(f"  scatter CSR of M: {sum(s.nbytes for s in sides) / 1e6:.1f} MB (u side "
+          f"{sides[0].nbytes / 1e6:.1f} MB, permutation: {sides[0].src is not None}; v side "
+          f"{sides[1].nbytes / 1e6:.1f} MB), built in {t_csr:.2f} s", flush=True)
+
     torch.cuda.reset_peak_memory_stats()
     K.reset_launch_counts()
     torch.cuda.synchronize()
@@ -462,24 +559,43 @@ def full_solve(n_users: int, failures: list) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = K.launch_counts()
+    # the same solve again: the scatter sums in a fixed order, so a card
+    # solve repeats bit for bit
+    t0 = time.perf_counter()
+    sol2 = Solver(MWUOptions(eps=EPS, step_rule="newton"), batch_width=4).solve(prob)
+    torch.cuda.synchronize()
+    wall2 = time.perf_counter() - t0
 
     loads = np.bincount(g.u, sol.x, g.n) + np.bincount(g.v, sol.x, g.n) if sol.found else np.array([np.inf])
     info = dict(n_vertices=g.n, n_edges=g.m, exact=exact, objective=sol.objective, bound=sol.bound,
                 status=Status.NAMES[sol.status], calls=sol.feasibility_calls, iters=sol.mwu_iters_total,
                 probes=sol.ls_probes_total, wall_s=wall, ms_per_iter=1e3 * wall / max(sol.mwu_iters_total, 1),
                 max_memory_gb=torch.cuda.max_memory_allocated() / 1e9, max_Mx=float(loads.max()),
-                launches=launches, setup_s=dict(graph=t_graph, exact=t_exact, build=t_build))
+                launches=launches, setup_s=dict(graph=t_graph, exact=t_exact, build=t_build, csr=t_csr),
+                csr_mb=sum(s.nbytes for s in sides) / 1e6, second_wall_s=wall2,
+                second_ms_per_iter=1e3 * wall2 / max(sol2.mwu_iters_total, 1))
     print("  " + json.dumps(info), flush=True)
-    check(failures, sol.feasible, f"bmatch solve is FEASIBLE ({info['status']})")
-    rel = abs(sol.objective - exact) / exact
-    check(failures, rel <= 1.5 * EPS, f"objective {sol.objective:.3f} within 1.5*eps of exact {exact} (rel {rel:.4f})")
-    check(failures, info["max_Mx"] <= 1 + 1e-9, f"host-recomputed max(Mx) = {info['max_Mx']!r} <= 1 + 1e-9")
+    for k, sl in enumerate((sol, sol2)):
+        check(failures, sl.feasible, f"bmatch solve {k + 1} is FEASIBLE ({Status.NAMES[sl.status]})")
+        rel = abs(sl.objective - exact) / exact
+        check(failures, rel <= 1.5 * EPS, f"solve {k + 1}: objective {sl.objective!r} within 1.5*eps of exact {exact} "
+                                          f"(rel {rel:.4f})")
+        loads = np.bincount(g.u, sl.x, g.n) + np.bincount(g.v, sl.x, g.n) if sl.found else np.array([np.inf])
+        check(failures, loads.max() <= 1 + 1e-9, f"solve {k + 1}: host-recomputed max(Mx) = {loads.max()!r} <= 1 + 1e-9")
+    first = (sol.feasibility_calls, sol.mwu_iters_total, sol.ls_probes_total, sol.objective)
+    second = (sol2.feasibility_calls, sol2.mwu_iters_total, sol2.ls_probes_total, sol2.objective)
+    same_x = sol.found and sol2.found and np.array_equal(sol.x, sol2.x)
+    check(failures, first == second and same_x,
+          f"two solves in one call repeat: (calls, iterations, probes, objective) {first} | {second}; x bits equal: "
+          f"{same_x}; {wall:.2f} / {wall2:.2f} s")
     for name, count in launches.items():
         if name == "flash_attention":  # the LM plane's kernel, off this path
             check(failures, count == 0, f"{name} launched {count} times in the solve")
         elif name == "linesearch_probe":  # the Newton search probes inside its own launch (phase 4 runs it)
             check(failures, count == 0, f"{name} launched {count} times in the solve")
-        elif name == "newton_search":
+        elif name == "incidence_gather":  # step_direction gathers M^T w itself (phase 4 runs the gather)
+            check(failures, count == 0, f"{name} launched {count} times in the solve")
+        elif name in ("newton_search", "step_direction"):
             check(failures, count == sol.mwu_iters_total,
                   f"{name} launched {count} times in the solve, once an iteration ({sol.mwu_iters_total})")
         else:
@@ -488,15 +604,16 @@ def full_solve(n_users: int, failures: list) -> dict:
                           "--format=csv,noheader"], capture_output=True, text=True, check=True).stdout.strip()
     print(f"  after the solve: sm clock, power draw, power limit, temperature = {smi}", flush=True)
     if sol.found:
-        info["profile"] = profile_call(prob, sol.bound)
+        info["profile"] = profile_call(prob, sol.bound, failures)
     return info
 
 
-def profile_call(prob, bound: float) -> dict:
+def profile_call(prob, bound: float, failures: list) -> dict:
     """Where one feasibility solve's time goes: the solve at ``bound`` timed
-    alone, then again under torch.profiler for device time by kernel. The
-    two runs may take different iteration counts (index_add_ sums with
-    atomics), so the idle share compares time per iteration."""
+    alone, then again under torch.profiler for device time by kernel (the
+    two take the same iterations: a card solve repeats). The profile must
+    show the scatter and step-direction kernels and no index_add_ /
+    scatter_add kernel."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -529,13 +646,26 @@ def profile_call(prob, bound: float) -> dict:
                newton_search_share=search_ms / busy_ms if busy_ms else None, host_reads=reads,
                host_reads_per_iter=reads / max(profiled.iters, 1))
     print(f"  profile of one feasibility solve: {json.dumps(out)}", flush=True)
-    for ms, count, key in kernels[:16]:
+    for ms, count, key in kernels[:20]:
         print(f"    {ms:10.2f} ms {count:7d} x  {key[:110]}", flush=True)
+    check(failures, profiled.iters == res.iters and torch.equal(profiled.x, res.x),
+          f"the timed and the profiled solve repeat ({res.iters} / {profiled.iters} iterations, x bits equal)")
+    atomic = [k for k in kernels if any(w in k[2] for w in ("indexFunc", "index_add", "scatter_add"))]
+    check(failures, not atomic, f"no index_add_ / scatter_add kernel in the profile ({[k[2][:60] for k in atomic]})")
+    for name in ("scatter_tiles_kernel", "scatter_rows_kernel", "step_direction_kernel"):
+        hit = [k for k in kernels if f"rt::{name}" in k[2]]
+        check(failures, bool(hit), f"rt::{name} in the profile: {sum(k[0] for k in hit):.2f} ms, "
+                                   f"{sum(k[1] for k in hit)} launches")
     return out
 
 
 # -- phase 4 -----------------------------------------------------------------
-def small_solves(failures: list) -> None:
+def small_solves(failures: list) -> dict:
+    """The six families card vs CPU, and each card solve run twice: the
+    second repeats the first bit for bit. Returns the card solves' launches
+    (the gather's count in the kernels line: bmatch's Newton solve gathers
+    inside the step-direction kernel)."""
+    from repro_torch import kernels as K
     from repro_torch.api import MWUOptions, Solver, Status
     from repro_torch.graphs import bipartite_ratings, build, generalized_matching_problem, rgg
 
@@ -547,6 +677,7 @@ def small_solves(failures: list) -> None:
     ub[:s], ub[s:] = 5, 8
     print(f"  rgg(12, seed=0): {g.n} vertices, {g.m} edges; bipartite_ratings(2000, 500): {bg.m} edges", flush=True)
     opts = MWUOptions(eps=EPS, step_rule="newton")
+    launches = {}
     for family in ("match", "bmatch", "vcover", "dom-set", "dense-sub", "gen-match"):
         sols = {}
         for device in ("cuda", "cpu"):
@@ -554,9 +685,22 @@ def small_solves(failures: list) -> None:
                 prob = generalized_matching_problem(bg, lb, ub, device=device)
             else:
                 prob = build(family, bg if family == "bmatch" else g, device=device)
+            if device == "cuda":
+                torch.cuda.synchronize()
+                K.reset_launch_counts()
             t0 = time.perf_counter()
             sols[device] = Solver(opts).solve(prob)
             sols[device + "_s"] = time.perf_counter() - t0
+            if device == "cuda":
+                torch.cuda.synchronize()
+                for name, count in K.launch_counts().items():
+                    launches[name] = launches.get(name, 0) + count
+                again = Solver(opts).solve(prob)
+                same = (again.mwu_iters_total, again.ls_probes_total) == \
+                    (sols["cuda"].mwu_iters_total, sols["cuda"].ls_probes_total) and \
+                    np.array_equal(again.x, sols["cuda"].x)
+                check(failures, same, f"{family}: a second card solve repeats the first ({again.mwu_iters_total} "
+                                      f"iterations, x bits equal)")
         a, b = sols["cuda"], sols["cpu"]
         same = a.status == b.status == Status.FEASIBLE
         if family != "gen-match":
@@ -566,6 +710,10 @@ def small_solves(failures: list) -> None:
                               f"{a.objective:.6g} iters {a.mwu_iters_total} ({sols['cuda_s']:.1f} s) | cpu "
                               f"{Status.NAMES[b.status]} bound {b.bound:.6g} objective {b.objective:.6g} iters "
                               f"{b.mwu_iters_total} ({sols['cpu_s']:.1f} s)")
+    print(f"  launches of the six card solves: {launches}", flush=True)
+    check(failures, launches["incidence_gather"] > 0 and launches["incidence_scatter"] > 0,
+          "the six card solves launched the gather and the scatter")
+    return launches
 
 
 def binary_solves(failures: list) -> dict:
@@ -704,8 +852,10 @@ def main() -> int:
     from repro_torch.kernels import loader
     from repro_torch.kernels.axpy_reduce.ref import axpy_reduce_ref
     from repro_torch.kernels.incidence_gather.ref import incidence_gather_ref
+    from repro_torch.kernels.incidence_scatter.ref import incidence_scatter_ref
     from repro_torch.kernels.linesearch_probe.ref import linesearch_probe2_ref
     from repro_torch.kernels.softmax_weights.ref import softmax_weights_ref
+    from repro_torch.kernels.step_direction.ref import step_direction_ref
     from repro_torch.core.mwu import make_eta
 
     t_start = time.perf_counter()
@@ -722,7 +872,8 @@ def main() -> int:
 
     print("== phase 2: kernels vs plain versions on the card", flush=True)
     refs = dict(incidence_gather=incidence_gather_ref, softmax_weights=softmax_weights_ref,
-                linesearch_probe2=linesearch_probe2_ref, axpy_reduce=axpy_reduce_ref)
+                linesearch_probe2=linesearch_probe2_ref, axpy_reduce=axpy_reduce_ref,
+                incidence_scatter=incidence_scatter_ref, step_direction=step_direction_ref)
     n_vertices, n_items, n_edges = 497_959, 17_770, 98_609_647  # the full-size bmatch graph
     eta = float(make_eta(n_vertices + 1, EPS))
     failures: list = []
@@ -738,7 +889,7 @@ def main() -> int:
     end_phase("3", failures)
 
     print("== phase 4: small solves, card vs CPU", flush=True)
-    small_solves(failures)
+    small_launches = small_solves(failures)
     binary_launches = binary_solves(failures)
     end_phase("4", failures)
 
@@ -749,8 +900,9 @@ def main() -> int:
 
     # one entry per kernel: for the MWU kernels their float64 row at the
     # solve's largest shape and the solve's launches (the probe kernel's from
-    # phase 4's binary-rule solves); for flash attention row (a) in bf16 and
-    # the launches of one encoder forward
+    # phase 4's binary-rule solves, the gather's from its six Newton solves:
+    # bmatch gathers inside step_direction); for flash attention row (a) in
+    # bf16 and the launches of one encoder forward
     kernels = []
     for name, (source, replaces) in K.KERNELS.items():
         if name == "flash_attention":
@@ -758,7 +910,8 @@ def main() -> int:
             launches = enc["launches"][name]
         else:
             r = max((r for r in rows if r["name"] == name and r["dtype"] == "float64"), key=lambda r: r["shape"][0])
-            launches = (binary_launches if name == "linesearch_probe" else info["launches"])[name]
+            launches = {"linesearch_probe": binary_launches,
+                        "incidence_gather": small_launches}.get(name, info["launches"])[name]
         kernels.append(dict(name=name, route="cuda", source=source, replaces=replaces, launches=launches,
                             **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                                                  "call_ms", "plain_call_ms", "shape", "dtype", "bar", "within_bar")}))

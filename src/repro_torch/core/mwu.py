@@ -12,8 +12,14 @@ The reference's single ``lax.while_loop`` becomes a Python loop; each
 iteration runs on the tensors' device:
 
 - two softmax-weight sweeps (``smoothing``: the softmax kernel),
-- two transposed products (``operators``: the gather kernel for incidence),
-- two scatter-add products (``index_add_``),
+- the step direction and its max in one launch (the step-direction
+  kernel), which gathers the packing gradient itself where ``P``'s
+  transposed product is a plain gather (``LinOp.as_gather``: bmatch,
+  match); else the transposed product comes first (the gather kernel for
+  incidence),
+- the covering gradient's transposed product,
+- two scatter-add products (``operators``: on the card the segmented-sum
+  kernel, which sums in a fixed order, so a card solve repeats),
 - one step-size search (``stepsize``: for the Newton rule on the card, one
   launch of the search kernel; else one two-sided probe launch a probe),
 - three fused updates of x, y and z (the axpy kernel), whose min of z
@@ -35,7 +41,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..kernels import axpy_reduce
+from ..kernels import axpy_reduce, step_direction
 from .operators import LinOp
 from .smoothing import smax_and_weights, smin_and_weights
 from .stepsize import STEP_RULES
@@ -151,18 +157,19 @@ class _State:
 def _iteration(P: LinOp, C: LinOp, eta: float, scale: float, step_fn, ls_eps, p_mask, c_mask, s: _State) -> int:
     """One MWU iteration (Alg. 2 body), updating ``s`` in place; returns its probe count."""
     x, y, z = s.x, s.y, s.z
-    tiny = torch.finfo(x.dtype).tiny
 
     # gradients of the smoothed constraint potentials (lines 5-6)
     _, wp = smax_and_weights(y, eta, where=p_mask)
     _, wc = smin_and_weights(z, eta, where=c_mask)
-    g = P.rmatvec(wp)  # packing gradient  P^T grad smax(Px)
+    # packing gradient P^T grad smax(Px): gathered inside the step-direction
+    # kernel where it is a plain gather, else computed here
+    gather = P.as_gather(wp)
+    g = None if gather is not None else P.rmatvec(wp)
     h = C.rmatvec(wc)  # covering gradient C^T grad smin(Cx)
 
     # step direction (line 7): d_i = scale * max(0, 1 - g_i/h_i) * x_i
-    ratio = torch.where(h > tiny, g / torch.clamp(h, min=tiny), torch.inf)
-    d = scale * torch.clamp(1.0 - ratio, min=0.0) * x
-    infeasible_dir = d.max().item() <= 0  # line 8
+    d, d_max = step_direction(h, x, scale, g=g, gather=gather)
+    infeasible_dir = d_max.item() <= 0  # line 8
 
     # step images (line 10) — the second product pair
     dy = P.matvec(d)

@@ -9,11 +9,18 @@ constraint matrices of graph LPs, each described by its edge list.
 * ``VertexEdgePair``   O  (|V| x 2|E|) — densest-subgraph packing rows.
 * ``InterweavedId``    W  (|E| x 2|E|) — densest-subgraph covering rows.
 
-Products with an operator are scatter-adds (``index_add_``, plain
-PyTorch, as the reference leaves them to XLA's scatter). Products with
-the transpose of ``Incidence`` and ``VertexEdgePair`` are gathers and go
-through :func:`repro_torch.kernels.incidence_gather`, which launches the
-CUDA kernel for CUDA tensors and runs its plain version on the CPU.
+Products with an operator are scatter-adds, as the reference leaves
+them to XLA's scatter. On the CPU they are ``index_add_``. On the card
+they go through :func:`repro_torch.kernels.incidence_scatter`, a segmented
+sum over each side's CSR form (``csr``, built once per operator at its
+first card product and kept on it), which sums in a fixed order, so a
+card solve repeats bit for bit; ``index_add_``'s float atomics do not.
+Products with the transpose of ``Incidence`` and ``VertexEdgePair`` are
+gathers and go through :func:`repro_torch.kernels.incidence_gather`, which
+launches the CUDA kernel for CUDA tensors and runs its plain version on
+the CPU. ``as_gather`` tells the MWU iteration when ``rmatvec`` is a
+plain gather ``w[u] + w[v]``, which its step-direction kernel then
+computes in registers.
 
 Edge indices stay int32 on the device: ``index_add_``, ``index_select``
 and ``index_reduce_`` take them as they are, so no int64 copy of ``u``/``v``
@@ -29,12 +36,14 @@ Conventions
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Any
 
 import torch
 
-from ..kernels import incidence_gather
+from ..kernels import incidence_gather, incidence_scatter
+from ..kernels.incidence_scatter import segments
 
 __all__ = [
     "LinOp",
@@ -78,6 +87,11 @@ class LinOp:
 
     def colmax(self, row_scale: torch.Tensor | None = None) -> torch.Tensor:
         raise NotImplementedError
+
+    def as_gather(self, y: torch.Tensor):
+        """``(u, v, w)`` with ``rmatvec(y) = w[u] + w[v]`` bit for bit, or None
+        where the transposed product is not such a gather."""
+        return None
 
     # nnz as stored (implicit ops report the implicit nonzero count)
     @property
@@ -140,11 +154,22 @@ class Coo(LinOp):
     def shape(self):
         return self._shape
 
+    @functools.cached_property
+    def csr(self):
+        """(matvec's segments: by row, reading x[col]; rmatvec's: by column, reading y[row])."""
+        m, n = self._shape
+        return (segments(self.rows, m, n, src=self.cols, wt=self.vals),
+                segments(self.cols, n, m, src=self.rows, wt=self.vals))
+
     def matvec(self, x):
+        if x.device.type != "cpu":
+            return incidence_scatter(x, self.csr[0])
         out = torch.zeros(self._shape[0], dtype=x.dtype, device=x.device)
         return out.index_add_(0, self.rows, self.vals.to(x.dtype) * x.index_select(0, self.cols))
 
     def rmatvec(self, y):
+        if y.device.type != "cpu":
+            return incidence_scatter(y, self.csr[1])
         out = torch.zeros(self._shape[1], dtype=y.dtype, device=y.device)
         return out.index_add_(0, self.cols, self.vals.to(y.dtype) * y.index_select(0, self.rows))
 
@@ -188,8 +213,16 @@ class Incidence(LinOp):
             return x
         return x * self._w(x.dtype)
 
+    @functools.cached_property
+    def csr(self):
+        """The u side's and the v side's segments (masked edges left out)."""
+        E = int(self.u.shape[0])
+        return tuple(segments(r, self.n_vertices, E, wt=self.weights, keep=self.edge_mask) for r in (self.u, self.v))
+
     def matvec(self, x):
         # y_u += x_e ; y_v += x_e  (scatter direction)
+        if x.device.type != "cpu":
+            return incidence_scatter(x, *self.csr)
         xw = self._weighted(x)
         out = torch.zeros(self.n_vertices, dtype=x.dtype, device=x.device)
         return out.index_add_(0, self.u, xw).index_add_(0, self.v, xw)
@@ -197,6 +230,9 @@ class Incidence(LinOp):
     def rmatvec(self, y):
         # g_e = y_u + y_v  (gather direction — the kernel's hot spot)
         return self._weighted(incidence_gather(self.u, self.v, y))
+
+    def as_gather(self, y):
+        return (self.u, self.v, y) if self.weights is None and self.edge_mask is None else None
 
     def colmax(self, row_scale=None):
         w = self._w(torch.float32 if row_scale is None else row_scale.dtype)
@@ -222,7 +258,15 @@ class AdjacencyPlusId(LinOp):
     def shape(self):
         return (self.n_vertices, self.n_vertices)
 
+    @functools.cached_property
+    def csr(self):
+        """Rows u reading x[v], rows v reading x[u] (masked edges left out)."""
+        n, m = self.n_vertices, self.edge_mask
+        return (segments(self.u, n, n, src=self.v, keep=m), segments(self.v, n, n, src=self.u, keep=m))
+
     def matvec(self, x):
+        if x.device.type != "cpu":
+            return incidence_scatter(x, *self.csr, base=x)  # x: the identity part
         xu = _masked(x.index_select(0, self.u), self.edge_mask)
         xv = _masked(x.index_select(0, self.v), self.edge_mask)
         out = x.clone()  # identity part
@@ -263,7 +307,19 @@ class VertexEdgePair(LinOp):
     def shape(self):
         return (self.n_vertices, 2 * int(self.u.shape[0]))
 
+    @functools.cached_property
+    def csr(self):
+        """Rows u reading z[2e], rows v reading z[2e+1] (masked edges left out)."""
+        E = int(self.u.shape[0])
+        if 2 * E > 2**31 - 1:
+            raise ValueError(f"VertexEdgePair: 2E = {2 * E} column indices do not fit int32")
+        e2 = 2 * torch.arange(E, dtype=torch.int32, device=self.u.device)
+        return (segments(self.u, self.n_vertices, 2 * E, src=e2, keep=self.edge_mask),
+                segments(self.v, self.n_vertices, 2 * E, src=e2 + 1, keep=self.edge_mask))
+
     def matvec(self, z):
+        if z.device.type != "cpu":
+            return incidence_scatter(z, *self.csr)
         z2 = z.view(-1, 2)
         zu = _masked(z2[:, 0], self.edge_mask)
         zv = _masked(z2[:, 1], self.edge_mask)
@@ -377,6 +433,9 @@ class ScaledRows(LinOp):
 
     def rmatvec(self, y):
         return self.inner.rmatvec(self.scale * y)
+
+    def as_gather(self, y):
+        return None if self.inner.as_gather(y) is None else self.inner.as_gather(self.scale * y)
 
     def colmax(self, row_scale=None):
         s = self.scale if row_scale is None else self.scale * row_scale

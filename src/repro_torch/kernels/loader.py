@@ -80,6 +80,10 @@ _ENTRY_POINTS = {
     "rt_newton_search": ([_PTR, _PTR, _I64, _PTR, _PTR, _I64, _F64, _F64, _F64, _INT, _F64, _PTR, _PTR, _PTR],
                          _FLOAT),
     "rt_axpy_reduce": ([_PTR, _PTR, _F64, _I64, _INT, _PTR, _PTR, _PTR, _PTR], _FLOAT),
+    # x, base, out, n; (offsets, splits, src, wt, nnz, lo, span, slabs) of side A, then of side B; scratch, stream
+    "rt_incidence_scatter": ([_PTR, _PTR, _PTR, _I64] + ([_PTR] * 4 + [_I64] * 4) * 2 + [_PTR, _PTR], _FLOAT),
+    # u, v, w, g, h, x, scale, tiny, E, nb, d, part, ticket, dmax, stream
+    "rt_step_direction": ([_PTR] * 6 + [_F64, _F64, _I64, _INT] + [_PTR] * 5, _FLOAT),
     # q, k, v, o; B, S, Hq, Hkv, D; (batch, seq, head) strides of q, k, v, o; causal, window; stream
     "rt_flash_attention": ([_PTR] * 4 + [_INT] * 5 + [_I64] * 12 + [_INT, _INT, _PTR], (torch.bfloat16, torch.float32)),
 }
@@ -170,6 +174,10 @@ def load() -> ctypes.CDLL:
     lib.rt_flash_bf16_config.restype = ctypes.c_int
     lib.rt_max_partials.argtypes = []
     lib.rt_max_partials.restype = ctypes.c_int
+    lib.rt_incidence_scatter_scratch.argtypes = [_I64, _I64, _I64]
+    lib.rt_incidence_scatter_scratch.restype = ctypes.c_int64
+    lib.rt_incidence_scatter_tile.argtypes = []
+    lib.rt_incidence_scatter_tile.restype = ctypes.c_int
     return lib
 
 

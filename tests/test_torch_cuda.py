@@ -21,7 +21,11 @@ from repro_torch.configs import get
 from repro_torch.graphs import bipartite_ratings, build, generalized_matching_problem, rgg
 from repro_torch.kernels.axpy_reduce.ref import axpy_reduce_ref
 from repro_torch.kernels.flash_attention.ref import flash_attention_plain
+from repro_torch.core import operators as ops
 from repro_torch.kernels.incidence_gather.ref import incidence_gather_ref
+from repro_torch.kernels.incidence_scatter import segments
+from repro_torch.kernels.incidence_scatter.ref import incidence_scatter_ref
+from repro_torch.kernels.step_direction.ref import step_direction_ref
 from repro_torch.core import stepsize
 from repro_torch.kernels.linesearch_probe.ref import linesearch_probe2_ref, linesearch_probe_ref, newton_search_ref
 from repro_torch.kernels.softmax_weights.ref import softmax_weights_ref
@@ -75,7 +79,8 @@ def test_kernels_match_plain_on_card(cuda, n, dtype):
     assert torch.equal(g.cpu(), incidence_gather_ref(idx, jdx, y))
     torch.cuda.synchronize()
     assert K.launch_counts() == {"incidence_gather": 1, "softmax_weights": 1, "linesearch_probe": 3,
-                                 "newton_search": 0, "axpy_reduce": 1, "flash_attention": 0}
+                                 "newton_search": 0, "axpy_reduce": 1, "flash_attention": 0,
+                                 "incidence_scatter": 0, "step_direction": 0}
 
 
 def _bits(x: float) -> bytes:
@@ -233,6 +238,136 @@ def test_card_wrappers_reject_bad_inputs(cuda):
         K.linesearch_probe(x, x[:5], 1.0, 1.0)
 
 
+def _power_law_incidence(n_users, n_items, E, device, seed=0):
+    """An Incidence laid out as bmatch's: u (users) ascending, v (items) of
+    Zipf popularity as graphs/generators.py draws it (item = n_items / rank,
+    rank = U^-2 at zipf_a 1.5), so item 0 takes ~E / sqrt(n_items) entries:
+    a segment much longer than one merge tile (2,048 items)."""
+    gen = torch.Generator().manual_seed(seed)
+    u = torch.randint(0, n_users, (E,), generator=gen, dtype=torch.int32).sort().values
+    item = (n_items * torch.rand(E, generator=gen, dtype=torch.float64) ** 2).to(torch.int32)
+    v = n_users + torch.clamp(item, max=n_items - 1)
+    return ops.Incidence(u=u.to(device), v=v.to(device), n_vertices=n_users + n_items)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape", [(3, 2, 1), (50, 7, 40), (2_000, 300, 400_000), (60_000, 17_770, 3_000_000)])
+def test_incidence_scatter_matches_plain_on_card(cuda, shape, dtype):
+    """Incidence.matvec on the card (the segmented-sum kernel) against the
+    plain version on the same segments, within the reductions' bars of
+    tests/test_kernels.py relative to max(1, |plain|); two calls and a call
+    on another stream give the same bits. The largest shapes hold a segment
+    of ~10^5 entries (tens of merge tiles) and rows of degree 0."""
+    n_users, n_items, E = shape
+    tol = 1e-4 if dtype == torch.float32 else 1e-10
+    op = _power_law_incidence(n_users, n_items, E, cuda, seed=E)
+    a, b = op.csr
+    assert a.src is None and (b.src is not None or E == 1)  # u sorted: no permutation on its side
+    x = torch.rand(E, generator=torch.Generator(device=cuda).manual_seed(1), device=cuda, dtype=dtype)
+    K.reset_launch_counts()
+    got, again = op.matvec(x), op.matvec(x)
+    stream = torch.cuda.Stream(cuda)
+    stream.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(stream):
+        other = op.matvec(x)
+    torch.cuda.synchronize()
+    assert K.launch_counts()["incidence_scatter"] == 3
+    ref = incidence_scatter_ref(x, a, b)
+    assert torch.equal(got, again) and torch.equal(got, other)
+    assert float(((got - ref).abs() / ref.abs().clamp(min=1.0)).max()) <= tol
+    # the v side in one piece (no slabs of x) and in slabs of a few values
+    for slab_cols in (E, max(E // 37, 1)):
+        s = segments(op.v, op.n_vertices, E, slab_cols=slab_cols)
+        got, again = K.incidence_scatter(x, a, s), K.incidence_scatter(x, a, s)
+        assert torch.equal(got, again)
+        assert float(((got - ref).abs() / ref.abs().clamp(min=1.0)).max()) <= tol
+        if E >= 400_000 and slab_cols == E:
+            assert int((s.offsets[1:] - s.offsets[:-1]).max()) > 4 * 2048
+    if E == 3_000_000:
+        assert b.slabs > 1  # the operator's own layout: slabs of SLAB_COLS values
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_scatter_operators_match_cpu_on_card(cuda, dtype):
+    """Every operator that scatters on the card (masked, weighted, base,
+    interleaved sources, COO both ways) against its CPU index_add_ product
+    on the same inputs, within the bars above; integer-valued inputs give
+    the same bits (every partial sum is exact)."""
+    tol = 1e-4 if dtype == torch.float32 else 1e-10
+    g = rgg(9, seed=2)
+    rng = np.random.default_rng(3)
+    u, v = torch.as_tensor(g.u), torch.as_tensor(g.v)
+    mask = torch.as_tensor(rng.random(g.m) > 0.3)
+    wts = torch.as_tensor(rng.integers(1, 4, g.m).astype(np.float64))
+    rows, cols = (torch.as_tensor(rng.integers(0, k, 3 * g.m).astype(np.int32)) for k in (g.n, g.m))
+    vals = torch.as_tensor(rng.integers(0, 3, 3 * g.m).astype(np.float64))
+
+    def build(dev):
+        t = dict(u=u.to(dev), v=v.to(dev), n_vertices=g.n)
+        return [ops.Incidence(**t), ops.Incidence(**t, weights=wts.to(dev), edge_mask=mask.to(dev)),
+                ops.AdjacencyPlusId(**t), ops.AdjacencyPlusId(**t, edge_mask=mask.to(dev)),
+                ops.VertexEdgePair(**t, edge_mask=mask.to(dev)),
+                ops.Coo(rows=rows.to(dev), cols=cols.to(dev), vals=vals.to(dev), _shape=(g.n, g.m))]
+
+    K.reset_launch_counts()
+    for cpu_op, card_op in zip(build("cpu"), build(cuda)):
+        for prod in ("matvec", "rmatvec") if isinstance(cpu_op, ops.Coo) else ("matvec",):
+            n_in = cpu_op.shape[1] if prod == "matvec" else cpu_op.shape[0]
+            for x in (torch.as_tensor(rng.random(n_in)).to(dtype), torch.as_tensor(rng.integers(0, 9, n_in)).to(dtype)):
+                ref = getattr(cpu_op, prod)(x)
+                got = getattr(card_op, prod)(x.to(cuda)).cpu()
+                assert float(((got - ref).abs() / ref.abs().clamp(min=1.0)).max()) <= tol, (type(cpu_op), prod)
+            assert torch.equal(got, ref), (type(cpu_op), prod)  # the integer-valued x
+    assert K.launch_counts()["incidence_scatter"] == 14
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("E", [1, 5, 1030, 3_000_000])
+def test_step_direction_matches_plain_on_card(cuda, E, dtype):
+    """d bit-equal to the plain eager chain, in both sources (gather and
+    read), with h <= tiny, g = 0, x = 0, a NaN-free zero direction and the
+    exact max; two launches and two streams give the same bits."""
+    gen = torch.Generator().manual_seed(E)
+    n = max(E // 7, 2)
+    u, v = (torch.randint(0, n, (E,), generator=gen, dtype=torch.int32) for _ in range(2))
+    w = torch.rand(n, generator=gen, dtype=dtype) * 2e-3
+    h = torch.rand(E, generator=gen, dtype=dtype) * 2e-3
+    x = torch.rand(E, generator=gen, dtype=dtype)
+    tiny = torch.finfo(dtype).tiny
+    h[::5], x[1::7], w[::3] = tiny, 0.0, 0.0  # h <= tiny, x = 0, g = 0 where both ends are 0
+    scale = float(torch.tensor(1 / 211.7, dtype=dtype))
+    g = incidence_gather_ref(u, v, w)
+    d_ref, m_ref = step_direction_ref(h, x, scale, gather=(u, v, w))
+    dev = [t.to(cuda) for t in (u, v, w, h, x, g)]
+    K.reset_launch_counts()
+    for kw in (dict(gather=tuple(dev[:3])), dict(g=dev[5])):
+        d, m = K.step_direction(dev[3], dev[4], scale, **kw)
+        d2, m2 = K.step_direction(dev[3], dev[4], scale, **kw)
+        assert torch.equal(d.cpu(), d_ref) and torch.equal(d, d2)
+        assert float(m) == float(m_ref) == float(m2)
+    d0, m0 = K.step_direction(dev[3], dev[4] * 0.0, scale, g=dev[5])  # a zero direction
+    assert float(m0) == 0.0 and not bool(d0.any())
+    assert K.launch_counts()["step_direction"] == 5
+
+
+@pytest.mark.cuda
+def test_new_wrappers_reject_bad_inputs(cuda):
+    x = torch.rand(10, device=cuda, dtype=torch.float64)
+    idx = torch.zeros(10, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        K.step_direction(x, x, 0.5)  # neither g nor gather
+    with pytest.raises(TypeError):
+        K.step_direction(x, x, 0.5, gather=(idx.long(), idx.long(), x))
+    with pytest.raises(ValueError):
+        K.step_direction(x[:5], x, 0.5, g=x)
+    op = ops.Incidence(u=idx, v=idx + 1, n_vertices=2)
+    with pytest.raises(ValueError):
+        op.matvec(x[:9])  # 9 values for 10 edges
+
+
 def _problem(family, device):
     if family in ("bmatch", "gen-match"):
         g = bipartite_ratings(60, 40, avg_ratings=6.0, seed=1)
@@ -260,8 +395,16 @@ def test_card_solve_matches_cpu(cuda, family):
         assert card.bound == pytest.approx(cpu.bound, rel=1e-5)
         assert card.objective == pytest.approx(cpu.objective, rel=2 * EPS)
     counts = K.launch_counts()
+    # a second card solve repeats the first bit for bit (no atomics in the scatter)
+    again = Solver(opts).solve(_problem(family, cuda))
+    assert (again.mwu_iters_total, again.ls_probes_total, again.feasibility_calls) == \
+        (card.mwu_iters_total, card.ls_probes_total, card.feasibility_calls)
+    assert np.array_equal(again.x, card.x) and _bits(again.objective) == _bits(card.objective)
     assert counts["softmax_weights"] > 0 and counts["axpy_reduce"] > 0
-    assert (counts["incidence_gather"] > 0) == (family != "dom-set")  # dom-set's ops are scatter-based
+    assert counts["incidence_scatter"] > 0 and counts["step_direction"] == card.mwu_iters_total
+    # dom-set's ops are scatter-based; match and bmatch gather inside the
+    # step-direction kernel; the others' transposed products gather
+    assert (counts["incidence_gather"] > 0) == (family not in ("dom-set", "match", "bmatch"))
     # unmasked Newton searches run on the card in one launch each; masked
     # ones (gen-match) run the host loop over plain probes
     assert (counts["newton_search"] > 0) == (family != "gen-match")
