@@ -17,10 +17,10 @@ non-zero before the result lines are printed.
    the same function where there is one; and the bound (bytes read once
    and written once over 3.35 TB/s, or operations over the card's peak).
    Flash attention gets rows at published widths: (a) hubert-xlarge's
-   attention (B 16, S 1500, 16 heads, d 80, bidirectional) in bf16 and f32,
-   (b) minitron-4b's (B 1, S 4096, 24 over 8 heads, d 128, causal) and (c)
-   mixtral-8x22b's (B 1, S 6144, 48 over 8 heads, d 128, causal, window
-   4096), in bf16. Within bar means |kernel - plain| <= bar * (1 + |plain|)
+   attention (B 16, S 1500, 16 heads, d 80, bidirectional) and (b)
+   minitron-4b's (B 1, S 4096, 24 over 8 heads, d 128, causal) in bf16 and
+   f32, and (c) mixtral-8x22b's (B 1, S 6144, 48 over 8 heads, d 128,
+   causal, window 4096) in bf16. Within bar means |kernel - plain| <= bar * (1 + |plain|)
    elementwise (tests/test_kernels.py's atol = rtol). At these sizes every
    call is bound by the device, so the plain version is timed eagerly (its
    f32 scores take up to 7 GB, too much to capture twice in a CUDA graph);
@@ -28,9 +28,12 @@ non-zero before the result lines are printed.
    a yardstick the port never calls. Each flash row also prints its
    achieved TFLOP/s (4 d flops per scored pair over the device time) and,
    in bf16, the kernel's tile choices (swizzle, boxes, stages, tile rows,
-   shared memory) as the built library reports them; the bf16 kernel's
-   ptxas lines (registers, spills) are printed per head dim, and a spill at
-   d 80 or 128 fails the phase. The Newton search runs on three seeded
+   shared memory) as the built library reports them. The f32 rows are
+   bound by 3x their flops over the TF32 tensor-core peak (the kernel's
+   3xTF32 products), and also print the bound of the same flops once at f32
+   FMA, SDPA's time in f32, and the card's name and power limit. Both
+   bodies' ptxas lines (registers, spills) are printed per head dim, and a
+   spill at d 80 or 128 in either fails the phase. The Newton search runs on three seeded
    states a dtype: equal bit for bit to the host loop over the probe
    kernel, and within ls_eps * alpha of its plain version (the same loop
    over plain PyTorch probes), whose time is the row's plain time.
@@ -100,9 +103,11 @@ import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
-# peak rates: f32 and f64 outside the tensor cores, bf16 on them (dense;
-# NVIDIA H100 SXM data sheet)
-PEAK_OPS_PER_S = {torch.float32: 67e12, torch.float64: 34e12, torch.bfloat16: 989e12}
+# peak rates: f32 and f64 outside the tensor cores, bf16 and TF32 on them
+# (dense; NVIDIA H100 SXM data sheet). The f32 flash kernel multiplies on
+# the TF32 tensor cores, three times a product (3xTF32): its bound is 3x its
+# flops over the "tf32" rate.
+PEAK_OPS_PER_S = {torch.float32: 67e12, torch.float64: 34e12, torch.bfloat16: 989e12, "tf32": 495e12}
 LOGITS_REL_L2_BAR = 5e-2  # pallas vs dense forward of phase 5, bf16 through 48 layers
 # bf16 flash rows, whole tensor: ||kernel - plain|| / ||plain||. The two
 # differ by where p is rounded to bf16 (unnormalised in the kernel, after
@@ -159,8 +164,10 @@ def device_ms(fn, reps: int) -> float:
     return _events_ms(graph.replay, reps)
 
 
-def bound(nbytes: int, ops: int, dtype) -> tuple[float, str]:
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS_PER_S[dtype]
+def bound(nbytes: int, ops: int, rate) -> tuple[float, str]:
+    """Least time (ms) for the bytes over HBM's rate or the ops over the
+    peak of ``rate`` (a key of PEAK_OPS_PER_S), the larger, and which."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS_PER_S[rate]
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -403,14 +410,15 @@ FLASH_CASES = [  # tag, B, S, Hq, Hkv, d, causal, window, dtype
     ("a", 16, 1500, 16, 16, 80, False, None, torch.bfloat16),  # hubert-xlarge
     ("a", 16, 1500, 16, 16, 80, False, None, torch.float32),
     ("b", 1, 4096, 24, 8, 128, True, None, torch.bfloat16),  # minitron-4b at train_4k
+    ("b", 1, 4096, 24, 8, 128, True, None, torch.float32),
     ("c", 1, 6144, 48, 8, 128, True, 4096, torch.bfloat16),  # mixtral-8x22b, sliding window
 ]
 
 
 def flash_ptxas(failures: list) -> None:
-    """The bf16 flash kernel's ptxas lines (registers, spills, shared memory)
-    from the loaded build's compiler log, one block per head dim; no spills at the
-    models' head dims, 80 and 128."""
+    """The flash kernels' ptxas lines (registers, spills, shared memory) from
+    the loaded build's compiler log, one block per body and head dim; no
+    spills at the models' head dims, 80 and 128, in either body."""
     import re
 
     from repro_torch.kernels import loader
@@ -418,18 +426,20 @@ def flash_ptxas(failures: list) -> None:
     blocks, current = {}, None
     for line in loader.build_log().read_text().splitlines():
         if "Compiling entry function" in line:
-            m = re.search(r"flash_bf16_kernelILi(\d+)E", line)
-            current = int(m.group(1)) if m else None
+            m = re.search(r"flash_(bf16|f32)_kernelILi(\d+)E", line)
+            current = f"flash_{m.group(1)}_kernel<{m.group(2)}>" if m else None
             if current is not None:
                 blocks[current] = []
         elif current is not None and ("registers" in line or "spill" in line or "smem" in line):
             blocks[current].append(line.strip())
-    for d in sorted(blocks):
-        print(f"  ptxas, flash_bf16_kernel<{d}>: " + " | ".join(blocks[d]), flush=True)
-    for d in (80, 128):
-        spills = [int(n) for line in blocks.get(d, []) for n in re.findall(r"(\d+) bytes spill", line)]
-        check(failures, bool(spills) and not any(spills),
-              f"flash_bf16_kernel<{d}>: no spills in ptxas's report ({spills or 'no report'})")
+    for name in sorted(blocks):
+        print(f"  ptxas, {name}: " + " | ".join(blocks[name]), flush=True)
+    for body in ("bf16", "f32"):
+        for d in (80, 128):
+            name = f"flash_{body}_kernel<{d}>"
+            spills = [int(n) for line in blocks.get(name, []) for n in re.findall(r"(\d+) bytes spill", line)]
+            check(failures, bool(spills) and not any(spills),
+                  f"{name}: no spills in ptxas's report ({spills or 'no report'})")
 
 
 def tail_fault_rel_l2(q, k, v, block_k: int, ref) -> float:
@@ -446,8 +456,9 @@ def tail_fault_rel_l2(q, k, v, block_k: int, ref) -> float:
     return ((fault - ref).norm() / ref.norm()).item()
 
 
-def flash_rows(K, failures: list) -> list[dict]:
-    """Flash attention vs its plain version at published widths."""
+def flash_rows(K, card: str, failures: list) -> list[dict]:
+    """Flash attention vs its plain version at published widths; ``card`` is
+    nvidia-smi's name and power limit, printed beside each f32 row."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention.ops import bf16_config
@@ -500,7 +511,9 @@ def flash_rows(K, failures: list) -> list[dict]:
         del got, ref, diff, lib_diff
         size = torch.finfo(dtype).bits // 8
         flops = 4 * B * Hq * d * scored_pairs(S, causal, window)
-        b_ms, b_by = bound(2 * B * S * (Hq + Hkv) * d * size, flops, dtype)
+        nbytes = 2 * B * S * (Hq + Hkv) * d * size
+        f32 = dtype == torch.float32  # the f32 kernel's 3xTF32: 3x the flops on the TF32 tensor cores
+        b_ms, b_by = bound(nbytes, 3 * flops, "tf32") if f32 else bound(nbytes, flops, dtype)
         plain_ms = call_ms(plain, 3)
         r = dict(name="flash_attention", case=tag, dtype=str(dtype).removeprefix("torch."),
                  shape=[B, S, Hq, Hkv, d], causal=causal, window=window, max_abs_err=err, bar=bar, within_bar=ok,
@@ -515,6 +528,12 @@ def flash_rows(K, failures: list) -> list[dict]:
                             f"({r['tflops']:.1f} TFLOP/s), plain {plain_ms:.4f}, SDPA {r['library_ms']:.4f} "
                             f"({r['library_tflops']:.1f} TFLOP/s, within bar: {lib_ok}), bound {b_ms:.4f} ({b_by}), "
                             f"{b_ms / r['ms']:.0%} of bound; eager call {r['call_ms']:.4f}; tiles {r['config']}")
+        if f32:
+            fma_ms, _ = bound(nbytes, flops, dtype)  # the same flops once at f32 FMA
+            print(f"  f32 ({tag}) on {card}: kernel {r['ms']:.4f} ms ({r['tflops']:.1f} TFLOP/s), SDPA f32 "
+                  f"{r['library_ms']:.4f} ms; bound {b_ms:.4f} ms at 3xTF32 (3 x {flops:.4g} flops over "
+                  f"{PEAK_OPS_PER_S['tf32'] / 1e12:.0f} TFLOP/s, {b_ms / r['ms']:.0%} of it), {fma_ms:.4f} ms at "
+                  f"f32 FMA ({PEAK_OPS_PER_S[dtype] / 1e12:.0f} TFLOP/s, {fma_ms / r['ms']:.0%})", flush=True)
         rows.append(r)
         del q, k, v, mask
         torch.cuda.empty_cache()
@@ -881,7 +900,7 @@ def main() -> int:
     for dtype in (torch.float32, torch.float64):
         rows += kernel_rows(K, refs, n_vertices, n_items, n_edges, dtype, eta, failures)
     torch.backends.cuda.matmul.allow_tf32 = False  # the f32 plain attention's products in full f32
-    rows += flash_rows(K, failures)
+    rows += flash_rows(K, smi, failures)
     end_phase("2", failures)
 
     print("== phase 3: full-size bmatch solve", flush=True)

@@ -15,18 +15,22 @@
 // a masked score is the finite -1e30, so a row whose first key tile is
 // wholly masked gathers junk that c = exp(m_old - m_new) zeroes once a
 // visible key arrives, and no exp(-inf - -inf) can occur; p is cast to v's
-// dtype before the PV product, which accumulates in f32, and l sums p
-// before that rounding; the output is acc / max(l, 1e-30) in q's dtype.
+// dtype (bf16) or split into TF32 parts (f32, below) before the PV product,
+// which accumulates in f32, and l sums p before that; the output is
+// acc / max(l, 1e-30) in q's dtype.
 // Key tiles wholly above the diagonal or outside the window band are not
-// visited. The bf16 body takes the softmax in base 2: the scores are scaled
-// by scale * log2(e) after the dot and exponentiated with ex2.approx, which
-// is exp() of the scaled scores up to float rounding; a masked score is
-// -1e30 after that scaling, as in the f32 body.
+// visited. Both bodies take the softmax in base 2: the scores are scaled by
+// scale * log2(e) after the dot and exponentiated with ex2.approx, which is
+// exp() of the scaled scores up to float rounding; a masked score is -1e30
+// after that scaling.
 //
 // Bound on the H100: operations. 4*D flops per scored (query, key) pair
-// over 989 TFLOP/s (bf16 tensor cores) or 67 TFLOP/s (f32 FMA); at
-// hubert-xlarge's shape (B 16, S 1500, 16 heads, D 80, bidirectional) that
-// is 0.19 ms a layer, against 0.07 ms for reading q, k, v and writing o.
+// over 989 TFLOP/s (bf16 tensor cores); at hubert-xlarge's shape (B 16,
+// S 1500, 16 heads, D 80, bidirectional) that is 0.19 ms a layer, against
+// 0.07 ms for reading q, k, v and writing o. The f32 body does each product
+// three times on the TF32 tensor cores (below): 3 * 4*D flops a pair over
+// 495 TFLOP/s, 1.117 ms at that shape in f32 (against 2.751 ms for the same
+// flops once over the 67 TFLOP/s of f32 FMA).
 //
 // Design:
 //  * bf16, for Hopper (sm_90a), after FlashAttention-3 (arXiv:2407.08608):
@@ -41,8 +45,12 @@
 //    softmax runs while tile i-1's PV is in flight; the two warpgroups take
 //    turns on the tensor cores (ping-pong). setmaxnreg moves registers from
 //    the producer to the consumers. Details at the kernel.
-//  * f32: a block of 128 threads takes 32 query rows, 4 threads a row,
-//    with 16-key tiles in shared memory and scalar FMA.
+//  * f32, on the Ampere-style tensor-core path that sm_90a still runs: a
+//    block of 4 warps takes 64 query rows, 16 a warp, on a flat grid (any
+//    B * Hq); K and V tiles stream through a two-stage cp.async ring in
+//    shared memory; both products run on mma.sync m16n8k8 tf32 in 3xTF32
+//    (three products of split operands, f32 accumulators), which holds the
+//    f32 bar where one TF32 pass does not. Details at the kernel.
 #include <cuda.h>
 #include <cuda_bf16.h>
 
@@ -82,21 +90,6 @@ __device__ __forceinline__ bool visible(const Params& p, int q, int key) {
 __device__ __forceinline__ bool tile_open(const Params& p, int q_first, int q_last, int k0, int bk) {
   const int k_last = k0 + bk - 1;
   return k_last < p.S && (!p.causal || k_last <= q_first) && (p.window <= 0 || k0 > q_last - p.window);
-}
-
-// Copy rows [r0, r0 + ROWS) of a (S, D) slice with the given row stride into
-// shared memory with row pitch LD, as 16-byte vectors; rows past S are zero
-// (their keys are masked, and a zero value row keeps p * v finite).
-template <int D, int ROWS, int LD, typename T>
-__device__ __forceinline__ void load_tile(T* dst, const T* src, int64_t row_stride, int r0, int S) {
-  constexpr int kVec = 16 / sizeof(T);
-  constexpr int kPerRow = D / kVec;
-  for (int i = threadIdx.x; i < ROWS * kPerRow; i += kBlockThreads) {
-    const int r = i / kPerRow, c = (i % kPerRow) * kVec;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < S) val = *reinterpret_cast<const uint4*>(src + (int64_t)(r0 + r) * row_stride + c);
-    *reinterpret_cast<uint4*>(dst + r * LD + c) = val;
-  }
 }
 
 __device__ __forceinline__ float quad_max(float x) {
@@ -632,81 +625,307 @@ __global__ void __launch_bounds__(Bf16Tile<D>::THREADS, 1)
 }
 
 // ----------------------------------------------------------------- f32 ----
+//
+// A flat grid of blocks, one per (query tile of BQ = 64 rows, batch * head):
+// block w takes (batch, head) w / n_qt and, within a head, the query tiles
+// from the last (longest causal rows) to the first. Four warps of 16 query
+// rows each (the m of m16n8k8). K and V tiles of BK keys pass through a ring
+// of STAGES shared-memory stages filled by cp.async (16 bytes a copy, rows
+// past S zero-filled), so that tile i + 1 loads while tile i computes.
+//
+// Products in 3xTF32. One pass of TF32 (10 mantissa bits) misses the f32
+// bar of 3e-5 elementwise, and three passes hold it as plain f32 does:
+// tests/test_torch_flash_attention.py (test_tf32_split_plan) emulates the
+// rounding on the test sweep (d 32, S 16 to 130) against the reference's
+// Pallas kernel, where max |err| / (1 + |ref|) is 3.7e-4 to 8.2e-4 for one
+// pass and 3.5e-7 to 5.5e-7 for three. So every operand x is split as
+// big = rna(x), small = rna(x - big), rna being cvt.rna.tf32.f32's rounding
+// (split_tf32), and every product a * b is small_a * big_b + big_a * small_b
+// + big_a * big_b, accumulated in f32 into the same registers in that order
+// (small_a * small_b, ~2^-22 of the product, is dropped).
+//
+// Fragments (g = lane / 4, t = lane % 4) of m16n8k8 tf32: A = {(g, t),
+// (g+8, t), (g, t+4), (g+8, t+4)}; B = {(k t, n g), (k t+4, n g)};
+// C = {(g, 2t), (g, 2t+1), (g+8, 2t), (g+8, 2t+1)}. A product's k and n
+// indices may map to keys and head-dim columns in any order, as long as
+// both operands (and, for n, the output) agree; the orders below make every
+// fragment a contiguous load.
+//   * QK^T: A = Q, split once per block: in registers up to D 80; at D 128
+//     (64 registers more for O) in shared memory in fragment order, each
+//     thread reading back its own float4s. Head-dim order: k step 2u + h
+//     takes columns 16u + 4t + 2h (k index t) and 16u + 4t + 2h + 1 (t + 4),
+//     so one 16-byte load of K row g (B's n index) gives both k steps.
+//   * PV: A = P straight from the score accumulators. C gives a thread keys
+//     2t and 2t+1 of each 8, where A wants columns t and t+4; the keys are
+//     permuted instead of moved: A column t is key 2t and column t+4 key
+//     2t+1, so a = {c0, c2, c1, c3} with no shuffle, and B reads V rows 2t
+//     and 2t+1. Head-dim order: n-tile 2u + h's column c is 16u + 2c + h,
+//     so one 8-byte load of a V row gives n-tiles 2u and 2u + 1, and a
+//     thread's outputs are 4 contiguous columns (one 16-byte store a row).
+// Row pitches (floats), so that each load hits 32 distinct banks in every
+// wavefront: K's 16-byte loads go a quarter warp at a time (rows g and
+// g + 1, 4 threads a row), so LDK = 16 mod 32 puts row g + 1 in the other
+// half of the banks; V's 8-byte loads go a half warp at a time (rows 2t,
+// 4 threads a row), so LDV = 4 mod 16 puts rows 0, 2, 4 and 6 in banks 8
+// apart. Both are multiples of 4, as cp.async's 16-byte copies need.
 
 template <int D>
-__global__ void __launch_bounds__(kBlockThreads) flash_f32_kernel(const Params p) {
-  // pitch D + 4: 16-byte aligned rows, and the 8 rows a warp reads at one
-  // column fall in 8 different banks
-  constexpr int BQ = 32, BK = 16, LD = D + 4, LP = BK + 1;
-  __shared__ __align__(16) float qs[BQ * LD];
-  __shared__ __align__(16) float ks[BK * LD];
-  __shared__ __align__(16) float vs[BK * LD];
-  __shared__ float ps[BQ * LP];
+struct F32Tile {
+  static constexpr int BQ = 64;                 // query rows of a block, 16 a warp
+  static constexpr bool Q_IN_REGS = D <= 80;    // else Q's split fragments sit in shared memory
+  // keys of a tile: 32 up to D 80 (64 leave too few registers at D 80 with
+  // Q's fragments in them, and spill); 16 at D 128, where Q's fragments take
+  // 64 KB of shared memory and two blocks must still fit an SM's 228 KB
+  static constexpr int BK = D <= 80 ? 32 : 16;
+  static constexpr int STAGES = 2;
+  static constexpr int LDK = D + (48 - D % 32) % 32;  // K's row pitch in floats: 16 mod 32
+  static constexpr int LDV = D + 4;                   // V's: 4 mod 16
+  static constexpr int K_FLOATS = BK * LDK, V_FLOATS = BK * LDV;  // one stage
+  static constexpr int QF_FLOAT4S = Q_IN_REGS ? 0 : 2 * (D / 8) * kBlockThreads;  // big and small, k step, thread
+  static constexpr int SMEM = 4 * (STAGES * (K_FLOATS + V_FLOATS) + 4 * QF_FLOAT4S);
+  static constexpr int MIN_BLOCKS = 2;          // blocks an SM, for __launch_bounds__
+  static_assert(D % 16 == 0, "head dim must be a multiple of 16 (two m16n8k8 k steps)");
+  static_assert(BK * D / 4 % kBlockThreads == 0, "a K or V tile is a whole number of 16-byte copies a thread");
+  static_assert(MIN_BLOCKS * (SMEM + 1024) <= 228 * 1024, "two blocks must fit an SM's shared memory");
+};
 
-  const int r = threadIdx.x >> 2, c = threadIdx.x & 3;  // row of the tile, quarter of the row
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
-  const int b = blockIdx.y / p.Hq, h = blockIdx.y % p.Hq, hk = h / (p.Hq / p.Hkv);
-  const int q_last = min(q0 + BQ, p.S) - 1;
-  const int row = q0 + r;
+// x rounded to TF32 (10 mantissa bits, ties away from zero), as the 32-bit
+// pattern that mma.sync reads: the bits of cvt.rna.tf32.f32, computed with
+// two integer operations (half a TF32 ulp added to the magnitude, the 13
+// low bits cleared). The cvt instruction runs on a slower conversion
+// pipe, and the split runs on every K, V and P element a warp reads.
+__device__ __forceinline__ uint32_t tf32_rna(float x) { return (__float_as_uint(x) + 0x1000u) & 0xffffe000u; }
+
+// x as big + small, both TF32: the operand split of 3xTF32 (both products).
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& small) {
+  big = tf32_rna(x);
+  small = tf32_rna(__fsub_rn(x, __uint_as_float(big)));
+}
+
+struct FragA {  // an A fragment of m16n8k8, split
+  uint32_t big[4], small[4];
+};
+
+struct FragB {  // a B fragment, split
+  uint32_t big[2], small[2];
+};
+
+__device__ __forceinline__ void split_a(FragA& f, float x0, float x1, float x2, float x3) {
+  split_tf32(x0, f.big[0], f.small[0]);
+  split_tf32(x1, f.big[1], f.small[1]);
+  split_tf32(x2, f.big[2], f.small[2]);
+  split_tf32(x3, f.big[3], f.small[3]);
+}
+
+__device__ __forceinline__ void split_b(FragB& f, float x0, float x1) {
+  split_tf32(x0, f.big[0], f.small[0]);
+  split_tf32(x1, f.big[1], f.small[1]);
+}
+
+// d[0..3] += a (16x8, row major) * b (8x8, column major), TF32 in, f32 accumulate.
+__device__ __forceinline__ void mma_tf32(float* d, const uint32_t (&a)[4], const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// n-tile j of d (d[4j..4j+3]) += a * b[j] for G n-tiles, in 3xTF32. Each
+// pass runs over the whole group before the next, so G independent
+// products separate two passes on the same accumulator.
+template <int G>
+__device__ __forceinline__ void mma_3xtf32(float* d, const FragA& a, const FragB (&b)[G]) {
+#pragma unroll
+  for (int j = 0; j < G; ++j) mma_tf32(d + 4 * j, a.small, b[j].big);
+#pragma unroll
+  for (int j = 0; j < G; ++j) mma_tf32(d + 4 * j, a.big, b[j].small);
+#pragma unroll
+  for (int j = 0; j < G; ++j) mma_tf32(d + 4 * j, a.big, b[j].big);
+}
+
+// 16 bytes from global to shared memory, asynchronously; zeros when !fill
+// (src is then not read, but must be a valid address).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool fill) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src), "r"(fill ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// No (query, key) pair of the key tile at k0 is visible to rows [q_first, q_last].
+__device__ __forceinline__ bool tile_dead(const Params& p, int q_first, int q_last, int k0, int bk) {
+  return q_first >= p.S || k0 >= p.S || (p.causal && k0 > q_last) || (p.window > 0 && k0 + bk - 1 <= q_first - p.window);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kBlockThreads, F32Tile<D>::MIN_BLOCKS) flash_f32_kernel(const Params p) {
+  using T = F32Tile<D>;
+  constexpr int BQ = T::BQ, BK = T::BK, LDK = T::LDK, LDV = T::LDV, STAGES = T::STAGES;
+  constexpr int NK = D / 8;   // k steps of QK^T, n-tiles of PV
+  constexpr int NT = BK / 8;  // n-tiles of QK^T, k steps of PV
+  constexpr int GK = NT < 4 ? NT : 4;  // n-tiles of QK^T that share one load of K fragments
+  extern __shared__ float4 f32_smem[];
+  float* ks = reinterpret_cast<float*>(f32_smem);  // stage s at ks + s * K_FLOATS
+  float* vs = ks + STAGES * T::K_FLOATS;           // stage s at vs + s * V_FLOATS
+  float4* qf = reinterpret_cast<float4*>(vs + STAGES * T::V_FLOATS);  // D 128: [k step][big, small][thread]
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int n_qt = (p.S + BQ - 1) / BQ;
+  const int bh = blockIdx.x / n_qt;
+  const int q0 = (n_qt - 1 - (int)(blockIdx.x % n_qt)) * BQ;
+  const int b = bh / p.Hq, h = bh % p.Hq, hk = h / (p.Hq / p.Hkv);
   const float* qg = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
   const float* kg = static_cast<const float*>(p.k) + b * p.k_sb + hk * p.k_sh;
   const float* vg = static_cast<const float*>(p.v) + b * p.v_sb + hk * p.v_sh;
   float* og = static_cast<float*>(p.o) + b * p.o_sb + h * p.o_sh;
 
-  load_tile<D, BQ, LD>(qs, qg, p.q_ss, q0, p.S);
-  float acc[D / 4] = {};  // columns c, c + 4, c + 8, ...
-  float m = kMasked, l = 0.f;
   int t0, t1;
-  key_tiles(p, q0, q_last, BK, t0, t1);
-  for (int kt = t0; kt < t1; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();
-    load_tile<D, BK, LD>(ks, kg, p.k_ss, k0, p.S);
-    load_tile<D, BK, LD>(vs, vg, p.v_ss, k0, p.S);
-    __syncthreads();
+  key_tiles(p, q0, min(q0 + BQ, p.S) - 1, BK, t0, t1);
+  const int n = t1 - t0;
+  // key tile t0 + i into stage i % STAGES; rows past S zero-filled (their
+  // keys are masked, and a zero value row keeps p * v finite)
+  auto load_kv = [&](int i) {
+    float* kd = ks + (i % STAGES) * T::K_FLOATS;
+    float* vd = vs + (i % STAGES) * T::V_FLOATS;
+    const int k0 = (t0 + i) * BK;
+#pragma unroll
+    for (int it = 0; it < BK * D / 4 / kBlockThreads; ++it) {
+      const int c = it * kBlockThreads + threadIdx.x, r = c / (D / 4), col = (c % (D / 4)) * 4;
+      const bool in = k0 + r < p.S;
+      const int64_t key = in ? k0 + r : 0;
+      cp_async16(kd + r * LDK + col, kg + key * p.k_ss + col, in);
+      cp_async16(vd + r * LDV + col, vg + key * p.v_ss + col, in);
+    }
+  };
+#pragma unroll
+  for (int i = 0; i < STAGES - 1; ++i) {
+    if (i < n) load_kv(i);
+    cp_async_commit();
+  }
 
-    float s[BK / 4] = {};  // keys c, c + 4, c + 8, c + 12
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      const float qd = qs[r * LD + d];
+  // This warp's rows: row[0] = wq_first + g and row[1] = row[0] + 8. Q's
+  // fragments come straight from global memory (once a block), rows past S
+  // as zeros, and are split once. Head-dim order: k step 2u + h takes
+  // columns 16u + 4t + 2h (A column t) and 16u + 4t + 2h + 1 (column t + 4).
+  const int wq_first = q0 + 16 * warp, wq_last = min(wq_first + 15, p.S - 1);
+  const int row[2] = {wq_first + g, wq_first + g + 8};
+  FragA qa[T::Q_IN_REGS ? NK : 1];
 #pragma unroll
-      for (int i = 0; i < BK / 4; ++i) s[i] = fmaf(qd, ks[(c + 4 * i) * LD + d], s[i]);
-    }
-    const bool open = tile_open(p, q0, q_last, k0, BK);
-    float mx = kMasked;
+  for (int u = 0; u < NK / 2; ++u) {
+    float4 x[2];
 #pragma unroll
-    for (int i = 0; i < BK / 4; ++i) {
-      float x = s[i] * p.scale;
-      if (!open && !visible(p, row, k0 + c + 4 * i)) x = kMasked;
-      s[i] = x;
-      mx = fmaxf(mx, x);
-    }
-    const float m_new = fmaxf(m, quad_max(mx));
-    const float corr = expf(m - m_new);
-    m = m_new;
-    float psum = 0.f;
+    for (int r = 0; r < 2; ++r)
+      x[r] = row[r] < p.S ? __ldg(reinterpret_cast<const float4*>(qg + (int64_t)row[r] * p.q_ss + 16 * u + 4 * t))
+                          : make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
-    for (int i = 0; i < BK / 4; ++i) {
-      const float e = expf(s[i] - m);
-      psum += e;
-      ps[r * LP + c + 4 * i] = e;
-    }
-    l = l * corr + psum;  // this thread's share; the quad's shares are summed at the end
-    __syncwarp();  // a row's four threads are in one warp
-#pragma unroll
-    for (int j = 0; j < D / 4; ++j) {
-      float a = acc[j] * corr;
-#pragma unroll
-      for (int key = 0; key < BK; ++key) a = fmaf(ps[r * LP + key], vs[key * LD + c + 4 * j], a);
-      acc[j] = a;
+    for (int h = 0; h < 2; ++h) {
+      const int kk = 2 * u + h;
+      FragA& f = qa[T::Q_IN_REGS ? kk : 0];
+      if (h == 0) split_a(f, x[0].x, x[1].x, x[0].y, x[1].y);
+      else split_a(f, x[0].z, x[1].z, x[0].w, x[1].w);
+      if constexpr (!T::Q_IN_REGS) {
+        qf[(2 * kk) * kBlockThreads + threadIdx.x] = *reinterpret_cast<const float4*>(f.big);
+        qf[(2 * kk + 1) * kBlockThreads + threadIdx.x] = *reinterpret_cast<const float4*>(f.small);
+      }
     }
   }
 
-  const float den = fmaxf(quad_sum(l), 1e-30f);
-  if (row < p.S) {
-    float* orow = og + (int64_t)row * p.o_ss + c;
+  auto q_frag = [&](int kk) -> FragA {
+    if constexpr (T::Q_IN_REGS) {
+      return qa[kk];
+    } else {
+      FragA f;
+      *reinterpret_cast<float4*>(f.big) = qf[(2 * kk) * kBlockThreads + threadIdx.x];
+      *reinterpret_cast<float4*>(f.small) = qf[(2 * kk + 1) * kBlockThreads + threadIdx.x];
+      return f;
+    }
+  };
+
+  const float scale_log2 = p.scale * 1.4426950408889634f;  // softmax in base 2: exp(x) = exp2(x log2 e)
+  float acc[D / 2] = {};  // accumulator layout: n-tile nd in acc[4nd..4nd+3]
+  float m[2] = {kMasked, kMasked}, l[2] = {0.f, 0.f};
+  for (int i = 0; i < n; ++i) {
+    cp_async_wait<STAGES - 2>();  // this thread's copies of tile i have landed
+    __syncthreads();              // everyone's have; and everyone is done with tile i - 1
+    if (i + STAGES - 1 < n) load_kv(i + STAGES - 1);  // into tile i - 1's stage
+    cp_async_commit();
+    const int k0 = (t0 + i) * BK;
+    // a tile that no row of this warp sees adds exactly nothing (exp(-1e30 -
+    // m) = 0, or junk that a later visible key clears): skip its products
+    if (tile_dead(p, wq_first, wq_last, k0, BK)) continue;
+    const float* kt = ks + (i % STAGES) * T::K_FLOATS;
+    const float* vt = vs + (i % STAGES) * T::V_FLOATS;
+
+    // QK^T: one 16-byte load gives key 8j + g's B fragments of k steps 2u and 2u + 1
+    float s[BK / 2] = {};
 #pragma unroll
-    for (int j = 0; j < D / 4; ++j) orow[4 * j] = acc[j] / den;
+    for (int u = 0; u < NK / 2; ++u) {
+      const FragA a0 = q_frag(2 * u), a1 = q_frag(2 * u + 1);
+#pragma unroll
+      for (int j0 = 0; j0 < NT; j0 += GK) {
+        float4 kv[GK];
+        FragB bk[GK];
+#pragma unroll
+        for (int j = 0; j < GK; ++j) kv[j] = *reinterpret_cast<const float4*>(kt + (8 * (j0 + j) + g) * LDK + 16 * u + 4 * t);
+#pragma unroll
+        for (int j = 0; j < GK; ++j) split_b(bk[j], kv[j].x, kv[j].y);
+        mma_3xtf32<GK>(s + 4 * j0, a0, bk);
+#pragma unroll
+        for (int j = 0; j < GK; ++j) split_b(bk[j], kv[j].z, kv[j].w);
+        mma_3xtf32<GK>(s + 4 * j0, a1, bk);
+      }
+    }
+
+    // the softmax of the bf16 body: an edge tile is scaled first and masked
+    // after, so that a masked score is exactly -1e30; l sums p before its split
+    const bool open = tile_open(p, wq_first, wq_last, k0, BK);
+    if (!open) {
+#pragma unroll
+      for (int e = 0; e < BK / 2; ++e)
+        s[e] = visible(p, row[(e >> 1) & 1], k0 + 8 * (e >> 2) + 2 * t + (e & 1)) ? s[e] * scale_log2 : kMasked;
+    }
+    float c[2];
+    online_softmax(s, m, l, c, open ? scale_log2 : 1.f);
+    rescale(acc, c);
+
+    // PV: keys 8j..8j+7, A column t is key 2t and column t + 4 key 2t + 1.
+    // Head-dim order: n-tile 2u + h's column c is 16u + 2c + h, so one
+    // 8-byte load gives a key's B fragments of n-tiles 2u and 2u + 1.
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      FragA pa;
+      split_a(pa, s[4 * j], s[4 * j + 2], s[4 * j + 1], s[4 * j + 3]);
+      const float* vr = vt + (8 * j + 2 * t) * LDV + 2 * g;
+#pragma unroll
+      for (int u = 0; u < NK / 2; ++u) {
+        const float2 v0 = *reinterpret_cast<const float2*>(vr + 16 * u);        // key 2t
+        const float2 v1 = *reinterpret_cast<const float2*>(vr + LDV + 16 * u);  // key 2t + 1
+        FragB bv[2];
+        split_b(bv[0], v0.x, v1.x);
+        split_b(bv[1], v0.y, v1.y);
+        mma_3xtf32<2>(acc + 8 * u, pa, bv);
+      }
+    }
+  }
+  cp_async_wait<0>();  // no copy outlives the block (the last commits are empty)
+
+  // n-tiles 2u and 2u + 1 hold this thread's columns 16u + 4t .. 16u + 4t + 3 of each row
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float den = fmaxf(quad_sum(l[r]), 1e-30f);
+    if (row[r] >= p.S) continue;
+    float* orow = og + (int64_t)row[r] * p.o_ss + 4 * t;
+#pragma unroll
+    for (int u = 0; u < NK / 2; ++u) {
+      const float* a0 = acc + 8 * u + 2 * r;  // n-tile 2u, columns 2t and 2t + 1
+      const float* a1 = a0 + 4;               // n-tile 2u + 1
+      *reinterpret_cast<float4*>(orow + 16 * u) = make_float4(a0[0] / den, a1[0] / den, a0[1] / den, a1[1] / den);
+    }
   }
 }
 
@@ -751,6 +970,17 @@ bool make_map(CUtensorMap* map, const void* ptr, int B, int S, int H, int D, int
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// More than 48 KB of dynamic shared memory needs an opt-in, once per device
+// and kernel; `done` is the caller's flags, one a device.
+inline cudaError_t opt_in_smem(const void* kernel, int bytes, bool (&done)[64]) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || (dev < 64 && done[dev])) return err;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess && dev < 64) done[dev] = true;
+  return err;
+}
+
 template <int D>
 int launch_bf16(const Params& p, cudaStream_t stream) {
   using T = Bf16Tile<D>;
@@ -760,16 +990,12 @@ int launch_bf16(const Params& p, cudaStream_t stream) {
       !make_map(&tv, p.v, p.B, p.S, p.Hkv, D, p.v_sb, p.v_ss, p.v_sh, T::W, T::BK, T::SW)) {
     return (int)cudaErrorInvalidValue;
   }
-  // more than 48 KB of dynamic shared memory needs an opt-in, once per device
   static bool opted_in[64] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  cudaError_t err = opt_in_smem((const void*)flash_bf16_kernel<D>, T::SMEM, opted_in);
   if (err != cudaSuccess) return (int)err;
-  if (dev >= 64 || !opted_in[dev]) {
-    err = cudaFuncSetAttribute(flash_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
-    if (err != cudaSuccess) return (int)err;
-    if (dev < 64) opted_in[dev] = true;
-  }
+  int dev = 0;
+  err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
   // a persistent grid: one block per SM (at most), each walking many work tiles
   const int64_t n_work = (int64_t)((p.S + T::BQ - 1) / T::BQ) * p.B * p.Hq;
   if (n_work >= (1 << 30)) return (int)cudaErrorInvalidConfiguration;  // round indices stay in int
@@ -791,11 +1017,22 @@ int launch_bf16(const Params& p, cudaStream_t stream) {
   RT_RETURN_LAUNCH_STATUS();
 }
 
+// A flat grid: one block per (query tile, batch * head), on blockIdx.x.
+template <int D>
+int launch_f32(const Params& p, cudaStream_t stream) {
+  using T = F32Tile<D>;
+  static bool opted_in[64] = {};
+  const cudaError_t err = opt_in_smem((const void*)flash_f32_kernel<D>, T::SMEM, opted_in);
+  if (err != cudaSuccess) return (int)err;
+  const int64_t blocks = (int64_t)((p.S + T::BQ - 1) / T::BQ) * p.B * p.Hq;
+  if (blocks > 0x7fffffff) return (int)cudaErrorInvalidConfiguration;  // a grid's x axis
+  flash_f32_kernel<D><<<(unsigned)blocks, kBlockThreads, T::SMEM, stream>>>(p);
+  RT_RETURN_LAUNCH_STATUS();
+}
+
 template <int D>
 int launch(const Params& p, bool bf16, cudaStream_t stream) {
-  if (bf16) return launch_bf16<D>(p, stream);
-  flash_f32_kernel<D><<<dim3((p.S + 31) / 32, p.B * p.Hq), kBlockThreads, 0, stream>>>(p);
-  RT_RETURN_LAUNCH_STATUS();
+  return bf16 ? launch_bf16<D>(p, stream) : launch_f32<D>(p, stream);
 }
 
 int flash_attention(const Params& p, int D, bool bf16, cudaStream_t stream) {

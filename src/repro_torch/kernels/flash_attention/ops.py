@@ -29,7 +29,7 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window) -> None:
             raise TypeError(f"flash_attention: {name} is {t.dtype}, q is {q.dtype}")
         if t.dim() != 4:
             raise ValueError(f"flash_attention: {name} must be (B, S, H, dh), got shape {tuple(t.shape)}")
-        # rows are read as 16-byte vectors (f32) or through TMA tensor maps (bf16)
+        # rows are read as 16-byte cp.async copies (f32) or through TMA tensor maps (bf16)
         if t.stride(3) != 1 or t.data_ptr() % 16 or any(s * t.element_size() % 16 for s in t.stride()[:3]):
             raise ValueError(f"flash_attention: {name} needs a contiguous head dim and 16-byte aligned rows, "
                              f"got strides {t.stride()}")
@@ -42,9 +42,6 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window) -> None:
         raise ValueError(f"flash_attention: head dim {dh} not built; supported: {HEAD_DIMS}")
     if S == 0:
         raise ValueError("flash_attention: needs S > 0")
-    # the f32 body puts (batch, head) on the grid's y axis; the bf16 body walks a flat grid
-    if q.dtype == torch.float32 and B * Hq > 65535:
-        raise ValueError(f"flash_attention: float32 needs B*Hq <= 65535, got {B * Hq}")
     if window is not None and window < 1:
         raise ValueError(f"flash_attention: window must be None or >= 1, got {window}")
 

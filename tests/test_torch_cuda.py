@@ -455,26 +455,31 @@ def _check_flash(q, k, v, causal, window):
 @pytest.mark.parametrize("dh", [16, 32, 64, 80, 128])
 def test_flash_attention_matches_plain_on_card(cuda, dh, S, causal, window, dtype):
     """The sweep of tests/test_kernels.py (GQA 4 over 2 heads) at every head dim, with S on both sides of the
-    bf16 kernel's 64-row warpgroup and 128-row tile edges, and windows inside one tile (24) and across two (200)."""
+    64-row warpgroup (bf16) and block (f32) edges and the 128-row tile edge (bf16), and windows inside one tile
+    (24) and across two or more (200)."""
     q, k, v = _qkv((2, S, 4, dh), (2, S, 2, dh), dtype, cuda, S + dh)
     _check_flash(q, k, v, causal, window)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal,window", [(False, None), (True, 200), (False, 100)])
 @pytest.mark.parametrize("dh,hq,hkv", [(16, 8, 2), (32, 6, 2), (64, 6, 1), (80, 16, 16), (128, 8, 1)])
-def test_flash_attention_long_rows_on_card(cuda, dh, hq, hkv, causal, window):
-    """Many key tiles and a ragged tail (S 1500 = 11.7 tiles of 128), GQA groups 1, 3, 4, 6 and 8; bf16,
-    bidirectional, causal-windowed and bidirectional-windowed."""
-    q, k, v = _qkv((1, 1500, hq, dh), (1, 1500, hkv, dh), torch.bfloat16, cuda, dh)
+def test_flash_attention_long_rows_on_card(cuda, dh, hq, hkv, causal, window, dtype):
+    """Many key tiles and a ragged tail (S 1500: 11.7 bf16 tiles of 128 keys; 46.9 f32 tiles of 32 up to
+    d 80, 93.75 of 16 at d 128), GQA groups 1, 3, 4, 6 and 8; bidirectional, causal-windowed and
+    bidirectional-windowed."""
+    q, k, v = _qkv((1, 1500, hq, dh), (1, 1500, hkv, dh), dtype, cuda, dh)
     _check_flash(q, k, v, causal, window)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("dh", [80, 128])
-def test_flash_attention_ring_wraps_on_card(cuda, dh):
-    """S 4096 causal at 2 heads: 32 key tiles pass the stage ring (4 stages at d 80, 2 at 128) many times."""
-    q, k, v = _qkv((1, 4096, 2, dh), (1, 4096, 2, dh), torch.bfloat16, cuda, 7)
+def test_flash_attention_ring_wraps_on_card(cuda, dh, dtype):
+    """S 4096 causal at 2 heads: the key tiles pass the stage ring many times (bf16: 32 tiles through 4
+    stages at d 80, 2 at 128; f32: 128 tiles at d 80 and 256 at d 128 through 2 stages)."""
+    q, k, v = _qkv((1, 4096, 2, dh), (1, 4096, 2, dh), dtype, cuda, 7)
     _check_flash(q, k, v, True, None)
 
 
@@ -492,10 +497,11 @@ def test_flash_attention_fused_qkv_views_on_card(cuda, dh, dtype):
 
 
 @pytest.mark.cuda
-def test_flash_attention_many_blocks_on_card(cuda):
-    """B*Hq = 65,600 (batch 4,100 x 16 heads) in bf16: more blocks than the 65,535 of a grid's y axis and
-    than many waves of 132 SMs; the bf16 kernel walks a flat grid."""
-    q, k, v = _qkv((4100, 3, 16, 16), (4100, 3, 16, 16), torch.bfloat16, cuda, 1)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_many_blocks_on_card(cuda, dtype):
+    """B*Hq = 65,600 (batch 4,100 x 16 heads): more blocks than the 65,535 of a grid's y axis and than
+    many waves of 132 SMs; both bodies take a flat grid (bf16 a persistent one)."""
+    q, k, v = _qkv((4100, 3, 16, 16), (4100, 3, 16, 16), dtype, cuda, 1)
     _check_flash(q, k, v, True, None)
 
 
@@ -513,8 +519,8 @@ def test_flash_attention_rejects_bad_inputs(cuda):
         K.flash_attention(*(t[..., :32] for t in wide))  # head stride of 136 bytes: rows not 16-byte aligned
     with pytest.raises(ValueError):
         K.flash_attention(q, k[:, :, :1].expand(1, 8, 3, 32), v)  # 2 query heads over 3 kv heads
-    with pytest.raises(ValueError):  # the f32 body's grid holds at most 65,535 (batch, head) pairs
-        K.flash_attention(*_qkv((1, 2, 65540, 16), (1, 2, 65540, 16), torch.float32, cuda, 0))
+    # B*Hq 65,540 in f32 is taken (a flat grid), and matches the plain version at 3e-5
+    _check_flash(*_qkv((1, 2, 65540, 16), (1, 2, 65540, 16), torch.float32, cuda, 0), True, None)
 
 
 @pytest.mark.cuda
