@@ -36,7 +36,14 @@ non-zero before the result lines are printed.
    spill at d 80 or 128 in either fails the phase. The Newton search runs on three seeded
    states a dtype: equal bit for bit to the host loop over the probe
    kernel, and within ls_eps * alpha of its plain version (the same loop
-   over plain PyTorch probes), whose time is the row's plain time.
+   over plain PyTorch probes), whose time is the row's plain time. Its
+   step form, as the MWU loop launches it (max(d) and the warm start read
+   from device memory, the record [alpha, probes, completes, step, bad]
+   written there), gets a row of its own, held on those states and one
+   whose alpha < 1, at max(d) > 0 and = 0, to the host loop bit for bit
+   and to its plain version. The axpy gets a second row too: its step read
+   from device memory (the form the loop launches), bit for bit the
+   host-float form and the plain version, in place as well.
    ``step_direction`` (g gathered from w, as bmatch's solve runs it) must
    give d bit for bit as the plain eager chain, in both of its sources, and
    max(d) exactly. ``incidence_scatter`` runs M x with the items' Zipf
@@ -49,7 +56,15 @@ non-zero before the result lines are printed.
 3. The full-size solve: bipartite matching (bmatch) at float64 on the
    Netflix Prize shape, ``bipartite_ratings(480_189, 17_770,
    avg_ratings=209, seed=0)`` (498k vertices, 98.6M edges), through
-   ``Solver(MWUOptions(eps=0.1, step_rule="newton"), batch_width=4)``.
+   ``Solver(MWUOptions(eps=0.1, step_rule="newton"), batch_width=4)``,
+   whose rounds of four bounds run as the four lanes of one
+   ``solve_batch``: the phase prints each round's lanes, bounds, lane
+   iterations and wall time, the loop iterations (the longest lane's a
+   round), the certificate's time alone (``certify_solution``, on the
+   host), peak memory of a plain Solver's solve and the lanes' state as
+   reckoned beforehand. Round
+   1's four lanes must equal four sequential ``feasible()`` solves at its
+   bounds bit for bit (status, iterations, probes, certificates, x).
    The certified objective must be within 1.5*eps of the exact maximum
    matching (scipy's Hopcroft-Karp; the bipartite matching LP is
    integral) and max(Mx), recomputed on the host, at most 1 + 1e-9.
@@ -58,17 +73,22 @@ non-zero before the result lines are printed.
    probes, objective and x bits (no atomics in the scatter). The launch
    counts of the first show that it went through every MWU kernel but the
    probe's and the standalone gather's: the Newton search and the step
-   direction, each launched once an iteration, probe and gather inside
-   their own launches. One more feasibility solve at the certified bound
-   is timed, then profiled (the two repeat) for the device time by kernel,
-   the search's share and the host reads (device-to-host copies) an
-   iteration; the profile must show the scatter and step-direction kernels
+   direction, each launched once a lane iteration, the axpy three times,
+   probe and gather inside their own launches. One more feasibility solve
+   at the certified bound, and round 1's batch again, are each timed, then
+   profiled (the two repeat) for the device time by kernel, the search's
+   share, the device's idle share and the host reads (device-to-host
+   copies) a loop iteration, which must be one, plus three at most for
+   the run; the profile must show the scatter and step-direction kernels
    and no ``index_add_`` kernel. ``--n-users`` cuts the user count (items
    and ratings per user stay).
 4. Small solves, card vs CPU, for all six families: same status, bound
    within rel 1e-5, objective within rel 2*eps; each card solve run twice
    repeats bit for bit, and their launches give the gather's count in the
-   kernels line. Then match and vcover on
+   kernels line. Then four-lane ``solve_batch`` calls on the card for
+   the six families and a ``stack_problems`` batch of two match instances
+   (erdos(4096, 40000)): each lane equal to the card's ``feasible()`` at
+   its bound bit for bit. Then match and vcover on
    rgg(12) with ``step_rule="binary"``: its host loop launches the probe
    kernel once a probe, and those launches are the probe's count in the
    kernels line.
@@ -86,7 +106,8 @@ non-zero before the result lines are printed.
 
 The line before the last is ``{"kernels": [...]}``, one entry per kernel;
 the last is ``{"ok": true, "device": {...}}``. The flash entry takes row
-(a) in bf16 and its launches from phase 5. The script exits non-zero
+(a) in bf16 and its launches from phase 5; the axpy and the search take
+the row of the form the main path launches (device step, step form). The script exits non-zero
 without a result when no CUDA device is present or when it is run outside
 the repository.
 """
@@ -116,6 +137,9 @@ LOGITS_REL_L2_BAR = 5e-2  # pallas vs dense forward of phase 5, bf16 through 48 
 # fails it; the elementwise bar alone lets such a fault through.
 FLASH_REL_L2_BAR = 6e-3
 EPS = 0.1
+# the form of a kernel that the main path launches, where a kernel has two
+# rows in phase 2 (its kernels-line entry takes that row)
+MAIN_FORM = {"axpy_reduce": "device step", "newton_search": "step"}
 
 
 class SmokeFailure(RuntimeError):
@@ -184,13 +208,15 @@ def kernel_rows(K, refs, n_vertices: int, n_items: int, n_edges: int, dtype, eta
     tol = 1e-4 if dtype == torch.float32 else 1e-10
     rows = []
 
-    def row(name, shape, err, bar, ok, kernel, plain, reps, nbytes, ops, library=None):
+    def row(name, shape, err, bar, ok, kernel, plain, reps, nbytes, ops, library=None, form=None):
         b_ms, b_by = bound(nbytes, ops, dtype)
-        r = dict(name=name, dtype=str(dtype).removeprefix("torch."), shape=shape, max_abs_err=err, bar=bar, within_bar=ok,
+        r = dict(name=name, form=form, dtype=str(dtype).removeprefix("torch."), shape=shape, max_abs_err=err, bar=bar,
+                 within_bar=ok,
                  ms=device_ms(kernel, reps), plain_ms=device_ms(plain, reps), bound_ms=b_ms, bound_by=b_by,
                  library_ms=None if library is None else call_ms(library, reps),
                  call_ms=call_ms(kernel, reps), plain_call_ms=call_ms(plain, reps))
-        check(failures, ok, f"{name} {r['dtype']} {shape}: max_abs_err {err:.3g} (bar {bar}); device ms: kernel "
+        check(failures, ok, f"{name}{'' if form is None else f' ({form})'} {r['dtype']} {shape}: max_abs_err "
+                            f"{err:.3g} (bar {bar}); device ms: kernel "
                             f"{r['ms']:.4f}, plain {r['plain_ms']:.4f}, library {r['library_ms']}, bound "
                             f"{b_ms:.4f} ({b_by}); per eager call: kernel {r['call_ms']:.4f}, plain "
                             f"{r['plain_call_ms']:.4f}")
@@ -310,7 +336,7 @@ def kernel_rows(K, refs, n_vertices: int, n_items: int, n_edges: int, dtype, eta
     row("linesearch_probe", [n, 1], err, tol, ok and same, lambda: K.linesearch_probe2(y, dy, z, dz, 7.5, eta),
         lambda: refs["linesearch_probe2"](y, dy, z, dz, 7.5, eta), reps, 2 * (n + 1) * size, 9 * (n + 1))
     del y, dy, z, dz
-    rows.append(search_row(K, n, dtype, eta, failures))
+    rows += search_rows(K, n, dtype, eta, failures)
 
     # fused update at E (the x update)
     y = torch.rand(E, generator=gen, device=dev, dtype=dtype)
@@ -320,8 +346,28 @@ def kernel_rows(K, refs, n_vertices: int, n_items: int, n_edges: int, dtype, eta
     err = max((out - out_r).abs().max().item(), abs(mn.item() - mn_r.item()), abs(mx.item() - mx_r.item()))
     del out, out_r
     row("axpy_reduce", [E], err, min(tol, 1e-6), err <= min(tol, 1e-6), lambda: K.axpy_reduce(y, dy, 3.25),
-        lambda: refs["axpy_reduce"](y, dy, 3.25), 10, 3 * E * size, 4 * E)
-    del y, dy
+        lambda: refs["axpy_reduce"](y, dy, 3.25), 10, 3 * E * size, 4 * E, form="host alpha")
+    # the device-step form, as the MWU loop runs it: the step read from
+    # device memory, [min, max] into a float64 slot; bit for bit the
+    # host-float form and the plain version, into another tensor and in place
+    step, red = torch.tensor([3.25], dtype=torch.float64, device=dev), torch.empty(2, dtype=torch.float64, device=dev)
+    buf = torch.empty_like(y)
+    out, mn, mx = K.axpy_reduce(y, dy, 3.25)
+    out_r = refs["axpy_reduce"](y, dy, step)[0]
+    got, gmn, gmx = K.axpy_reduce(y, dy, step, out=buf, red=red)
+    same = torch.equal(got, out) and torch.equal(got, out_r) and (gmn.item(), gmx.item()) == (mn.item(), mx.item())
+    inplace = y.clone()
+    K.axpy_reduce(inplace, dy, step, out=inplace)
+    same = same and torch.equal(inplace, out)
+    err = (got - out_r).abs().max().item()
+    del out, out_r, inplace
+    check(failures, same, f"axpy_reduce {dtype} [{E}], device step: bit-equal to the host-float form and the plain "
+                          f"version, in place too; [min, max] into the record slot")
+    # the plain version reads the step as a host float (a read would stop
+    # the CUDA graph the time is taken from): the same arithmetic
+    row("axpy_reduce", [E], err, 0.0, same, lambda: K.axpy_reduce(y, dy, step, out=buf, red=red),
+        lambda: refs["axpy_reduce"](y, dy, 3.25), 10, 3 * E * size, 4 * E, form="device step")
+    del y, dy, buf
     torch.cuda.empty_cache()
     return rows
 
@@ -332,11 +378,13 @@ def search_state(n: int, kind: str, seed: int, dtype) -> list:
     rng = np.random.default_rng(seed)
     y, dy, dz = rng.random(n) * 0.3, rng.random(n) * 1e-3, rng.random(1) * 4e-3 + 1e-4
     z = {"far": rng.random(1) * 0.3, "near": 1.0 - dz * rng.uniform(0.5, 3.0, 1),
-         "done": 1.0 - dz * rng.uniform(0.2, 0.9, 1)}[kind]
+         "done": 1.0 - dz * rng.uniform(0.2, 0.9, 1), "below": rng.random(1) * 0.3}[kind]
+    if kind == "below":  # a packing step 300x as large: f(1) < 1, the search backs off below 1
+        dy = dy * 300.0
     return [torch.from_numpy(t).to(dtype).cuda() for t in (y, z, dy, dz)]
 
 
-def search_row(K, n: int, dtype, eta: float, failures: list) -> dict:
+def search_rows(K, n: int, dtype, eta: float, failures: list) -> list[dict]:
     """The Newton search kernel on seeded n + 1 states. Against the host loop
     over the probe kernel (stepsize._newton_step_host): alpha bit for bit,
     probes and completes equal. Against its plain version, the same loop
@@ -347,11 +395,21 @@ def search_row(K, n: int, dtype, eta: float, failures: list) -> dict:
     iteration): ms a search (one launch replayed from a CUDA graph), its
     probes, and ms a probe counting the alpha = 0 sweep; the plain version
     and the host loop over the probe kernel are timed a search on the host
-    clock (their probes read back one by one)."""
+    clock (their probes read back one by one).
+
+    Then the step form, as the MWU loop launches it (max(d) and the warm
+    start alpha_prev read from device memory, the record [alpha, probes,
+    completes, step, bad] written there), on the three states and a
+    "below" one whose alpha < 1, at max(d) > 0 and max(d) = 0: alpha,
+    probes and completes bit for bit the host loop's; step, bad and
+    alpha_prev as the MWU iteration decides them; against its plain
+    version (ref.newton_step_ref) bad and completes equal and alpha within
+    ls_eps * alpha. Its row times the "far" state at max(d) = 0, so that
+    alpha_prev stays and every replay runs the same search."""
     import struct
 
     from repro_torch.core import stepsize
-    from repro_torch.kernels.linesearch_probe.ref import newton_search_ref
+    from repro_torch.kernels.linesearch_probe.ref import newton_search_ref, newton_step_ref
 
     def host_ms(fn) -> float:
         fn()
@@ -394,7 +452,44 @@ def search_row(K, n: int, dtype, eta: float, failures: list) -> dict:
                         f"({r['ms_per_probe']:.4f} a probe with the alpha = 0 sweep), bound {b_ms:.4f} ({b_by}); "
                         f"host clock ms a search: plain {plain_ms:.4f}, host loop over the probe kernel "
                         f"{loop_ms:.4f}, newton_step with its read {call:.4f}")
-    return r
+
+    def bits(v: float) -> bytes:
+        return struct.pack("d", v)
+
+    dev = torch.device("cuda")
+    step_ok, step_err = True, 0.0
+    for kind, alpha0 in (("far", 1.0), ("near", 37.0), ("done", 1.0), ("below", 1.0)):
+        y, z, dy, dz = search_state(n, kind, 1, dtype)
+        host = stepsize._newton_step_host(y, z, dy, dz, eta, ls_eps=EPS, alpha0=alpha0)
+        for d_max in (1e-3, 0.0):
+            dm = torch.tensor(d_max, dtype=dtype, device=dev)
+            ap, ap_p = (torch.tensor([alpha0], dtype=torch.float64, device=dev) for _ in range(2))
+            rec = stepsize.newton_step_record(y, z, dy, dz, eta, EPS, dm, ap).tolist()
+            plain = newton_step_ref(y, dy, z, dz, eta, EPS, dm, ap_p).tolist()
+            bad = d_max <= 0 or host.alpha < 1
+            same = (bits(rec[0]), int(rec[1]), bool(rec[2])) == (bits(host.alpha), host.probes, host.completes) \
+                and bool(rec[4]) == bad and bits(rec[3]) == bits(0.0 if bad else host.alpha) \
+                and bits(ap.item()) == bits(alpha0 if bad else host.alpha)
+            near = (rec[2], rec[4]) == (plain[2], plain[4]) and abs(rec[0] - plain[0]) <= EPS * max(rec[0], plain[0])
+            check(failures, same and near and (kind != "below" or host.alpha < 1),
+                  f"newton_search step form {dtype} [{n}, 1] {kind}, alpha_prev {alpha0}, max(d) {d_max}: record "
+                  f"{rec} | host loop {tuple(host)}, bad {bad}; plain {plain}")
+            step_ok = step_ok and same and near
+            step_err = max(step_err, abs(rec[0] - plain[0]))
+    y, z, dy, dz = search_state(n, "far", 1, dtype)
+    dm0, ap, out = (torch.zeros((), dtype=dtype, device=dev), torch.ones(1, dtype=torch.float64, device=dev),
+                    torch.empty(5, dtype=torch.float64, device=dev))
+    probes = int(K.newton_search(y, dy, z, dz, eta, EPS, ap, d_max=dm0, out=out)[1].item())
+    ms = device_ms(lambda: K.newton_search(y, dy, z, dz, eta, EPS, ap, d_max=dm0, out=out), 50)
+    plain_ms = host_ms(lambda: newton_step_ref(y, dy, z, dz, eta, EPS, dm0, ap).tolist())
+    b_ms, b_by = bound(2 * (n + 1) * size, 9 * (n + 1) * (probes + 1), dtype)
+    s = dict(r, form="step", max_abs_err=step_err, within_bar=step_ok, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+             bound_by=b_by, call_ms=call_ms(lambda: K.newton_search(y, dy, z, dz, eta, EPS, ap, d_max=dm0, out=out), 50),
+             plain_call_ms=plain_ms, probes=probes, ms_per_probe=ms / (probes + 1))
+    check(failures, step_ok, f"newton_search step form {s['dtype']} [{n}, 1]: {probes} probes; device ms a search "
+                             f"{ms:.4f}, bound {b_ms:.4f} ({b_by}); plain {plain_ms:.4f} (host clock); eager call "
+                             f"{s['call_ms']:.4f}")
+    return [dict(r, form="host alpha0"), s]
 
 
 def scored_pairs(S: int, causal: bool, window) -> int:
@@ -541,9 +636,39 @@ def flash_rows(K, card: str, failures: list) -> list[dict]:
 
 
 # -- phase 3 -----------------------------------------------------------------
+def round_solver(opts, batch_width: int = 4):
+    """A Solver that keeps, for each search round, its bounds, its lanes'
+    iterations and its wall time, and the first batched round's result."""
+    from repro_torch.api import Solver
+
+    class RoundSolver(Solver):
+        def __init__(self):
+            super().__init__(opts, batch_width=batch_width)
+            self.rounds, self.first_batch = [], None
+
+        def solve_batch(self, problem, bounds, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = super().solve_batch(problem, bounds, **kw)
+            torch.cuda.synchronize()
+            self.rounds.append(dict(bounds=[float(b) for b in bounds], iters=res.iters.tolist(),
+                                    wall_s=time.perf_counter() - t0))
+            if self.first_batch is None:
+                self.first_batch = res
+            return res
+
+        def feasible(self, problem, bound=None, trace=False):
+            res = super().feasible(problem, bound, trace)
+            self.rounds.append(dict(bounds=[float(bound)], iters=[res.iters], wall_s=None))
+            return res
+
+    return RoundSolver()
+
+
 def full_solve(n_users: int, failures: list) -> dict:
     from repro_torch import kernels as K
     from repro_torch.api import MWUOptions, Solver, Status
+    from repro_torch.api.solver import certify_solution
     from repro_torch.graphs import baselines, bipartite_ratings, build
 
     t0 = time.perf_counter()
@@ -562,6 +687,7 @@ def full_solve(n_users: int, failures: list) -> dict:
           f"[{prob.lo}, {prob.hi}] ({t_build:.1f} s)", flush=True)
 
     # the scatter's CSR, built once per operator at its first card product
+    # and shared by the lanes of a round (they share the operator)
     t0 = time.perf_counter()
     sides = prob.P.csr
     torch.cuda.synchronize()
@@ -569,31 +695,70 @@ def full_solve(n_users: int, failures: list) -> dict:
     print(f"  scatter CSR of M: {sum(s.nbytes for s in sides) / 1e6:.1f} MB (u side "
           f"{sides[0].nbytes / 1e6:.1f} MB, permutation: {sides[0].src is not None}; v side "
           f"{sides[1].nbytes / 1e6:.1f} MB), built in {t_csr:.2f} s", flush=True)
+    opts = MWUOptions(eps=EPS, step_rule="newton")
+    # the lanes' state beyond one solve's: K - 1 more rows of x (E), y (V) and z (1)
+    lane_gb = 3 * (g.m + g.n + 1) * 8 / 1e9
+    print(f"  reckoned: 4 lanes hold {lane_gb:.2f} GB of state beyond one solve's (3 more rows of x, y, z); the "
+          f"graph and the CSR are shared", flush=True)
 
-    torch.cuda.reset_peak_memory_stats()
     K.reset_launch_counts()
+    solver = round_solver(opts)  # keeps round 1's batch (its x rows) for the check below
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    sol = Solver(MWUOptions(eps=EPS, step_rule="newton"), batch_width=4).solve(prob)
+    sol = solver.solve(prob)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = K.launch_counts()
-    # the same solve again: the scatter sums in a fixed order, so a card
-    # solve repeats bit for bit
+    # round 1's lanes against four sequential solves at full size, bit for bit
+    batch, seq = solver.first_batch, Solver(opts)
+    for j, b in enumerate(solver.rounds[0]["bounds"] if batch is not None else []):
+        res = seq.feasible(prob, b)
+        same = (int(batch.status[j]), int(batch.iters[j]), int(batch.ls_probes[j]), float(batch.max_px[j]),
+                float(batch.min_cx[j])) == (res.status, res.iters, res.ls_probes, res.max_px, res.min_cx)
+        check(failures, same and torch.equal(batch.x[j], res.x),
+              f"round 1, lane {j} (bound {b!r}): equal to feasible() bit for bit ({res.iters} iterations, "
+              f"{res.ls_probes} probes, {Status.NAMES[res.status]}, x bits equal: {torch.equal(batch.x[j], res.x)})")
+        del res
+    check(failures, batch is not None, "the search ran a batched round")
+    # free the first solve's lane rows, so that the second solve's peak is its own
+    solver.first_batch = batch = sol.last_result = None
+    torch.cuda.empty_cache()
+    # the same solve again, by a plain Solver (its peak memory is the
+    # solve's own): the scatter sums in a fixed order, so a card solve
+    # repeats bit for bit
+    torch.cuda.reset_peak_memory_stats()
+    base_gb = torch.cuda.memory_allocated() / 1e9
     t0 = time.perf_counter()
-    sol2 = Solver(MWUOptions(eps=EPS, step_rule="newton"), batch_width=4).solve(prob)
+    sol2 = Solver(opts, batch_width=4).solve(prob)
     torch.cuda.synchronize()
     wall2 = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    # the solve's last step alone: the certificate of its best lane (x and
+    # the objective to the host, the rescale and the objective's dot there)
+    t0 = time.perf_counter()
+    certify_solution(prob, sol2.last_result, sol2.bound, dict(calls=0, iters=0, probes=0))
+    t_cert = time.perf_counter() - t0
 
+    rounds = solver.rounds
+    loop_iters = sum(max(r["iters"]) for r in rounds)
     loads = np.bincount(g.u, sol.x, g.n) + np.bincount(g.v, sol.x, g.n) if sol.found else np.array([np.inf])
     info = dict(n_vertices=g.n, n_edges=g.m, exact=exact, objective=sol.objective, bound=sol.bound,
                 status=Status.NAMES[sol.status], calls=sol.feasibility_calls, iters=sol.mwu_iters_total,
                 probes=sol.ls_probes_total, wall_s=wall, ms_per_iter=1e3 * wall / max(sol.mwu_iters_total, 1),
-                max_memory_gb=torch.cuda.max_memory_allocated() / 1e9, max_Mx=float(loads.max()),
+                rounds=len(rounds), lanes_per_round=[len(r["bounds"]) for r in rounds],
+                round_loop_iters=[max(r["iters"]) for r in rounds], round_lane_iters=[r["iters"] for r in rounds],
+                round_wall_s=[r["wall_s"] for r in rounds], loop_iters=loop_iters,
+                ms_per_loop_iter=1e3 * wall / max(loop_iters, 1),
+                max_memory_gb=peak_gb, memory_before_gb=base_gb, reckoned_lane_state_gb=lane_gb,
+                max_Mx=float(loads.max()),
                 launches=launches, setup_s=dict(graph=t_graph, exact=t_exact, build=t_build, csr=t_csr),
-                csr_mb=sum(s.nbytes for s in sides) / 1e6, second_wall_s=wall2,
+                csr_mb=sum(s.nbytes for s in sides) / 1e6, certify_s=t_cert,
+                rounds_wall_s=sum(r["wall_s"] or 0.0 for r in rounds), second_wall_s=wall2,
                 second_ms_per_iter=1e3 * wall2 / max(sol2.mwu_iters_total, 1))
     print("  " + json.dumps(info), flush=True)
+    for r in rounds:
+        print(f"  round: {len(r['bounds'])} lanes at bounds {[round(b, 3) for b in r['bounds']]}, lane iterations "
+              f"{r['iters']} (loop iterations {max(r['iters'])}), {r['wall_s']} s", flush=True)
     for k, sl in enumerate((sol, sol2)):
         check(failures, sl.feasible, f"bmatch solve {k + 1} is FEASIBLE ({Status.NAMES[sl.status]})")
         rel = abs(sl.objective - exact) / exact
@@ -607,6 +772,10 @@ def full_solve(n_users: int, failures: list) -> dict:
     check(failures, first == second and same_x,
           f"two solves in one call repeat: (calls, iterations, probes, objective) {first} | {second}; x bits equal: "
           f"{same_x}; {wall:.2f} / {wall2:.2f} s")
+    check(failures, sum(len(r["bounds"]) for r in rounds) == sol.feasibility_calls
+          and all(r["wall_s"] is not None for r in rounds if len(r["bounds"]) > 1),
+          f"the search's {sol.feasibility_calls} feasibility calls ran as {len(rounds)} rounds of "
+          f"{[len(r['bounds']) for r in rounds]} lanes, every round of more than one through solve_batch")
     for name, count in launches.items():
         if name == "flash_attention":  # the LM plane's kernel, off this path
             check(failures, count == 0, f"{name} launched {count} times in the solve")
@@ -616,36 +785,42 @@ def full_solve(n_users: int, failures: list) -> dict:
             check(failures, count == 0, f"{name} launched {count} times in the solve")
         elif name in ("newton_search", "step_direction"):
             check(failures, count == sol.mwu_iters_total,
-                  f"{name} launched {count} times in the solve, once an iteration ({sol.mwu_iters_total})")
+                  f"{name} launched {count} times in the solve, once a lane iteration ({sol.mwu_iters_total})")
+        elif name == "axpy_reduce":
+            check(failures, count == 3 * sol.mwu_iters_total,
+                  f"{name} launched {count} times in the solve, 3 a lane iteration ({sol.mwu_iters_total})")
         else:
             check(failures, count > 0, f"{name} launched {count} times in the solve")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,power.draw,power.limit,temperature.gpu",
                           "--format=csv,noheader"], capture_output=True, text=True, check=True).stdout.strip()
     print(f"  after the solve: sm clock, power draw, power limit, temperature = {smi}", flush=True)
+
     if sol.found:
-        info["profile"] = profile_call(prob, sol.bound, failures)
+        info["profile"] = profile_run(lambda: Solver(opts).feasible(prob, sol.bound), "one feasibility solve at "
+                                      "the certified bound", failures)
+        info["profile_round"] = profile_run(lambda: Solver(opts).solve_batch(prob, rounds[0]["bounds"]),
+                                            "round 1's batch of 4 lanes", failures)
     return info
 
 
-def profile_call(prob, bound: float, failures: list) -> dict:
-    """Where one feasibility solve's time goes: the solve at ``bound`` timed
-    alone, then again under torch.profiler for device time by kernel (the
-    two take the same iterations: a card solve repeats). The profile must
-    show the scatter and step-direction kernels and no index_add_ /
-    scatter_add kernel."""
+def profile_run(run, what: str, failures: list) -> dict:
+    """Where the time of ``run()`` (a feasibility solve or a batch of them)
+    goes: the call timed alone, then again under torch.profiler for device
+    time by kernel (the two take the same iterations: a card solve
+    repeats). Lane iterations are the lanes' iterations summed, loop
+    iterations the longest lane's; host reads are the device-to-host
+    copies. The profile must show the scatter and step-direction kernels
+    and no index_add_ / scatter_add kernel."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.api import MWUOptions, Solver
-
-    solver = Solver(MWUOptions(eps=EPS, step_rule="newton"))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    res = solver.feasible(prob, bound)
+    res = run()
     torch.cuda.synchronize()
     wall_ms = 1e3 * (time.perf_counter() - t0)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        profiled = solver.feasible(prob, bound)
+        profiled = run()
         torch.cuda.synchronize()
     # device-side events only: the operators that launched them carry the
     # same device time again
@@ -654,21 +829,25 @@ def profile_call(prob, bound: float, failures: list) -> dict:
     busy_ms = sum(k[0] for k in kernels)
     port_ms = sum(k[0] for k in kernels if "rt::" in k[2])
     search_ms = sum(k[0] for k in kernels if "newton_search" in k[2])
-    # host reads: the device-to-host copies (.item(), .tolist()) the solve made
+    # host reads: the device-to-host copies (.item(), .tolist()) the run made
     reads = sum(e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA and "DtoH" in e.key)
-    wall_per_iter = wall_ms / max(res.iters, 1)
-    device_per_iter = busy_ms / max(profiled.iters, 1)
-    out = dict(bound=bound, iters=res.iters, probes=res.ls_probes, wall_ms=wall_ms, wall_ms_per_iter=wall_per_iter,
-               profiled_iters=profiled.iters, device_busy_ms=busy_ms, device_ms_per_iter=device_per_iter,
-               device_idle_share=1.0 - device_per_iter / wall_per_iter if busy_ms else None,
+    iters = np.atleast_1d(res.iters)
+    lane_iters, loop_iters = int(iters.sum()), int(iters.max())
+    out = dict(lanes=len(iters), lane_iters=lane_iters, loop_iters=loop_iters, probes=int(np.sum(res.ls_probes)),
+               wall_ms=wall_ms, wall_ms_per_lane_iter=wall_ms / max(lane_iters, 1), device_busy_ms=busy_ms,
+               device_ms_per_lane_iter=busy_ms / max(lane_iters, 1),
+               device_idle_share=1.0 - busy_ms / wall_ms if busy_ms else None,
                port_kernels_ms=port_ms, other_device_ms=busy_ms - port_ms, newton_search_ms=search_ms,
                newton_search_share=search_ms / busy_ms if busy_ms else None, host_reads=reads,
-               host_reads_per_iter=reads / max(profiled.iters, 1))
-    print(f"  profile of one feasibility solve: {json.dumps(out)}", flush=True)
+               host_reads_per_loop_iter=reads / max(loop_iters, 1))
+    print(f"  profile of {what}: {json.dumps(out)}", flush=True)
     for ms, count, key in kernels[:20]:
         print(f"    {ms:10.2f} ms {count:7d} x  {key[:110]}", flush=True)
-    check(failures, profiled.iters == res.iters and torch.equal(profiled.x, res.x),
-          f"the timed and the profiled solve repeat ({res.iters} / {profiled.iters} iterations, x bits equal)")
+    same = np.array_equal(np.atleast_1d(profiled.iters), iters) and torch.equal(profiled.x, res.x)
+    check(failures, same, f"{what}: the timed and the profiled run repeat ({iters.tolist()} / "
+                          f"{np.atleast_1d(profiled.iters).tolist()} iterations, x bits equal)")
+    check(failures, reads <= loop_iters + 3, f"{what}: {reads} host reads in {loop_iters} loop iterations "
+                                             f"({out['host_reads_per_loop_iter']:.3f} a loop iteration)")
     atomic = [k for k in kernels if any(w in k[2] for w in ("indexFunc", "index_add", "scatter_add"))]
     check(failures, not atomic, f"no index_add_ / scatter_add kernel in the profile ({[k[2][:60] for k in atomic]})")
     for name in ("scatter_tiles_kernel", "scatter_rows_kernel", "step_direction_kernel"):
@@ -733,6 +912,44 @@ def small_solves(failures: list) -> dict:
     check(failures, launches["incidence_gather"] > 0 and launches["incidence_scatter"] > 0,
           "the six card solves launched the gather and the scatter")
     return launches
+
+
+def batch_solves(failures: list) -> None:
+    """Batched lanes on the card against feasible() on the card, bit for bit:
+    four bounds of each of the six families (gen-match has no bound: four
+    lanes of one problem), and two stacked match instances, each lane over
+    its own operators."""
+    from repro_torch.api import MWUOptions, Solver, Status, stack_problems
+    from repro_torch.graphs import bipartite_ratings, build, erdos, generalized_matching_problem, rgg
+
+    g, bg = rgg(12, seed=0), bipartite_ratings(2_000, 500, avg_ratings=10.0, seed=0)
+    s, deg = bg.bipartite_split, bg.degrees()
+    lb, ub = np.zeros(bg.n), np.ones(bg.n)
+    lb[:s] = np.minimum(1, deg[:s])
+    ub[:s], ub[s:] = 5, 8
+    solver = Solver(MWUOptions(eps=EPS, step_rule="newton"))
+    cases = []
+    for family in ("match", "bmatch", "vcover", "dom-set", "dense-sub", "gen-match"):
+        if family == "gen-match":
+            prob = generalized_matching_problem(bg, lb, ub, device="cuda")
+            cases.append((family, prob, np.ones(4), False, [prob] * 4))
+        else:
+            prob = build(family, bg if family == "bmatch" else g, device="cuda")
+            cases.append((family, prob, np.geomspace(prob.lo, prob.hi, 4), False, [prob] * 4))
+    probs = [build("match", erdos(4_096, 40_000, seed=k), device="cuda") for k in (0, 1)]
+    cases.append(("stacked match", stack_problems(probs), [p.lo for p in probs], True, probs))
+    for family, prob, bounds, stacked, lanes in cases:
+        t0 = time.perf_counter()
+        batch = solver.solve_batch(prob, bounds, batched_problem=stacked)
+        torch.cuda.synchronize()
+        t_batch = time.perf_counter() - t0
+        for j, (p, b) in enumerate(zip(lanes, bounds)):
+            res = solver.feasible(p, float(b))
+            same = (int(batch.status[j]), int(batch.iters[j]), int(batch.ls_probes[j]), float(batch.max_px[j]),
+                    float(batch.min_cx[j])) == (res.status, res.iters, res.ls_probes, res.max_px, res.min_cx)
+            check(failures, same and torch.equal(batch.x[j], res.x),
+                  f"{family}, lane {j} of {len(lanes)} (bound {float(b):.6g}): equal to feasible() bit for bit "
+                  f"({Status.NAMES[res.status]}, {res.iters} iterations, {res.ls_probes} probes); batch {t_batch:.2f} s")
 
 
 def binary_solves(failures: list) -> dict:
@@ -909,6 +1126,7 @@ def main() -> int:
 
     print("== phase 4: small solves, card vs CPU", flush=True)
     small_launches = small_solves(failures)
+    batch_solves(failures)
     binary_launches = binary_solves(failures)
     end_phase("4", failures)
 
@@ -928,12 +1146,14 @@ def main() -> int:
             r = next(r for r in rows if r["name"] == name and r["case"] == "a" and r["dtype"] == "bfloat16")
             launches = enc["launches"][name]
         else:
-            r = max((r for r in rows if r["name"] == name and r["dtype"] == "float64"), key=lambda r: r["shape"][0])
+            r = max((r for r in rows if r["name"] == name and r["dtype"] == "float64"
+                     and r.get("form") in (None, MAIN_FORM.get(name))), key=lambda r: r["shape"][0])
             launches = {"linesearch_probe": binary_launches,
                         "incidence_gather": small_launches}.get(name, info["launches"])[name]
         kernels.append(dict(name=name, route="cuda", source=source, replaces=replaces, launches=launches,
-                            **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                                                 "call_ms", "plain_call_ms", "shape", "dtype", "bar", "within_bar")}))
+                            **{k: r.get(k) for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                                     "library_ms", "call_ms", "plain_call_ms", "shape", "dtype", "bar",
+                                                     "within_bar", "form")}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

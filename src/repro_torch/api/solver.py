@@ -1,26 +1,42 @@
-"""One driver for every graph LP: bound search over feasibility solves, in PyTorch.
+"""One solver facade for every graph LP: bound search over lane-batched feasibility solves, in PyTorch.
 
-Port of ``repro.api.solver``, sequential path. ``Solver`` turns a
+Port of ``repro.api.solver``. ``Solver`` turns a
 :class:`~repro_torch.api.problem.Problem` into a :class:`Solution` by
 reducing optimization to feasibility (paper §2.2) and searching the
-objective bound. ``batch_width`` K keeps the reference's search shape:
-each round probes K candidate bounds and shrinks the bracket by ~(K+1)x.
-The reference solves those K bounds in one vmapped call; here they are
-solved one after another. Each is an independent solve, so the search,
-its bounds and its result are the same.
+objective bound. Two execution modes, as in the reference:
+
+* ``batch_width == 1`` — the paper's sequential geometric binary search,
+  one feasibility solve per probe.
+* ``batch_width K > 1`` — speculative bracket evaluation: each round
+  instantiates K candidate bounds and solves them as the K lanes of one
+  loop (:meth:`Solver.solve_batch`, ``core.mwu.solve_lanes``), shrinking
+  the bracket by ~(K+1)x per round. The reference ``jax.vmap``s its loop
+  across the bounds; here the lanes launch the kernels one lane after
+  another on their own rows and the host reads the loop's state once an
+  iteration for all of them. Each lane equals the sequential solve at its
+  bound bit for bit, so the search, its bounds and its result are those of
+  a sequential run of the same rounds.
+
+``solve_batch`` exposes the raw fan-out: a batched ``MWUResult`` across an
+array of bounds, optionally also across stacked same-shape graph
+instances (:func:`stack_problems`).
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 
-from ..core.mwu import MWUOptions, MWUResult, Status, solve, solve_traced
+from ..core.mwu import MWUOptions, MWUResult, Status, solve, solve_lanes, solve_traced
+from ..core.operators import LinOp
 from .problem import Problem
 
 __all__ = [
     "Solution",
     "Solver",
+    "stack_problems",
     "feasibility_solution",
     "not_found_solution",
     "certify_solution",
@@ -61,14 +77,144 @@ class Solution:
         return self.status == Status.FEASIBLE and self.found
 
 
+# -- instance batching ------------------------------------------------------
+# A Problem as the reference's pytree sees it: these fields are its leaves
+# (None is an empty subtree, lo and hi are numbers); the rest is static. An
+# operator's tensors are leaves and its other fields static.
+_LEAF_FIELDS = ("P", "C", "c", "p_mask", "c_mask", "lo", "hi")
+_STATIC_FIELDS = ("name", "kind", "sense", "bound_mode", "n_vars", "nnz", "make_ops", "device", "dtype")
+
+
+def _node(value) -> bool:
+    """Whether an operator's field is part of the tree (a tensor, an
+    operator, a tuple of operators or None) rather than static."""
+    if isinstance(value, tuple):
+        return bool(value) and all(isinstance(v, LinOp) for v in value)
+    return value is None or isinstance(value, (LinOp, torch.Tensor))
+
+
+def _flatten(value, path: str):
+    """``(leaves, structure)``: the (path, leaf) pairs of ``value`` and a
+    hashable description of everything else."""
+    if isinstance(value, LinOp):
+        leaves, struct = [], [type(value).__name__]
+        for f in dataclasses.fields(value):
+            sub = getattr(value, f.name)
+            if _node(sub):
+                lv, st = _flatten(sub, f"{path}.{f.name}")
+                leaves += lv
+                struct.append((f.name, st))
+            else:
+                struct.append((f.name, repr(sub)))
+        return leaves, tuple(struct)
+    if isinstance(value, tuple):
+        flat = [_flatten(v, f"{path}[{i}]") for i, v in enumerate(value)]
+        return [l for lv, _ in flat for l in lv], ("tuple", tuple(st for _, st in flat))
+    if value is None:
+        return [], None
+    return [(path, value)], "leaf"
+
+
+def _flatten_problem(p: Problem):
+    flat = [_flatten(getattr(p, f), f".{f}") for f in _LEAF_FIELDS]
+    return [l for lv, _ in flat for l in lv], tuple(st for _, st in flat)
+
+
+def _shape(leaf) -> tuple:
+    return tuple(leaf.shape) if isinstance(leaf, (torch.Tensor, np.ndarray)) else ()
+
+
+def _check_stackable(problems: list[Problem]) -> None:
+    """Raise a ValueError naming the first mismatched static field / leaf
+    (the reference's checks and messages)."""
+    ref = problems[0]
+    ref_flat, ref_tree = _flatten_problem(ref)
+    for i, p in enumerate(problems[1:], start=1):
+        for f in _STATIC_FIELDS:
+            a, b = getattr(ref, f), getattr(p, f)
+            if a != b:
+                raise ValueError(
+                    f"stack_problems: problem 0 and problem {i} differ in "
+                    f"static field {f!r}: {a!r} vs {b!r}; only problems of "
+                    "the same family can be instance-batched"
+                )
+        flat, tree = _flatten_problem(p)
+        if tree != ref_tree:
+            keys0 = {k for k, _ in ref_flat}
+            keys = {k for k, _ in flat}
+            diff = sorted(keys0.symmetric_difference(keys)) or ["<nested structure>"]
+            raise ValueError(
+                f"stack_problems: problem 0 and problem {i} have different "
+                f"pytree structure (mismatched leaves: {', '.join(diff)}); "
+                "pad differently-shaped problems into a common bucket first"
+            )
+        for (key, leaf0), (_, leaf) in zip(ref_flat, flat):
+            s0, s1 = _shape(leaf0), _shape(leaf)
+            if s0 != s1:
+                raise ValueError(
+                    f"stack_problems: leaf {key!r} has "
+                    f"shape {s1} in problem {i} but {s0} in problem 0; pad "
+                    "differently-sized graphs into a common shape bucket "
+                    "first"
+                )
+
+
+def _map(fn, values: list):
+    """Rebuild ``values[0]``'s structure with ``fn`` of the matching leaves."""
+    v0 = values[0]
+    if isinstance(v0, LinOp):
+        kw = {}
+        for f in dataclasses.fields(v0):
+            sub = getattr(v0, f.name)
+            kw[f.name] = _map(fn, [getattr(v, f.name) for v in values]) if _node(sub) else sub
+        return type(v0)(**kw)
+    if isinstance(v0, tuple):
+        return tuple(_map(fn, [v[i] for v in values]) for i in range(len(v0)))
+    return None if v0 is None else fn(values)
+
+
+def _leaf_stack(leaves: list):
+    if isinstance(leaves[0], torch.Tensor):
+        return torch.stack(leaves)
+    return np.asarray([float(v) for v in leaves])
+
+
+def stack_problems(problems: list[Problem]) -> Problem:
+    """Stack same-shape Problems for instance-batched ``solve_batch``.
+
+    All problems must share structure and leaf shapes (same vertex/edge
+    counts). Every leaf gains a leading lane dim: tensors are stacked, the
+    bounds ``lo`` and ``hi`` become numpy arrays. Mismatches raise a
+    ``ValueError`` naming the offending field or leaf, as the reference's
+    ``stack_problems`` does.
+    """
+    if not problems:
+        raise ValueError("stack_problems: need at least one problem")
+    problems = list(problems)
+    _check_stackable(problems)
+    p0 = problems[0]
+    kw = {f: _map(_leaf_stack, [getattr(p, f) for p in problems]) for f in _LEAF_FIELDS}
+    return dataclasses.replace(p0, **kw, graph=None)
+
+
+def _lane_problem(stacked: Problem, j: int) -> Problem:
+    """Lane j of a stacked Problem: views of its rows."""
+    def pick(leaves):
+        v = leaves[0]
+        return float(v[j]) if isinstance(v, np.ndarray) else v[j]
+
+    return dataclasses.replace(stacked, **{f: _map(pick, [getattr(stacked, f)]) for f in _LEAF_FIELDS})
+
+
 class Solver:
     """The public facade: Problem in, Solution out.
 
     Parameters
     ----------
     opts:        core MWU configuration (eps, step rule, iteration cap).
-    batch_width: candidate bounds probed per search round; 1 reproduces
-                 the paper's sequential binary search.
+    batch_width: candidate bounds probed per search round, as the lanes
+                 of one batched solve; 1 reproduces the paper's sequential
+                 binary search.
     rel_tol:     bound-search granularity (default eps/2).
     max_calls:   total feasibility-solve budget per ``solve``.
     """
@@ -98,6 +244,30 @@ class Solver:
             return solve_traced(P, C, self.opts, p_mask=pm, c_mask=cm)
         return solve(P, C, self.opts, p_mask=pm, c_mask=cm)
 
+    def solve_batch(self, problem: Problem, bounds, *, batched_problem: bool = False) -> MWUResult:
+        """Batched feasibility: one loop whose lanes are ``bounds``.
+
+        With ``batched_problem=True``, ``problem`` carries a leading lane
+        dim on every leaf (see :func:`stack_problems`) matching ``bounds``
+        — fan-out across independent graph instances; each lane runs the
+        kernels over its own operators. Otherwise the lanes share the
+        problem's graph operators (and their scatter CSR), and only the
+        bound-dependent row differs (``Problem.instantiate``).
+
+        Returns an ``MWUResult`` whose every field has leading dim
+        ``len(bounds)``; lane j equals ``feasible`` at bounds[j] bit for
+        bit.
+        """
+        bounds = np.atleast_1d(np.asarray(bounds, dtype=np.float64))
+        if batched_problem:
+            K = len(np.atleast_1d(problem.lo))
+            if K != len(bounds):
+                raise ValueError(f"solve_batch: {len(bounds)} bounds for {K} stacked problems")
+            lanes = [_lane_problem(problem, j).instantiate(float(b)) for j, b in enumerate(bounds)]
+        else:
+            lanes = [problem.instantiate(float(b)) for b in bounds]
+        return solve_lanes(lanes, self.opts)
+
     def solve(self, problem: Problem, *, trace: bool = False) -> Solution:
         """Optimize ``problem`` via bound search over feasibility calls."""
         if problem.bound_mode == "none":
@@ -116,15 +286,21 @@ class Solver:
         return feasibility_solution(problem, res, stats, traces)
 
     def _probe(self, problem, bounds, trace, traces, stats):
-        """Evaluate feasibility at each bound, one solve after another."""
+        """Evaluate feasibility at each bound; batched when width allows."""
         outs = []
-        for b in bounds:
-            if trace:
-                res, tr = self.feasible(problem, b, trace=True)
-                traces.append(dict(bound=float(b), **tr))
-            else:
-                res = self.feasible(problem, b)
-            outs.append((res.status == Status.FEASIBLE, res))
+        if len(bounds) > 1 and not trace:
+            batch = self.solve_batch(problem, bounds)
+            for j in range(len(bounds)):
+                lane = batch.lane(j)
+                outs.append((lane.status == Status.FEASIBLE, lane))
+        else:
+            for b in bounds:
+                if trace:
+                    res, tr = self.feasible(problem, b, trace=True)
+                    traces.append(dict(bound=float(b), **tr))
+                else:
+                    res = self.feasible(problem, b)
+                outs.append((res.status == Status.FEASIBLE, res))
         stats["calls"] += len(bounds)
         stats["iters"] += sum(r.iters for _, r in outs)
         stats["probes"] += sum(r.ls_probes for _, r in outs)

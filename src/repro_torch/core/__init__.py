@@ -1,5 +1,5 @@
 """Core MWU positive-LP solver in PyTorch: operators, smoothing, step size, the loop."""
-from .mwu import MWUOptions, MWUResult, Status, solve, solve_traced
+from .mwu import MWUOptions, MWUResult, Status, solve, solve_lanes, solve_traced
 from .operators import (
     AdjacencyPlusId,
     Coo,
@@ -19,6 +19,7 @@ __all__ = [
     "MWUResult",
     "Status",
     "solve",
+    "solve_lanes",
     "solve_traced",
     "LinOp",
     "Dense",

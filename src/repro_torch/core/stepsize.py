@@ -15,7 +15,11 @@ the smallest completing alpha.
 The reference runs these searches as ``lax.while_loop``s on the device.
 Here the Newton search of an unmasked problem on the card is one launch
 of :func:`repro_torch.kernels.newton_search`, which runs the whole search
-there and is read back once. Elsewhere (the binary rule, masked problems,
+there. :func:`newton_step` reads its result back once; the MWU loop calls
+:func:`newton_step_record` instead, which takes max(d) from the card,
+decides the iteration's step there and leaves it in a device record, so
+that the loop reads the search only with the rest of its lane record.
+Elsewhere (the binary rule, masked problems,
 the CPU) the searches are Python loops over host floats: each probe
 evaluates both sides on the device (one
 :func:`repro_torch.kernels.linesearch_probe2` call for unmasked problems,
@@ -40,7 +44,8 @@ from ..kernels.linesearch_probe.ref import (MAX_BIN_ITERS, Probe, fmax, newton_s
                                             two_sided_probe_fn)
 from .smoothing import logsumexp_shifted
 
-__all__ = ["StepSizeResult", "standard_step", "binary_search_step", "newton_step", "make_probe_fn", "STEP_RULES"]
+__all__ = ["StepSizeResult", "standard_step", "binary_search_step", "newton_step", "newton_step_record",
+           "make_probe_fn", "STEP_RULES"]
 
 _MAX_EXP_ITERS = 64  # 2^64 dynamic range is enough for any float32/64 alpha
 
@@ -184,6 +189,19 @@ def newton_step(y, z, dy, dz, eta, p_mask=None, c_mask=None, ls_eps=0.1, alpha0=
         alpha, probes, completes = newton_search(y, dy, z, dz, eta, ls_eps, alpha0).tolist()
         return StepSizeResult(alpha=alpha, probes=int(probes), completes=bool(completes))
     return _newton_step_host(y, z, dy, dz, eta, p_mask, c_mask, ls_eps, alpha0)
+
+
+def newton_step_record(y, z, dy, dz, eta, ls_eps, d_max, alpha_prev, out=None) -> torch.Tensor:
+    """``newton_step`` for an unmasked problem with the MWU iteration's step
+    decision, without a host read: the search warm-started at
+    ``alpha_prev`` (a one-value float64 tensor, updated when the step is
+    taken) and ``[alpha, probes, completes, step, bad]`` as a float64
+    5-vector on y's device, into ``out`` when given. ``bad`` is ``d_max <=
+    0 or alpha < 1`` (Alg. 2 lines 8 and 12) and ``step`` is 0 if bad,
+    else alpha. On the card one launch of the search kernel; on the CPU its
+    plain version (``kernels/linesearch_probe/ref.py``, ``newton_step_ref``).
+    alpha, probes and completes are ``newton_step``'s at the same state."""
+    return newton_search(y, dy, z, dz, eta, ls_eps, alpha_prev, d_max=d_max, out=out)
 
 
 def _newton_step_host(y, z, dy, dz, eta, p_mask=None, c_mask=None, ls_eps=0.1, alpha0=None) -> StepSizeResult:

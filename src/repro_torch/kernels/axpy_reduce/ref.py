@@ -2,7 +2,8 @@
 import torch
 
 
-def axpy_reduce_ref(y: torch.Tensor, dy: torch.Tensor, alpha: float):
-    """(y + alpha*dy, min, max) with min and max as 0-d tensors."""
-    out = y + alpha * dy
-    return out, out.min(), out.max()
+def axpy_reduce_ref(y: torch.Tensor, dy: torch.Tensor, alpha):
+    """(y + alpha*dy, min, max) with min and max as float64 0-d tensors;
+    ``alpha`` a host float or a one-value tensor (read as a host float)."""
+    out = y + float(alpha) * dy
+    return out, out.min().double(), out.max().double()

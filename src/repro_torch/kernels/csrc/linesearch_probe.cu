@@ -8,7 +8,14 @@
 // newton_search runs the whole warm-started Newton step-size search of
 // core/stepsize.py (newton_step: the alpha = 0 sweep, the Newton loop,
 // the back-off and the completion refinement) on the card in one launch
-// over these probes, and writes [alpha, probes, completes] in double.
+// over these probes, and writes [alpha, probes, completes] in double. In
+// its step form it also takes the MWU iteration's max(d) and the lane's
+// previous step (alpha_prev, the warm start) from device memory, and
+// writes the step the iteration takes and whether it is terminal:
+// [alpha, probes, completes, step, bad], with bad = max(d) <= 0 or
+// alpha < 1 (core/mwu.py) and step = bad ? 0 : alpha; alpha_prev becomes
+// alpha when the step is taken. The host then reads nothing of the search
+// before the updates, which read the step from memory (axpy_reduce.cu).
 //
 // Replaces src/repro/kernels/linesearch_probe/kernel.py:
 // linesearch_probe_pallas (body _probe_kernel), and with newton_search
@@ -210,17 +217,32 @@ struct SearchParams {
   ProbeArgs<T> p;
   SearchArgs s;
   ProbeState<T>* part;  // partials: two buffers of gy + gz (one for a lone probe)
-  double* out;          // a search's [alpha, probes, completes]
+  double* out;          // a search's [alpha, probes, completes], + [step, bad] in the step form
   T* probe_out;         // a lone probe's [lse, slope, min] a side; null in a search
   double alpha;         // a lone probe's alpha
+  const T* dmax;        // the step form's max(d); null otherwise
+  double* alpha_prev;   // the step form's warm start, updated when the step is taken
 };
+
+// The search's arguments, the warm start read from device memory in the
+// step form. Every block reads it before its first grid barrier, and block
+// 0 writes it after the last, so no block reads the updated value.
+template <typename T>
+__device__ __forceinline__ SearchArgs search_args(const SearchParams<T>& prm) {
+  SearchArgs a = prm.s;
+  if (prm.alpha_prev) {
+    a.alpha0 = *prm.alpha_prev;
+    a.has_alpha0 = 1;
+  }
+  return a;
+}
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads, kCoopBlocksPerSM) newton_search_kernel(SearchParams<T> prm) {
   cg::grid_group grid = cg::this_grid();
   __shared__ double s_alpha;
   __shared__ bool s_more;
-  NewtonControl ctl(prm.s);
+  NewtonControl ctl(search_args(prm));
   if (threadIdx.x == 0) s_alpha = prm.probe_out ? prm.alpha : 0.0;  // a search first sweeps at alpha = 0
   __syncthreads();
   for (int k = 0;; ++k) {
@@ -249,6 +271,12 @@ __global__ void __launch_bounds__(kThreads, kCoopBlocksPerSM) newton_search_kern
     prm.out[0] = ctl.a;
     prm.out[1] = (double)(ctl.n + ctl.n_bo + ctl.n_ref);
     prm.out[2] = ctl.completes ? 1.0 : 0.0;
+    if (prm.dmax) {  // the step form: the iteration's decision (core/mwu.py, Alg. 2 lines 8 and 12)
+      const bool bad = *prm.dmax <= T(0) || ctl.a < 1.0;
+      prm.out[3] = bad ? 0.0 : ctl.a;
+      prm.out[4] = bad ? 1.0 : 0.0;
+      if (!bad) *prm.alpha_prev = ctl.a;
+    }
   }
 }
 
@@ -283,11 +311,11 @@ inline ProbeArgs<T> probe_args(const T* y, const T* dy, int64_t ny, double se_y,
 template <typename T>
 int launch_search(const T* y, const T* dy, int64_t ny, double se_y, const T* z, const T* dz, int64_t nz,
                   double se_z, const SearchArgs& args, T* part, double* out, T* probe_out, double alpha,
-                  cudaStream_t stream) {
+                  const T* dmax, double* alpha_prev, cudaStream_t stream) {
   int nb_max = 0;
   if (const cudaError_t rc = coop_blocks(newton_search_kernel<T>, nb_max)) return (int)rc;
   const SearchParams<T> prm{probe_args(y, dy, ny, se_y, z, dz, nz, se_z, nb_max), args,
-                            reinterpret_cast<ProbeState<T>*>(part), out, probe_out, alpha};
+                            reinterpret_cast<ProbeState<T>*>(part), out, probe_out, alpha, dmax, alpha_prev};
   return launch_cooperative(newton_search_kernel<T>, prm.p.gy + prm.p.gz, prm, stream);
 }
 
@@ -295,15 +323,19 @@ int launch_search(const T* y, const T* dy, int64_t ny, double se_y, const T* z, 
 template <typename T>
 int linesearch_probe2(const T* y, const T* dy, int64_t ny, double se_y, const T* z, const T* dz, int64_t nz,
                       double se_z, double alpha, T* part, T* out, cudaStream_t stream) {
-  return launch_search(y, dy, ny, se_y, z, dz, nz, se_z, SearchArgs{}, part, nullptr, out, alpha, stream);
+  return launch_search(y, dy, ny, se_y, z, dz, nz, se_z, SearchArgs{}, part, nullptr, out, alpha, (const T*)nullptr,
+                       nullptr, stream);
 }
 
-// part: scratch of 8*kMaxPartials values; out: 3 doubles.
+// part: scratch of 8*kMaxPartials values; out: 3 doubles, or 5 in the step
+// form (dmax and alpha_prev given; alpha0 is then read from alpha_prev).
 template <typename T>
 int newton_search(const T* y, const T* dy, int64_t ny, const T* z, const T* dz, int64_t nz, double eta, double ls_eps,
-                  double alpha0, int has_alpha0, double tiny, T* part, double* out, cudaStream_t stream) {
+                  double alpha0, int has_alpha0, double tiny, T* part, double* out, const T* dmax, double* alpha_prev,
+                  cudaStream_t stream) {
+  if ((dmax == nullptr) != (alpha_prev == nullptr)) return (int)cudaErrorInvalidValue;
   return launch_search(y, dy, ny, eta, z, dz, nz, -eta, SearchArgs{eta, ls_eps, tiny, alpha0, has_alpha0}, part, out,
-                       (T*)nullptr, 0.0, stream);
+                       (T*)nullptr, 0.0, dmax, alpha_prev, stream);
 }
 
 }  // namespace rt
@@ -326,14 +358,14 @@ extern "C" int rt_linesearch_probe2_f64(const double* y, const double* dy, int64
 
 extern "C" int rt_newton_search_f32(const float* y, const float* dy, int64_t ny, const float* z, const float* dz,
                                     int64_t nz, double eta, double ls_eps, double alpha0, int has_alpha0, double tiny,
-                                    float* part, double* out, void* stream) {
-  return rt::newton_search<float>(y, dy, ny, z, dz, nz, eta, ls_eps, alpha0, has_alpha0, tiny, part, out,
-                                  (cudaStream_t)stream);
+                                    float* part, double* out, const float* dmax, double* alpha_prev, void* stream) {
+  return rt::newton_search<float>(y, dy, ny, z, dz, nz, eta, ls_eps, alpha0, has_alpha0, tiny, part, out, dmax,
+                                  alpha_prev, (cudaStream_t)stream);
 }
 
 extern "C" int rt_newton_search_f64(const double* y, const double* dy, int64_t ny, const double* z, const double* dz,
                                     int64_t nz, double eta, double ls_eps, double alpha0, int has_alpha0, double tiny,
-                                    double* part, double* out, void* stream) {
-  return rt::newton_search<double>(y, dy, ny, z, dz, nz, eta, ls_eps, alpha0, has_alpha0, tiny, part, out,
-                                   (cudaStream_t)stream);
+                                    double* part, double* out, const double* dmax, double* alpha_prev, void* stream) {
+  return rt::newton_search<double>(y, dy, ny, z, dz, nz, eta, ls_eps, alpha0, has_alpha0, tiny, part, out, dmax,
+                                   alpha_prev, (cudaStream_t)stream);
 }

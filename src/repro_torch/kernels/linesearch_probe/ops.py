@@ -7,14 +7,15 @@ completion test, from one read of each vector. :func:`linesearch_probe2`
 evaluates both sides of a step-size probe (packing side y with sign +1,
 covering side z with sign -1) in one launch; :func:`newton_search` runs
 the whole Newton search of ``core.stepsize.newton_step`` over such probes
-in one launch. CUDA tensors launch the hand-written kernel of
+in one launch, and in its step form also decides the MWU iteration's
+step there. CUDA tensors launch the hand-written kernel of
 ``csrc/linesearch_probe.cu`` (a lone probe is the search kernel's
 one-probe case); CPU tensors take the plain versions in ``ref.py``.
 """
 import torch
 
 from .. import loader
-from .ref import linesearch_probe2_ref, linesearch_probe_ref, newton_search_ref
+from .ref import linesearch_probe2_ref, linesearch_probe_ref, newton_search_ref, newton_step_ref
 
 
 def _launch(name, y, dy, z, dz, nz, se_y, se_z, alpha, out):
@@ -81,27 +82,47 @@ def linesearch_probe2(y: torch.Tensor, dy: torch.Tensor, z: torch.Tensor, dz: to
 
 
 def newton_search(y: torch.Tensor, dy: torch.Tensor, z: torch.Tensor, dz: torch.Tensor, eta: float, ls_eps: float,
-                  alpha0: float | None = None) -> torch.Tensor:
+                  alpha0=None, *, d_max: torch.Tensor | None = None, out: torch.Tensor | None = None) -> torch.Tensor:
     """The warm-started, safeguarded Newton step-size search of
     ``core.stepsize.newton_step`` for an unmasked problem, in one launch:
     ``[alpha, probes, completes]`` as a float64 3-vector on y's device,
     which the caller reads once. On the card it gives the same alpha (bit
     for bit), probes and completes as the host loop over
     :func:`linesearch_probe2`; on the CPU it is that loop over the plain
-    probe (``ref.newton_search_ref``)."""
+    probe (``ref.newton_search_ref``).
+
+    The step form (``d_max`` given: the iteration's max(d), a one-value
+    tensor of y's dtype) leaves the MWU iteration's step on the device.
+    ``alpha0`` is then the lane's previous step, a float64 tensor of one
+    value on y's device: the warm start, overwritten with alpha when the
+    step is taken. It returns the record ``[alpha, probes, completes,
+    step, bad]`` (``ref.newton_step_ref``), into ``out`` (a contiguous
+    float64 5-vector) when given.
+    """
+    step = d_max is not None
     if y.device.type == "cpu":
-        return newton_search_ref(y, dy, z, dz, eta, ls_eps, alpha0)
+        r = newton_step_ref(y, dy, z, dz, eta, ls_eps, d_max, alpha0) if step else \
+            newton_search_ref(y, dy, z, dz, eta, ls_eps, alpha0)
+        return r if out is None else out.copy_(r)
     dtype = loader.check_vectors("newton_search", y, dy, z, dz)
     _check("newton_search", y, dy)
     _check("newton_search", z, dz)
     dev = y.device
-    out = torch.empty(3, dtype=torch.float64, device=dev)
+    size = 5 if step else 3
+    if step:
+        if d_max.dtype != dtype or d_max.device != dev or d_max.numel() != 1:
+            raise ValueError(f"newton_search: d_max must be one {dtype} value on {dev}")
+        loader.check_slot("newton_search", y, alpha0, 1, "alpha0 (the step form's alpha_prev)")
+    if out is None:
+        out = torch.empty(size, dtype=torch.float64, device=dev)
+    loader.check_slot("newton_search", y, out, size, "out")
     with torch.cuda.device(dev):
         part = loader.scratch("newton_search", y, 8)
         rc = loader.kernel_fn("rt_newton_search", dtype)(
             y.data_ptr(), dy.data_ptr(), y.shape[0], z.data_ptr(), dz.data_ptr(), z.shape[0], float(eta),
-            float(ls_eps), 0.0 if alpha0 is None else float(alpha0), alpha0 is not None, torch.finfo(dtype).tiny,
-            part.data_ptr(), out.data_ptr(), loader.stream_handle(y),
+            float(ls_eps), 0.0 if step or alpha0 is None else float(alpha0), not step and alpha0 is not None,
+            torch.finfo(dtype).tiny, part.data_ptr(), out.data_ptr(), d_max.data_ptr() if step else None,
+            alpha0.data_ptr() if step else None, loader.stream_handle(y),
         )
     loader.check_status(rc, "newton_search")
     loader.LAUNCHES["newton_search"] += 1

@@ -140,3 +140,19 @@ def newton_search_ref(y, dy, z, dz, eta: float, ls_eps: float, alpha0: float | N
     tiny = torch.finfo(y.dtype).tiny
     probe = two_sided_probe_fn(lambda a: linesearch_probe2_ref(y, dy, z, dz, a, eta).tolist(), eta, tiny)
     return torch.tensor(newton_search_loop(probe, tiny, ls_eps, alpha0), dtype=torch.float64, device=y.device)
+
+
+def newton_step_ref(y, dy, z, dz, eta: float, ls_eps: float, d_max: torch.Tensor,
+                    alpha_prev: torch.Tensor) -> torch.Tensor:
+    """The search's step form: the Newton search warm-started at
+    ``alpha_prev`` (a one-value float64 tensor) and the MWU iteration's
+    decision on it (Alg. 2 lines 8 and 12), ``[alpha, probes, completes,
+    step, bad]`` as a float64 5-vector with ``bad = max(d) <= 0 or alpha <
+    1`` and ``step = 0 if bad else alpha``; ``alpha_prev`` becomes alpha
+    when the step is taken."""
+    alpha, probes, completes = newton_search_ref(y, dy, z, dz, eta, ls_eps, float(alpha_prev)).tolist()
+    bad = float(d_max) <= 0 or alpha < 1
+    if not bad:
+        alpha_prev.fill_(alpha)
+    return torch.tensor([alpha, probes, completes, 0.0 if bad else alpha, float(bad)], dtype=torch.float64,
+                        device=y.device)

@@ -44,6 +44,7 @@ __all__ = [
     "stream_handle",
     "kernel_fn",
     "check_vectors",
+    "check_slot",
     "check_indices",
 ]
 
@@ -76,10 +77,10 @@ _ENTRY_POINTS = {
     "rt_softmax_weights": ([_PTR, _F64, _I64, _PTR, _PTR, _PTR, _PTR], _FLOAT),
     # y, dy, ny, se_y, z, dz, nz, se_z, alpha, part, out, stream
     "rt_linesearch_probe2": ([_PTR, _PTR, _I64, _F64, _PTR, _PTR, _I64, _F64, _F64, _PTR, _PTR, _PTR], _FLOAT),
-    # y, dy, ny, z, dz, nz, eta, ls_eps, alpha0, has_alpha0, tiny, part, out, stream
-    "rt_newton_search": ([_PTR, _PTR, _I64, _PTR, _PTR, _I64, _F64, _F64, _F64, _INT, _F64, _PTR, _PTR, _PTR],
-                         _FLOAT),
-    "rt_axpy_reduce": ([_PTR, _PTR, _F64, _I64, _INT, _PTR, _PTR, _PTR, _PTR], _FLOAT),
+    # y, dy, ny, z, dz, nz, eta, ls_eps, alpha0, has_alpha0, tiny, part, out, dmax, alpha_prev, stream
+    "rt_newton_search": ([_PTR, _PTR, _I64, _PTR, _PTR, _I64, _F64, _F64, _F64, _INT, _F64] + [_PTR] * 5, _FLOAT),
+    # y, dy, alpha, alpha_dev, n, nb, out, part, red, stream
+    "rt_axpy_reduce": ([_PTR, _PTR, _F64, _PTR, _I64, _INT, _PTR, _PTR, _PTR, _PTR], _FLOAT),
     # x, base, out, n; (offsets, splits, src, wt, nnz, lo, span, slabs) of side A, then of side B; scratch, stream
     "rt_incidence_scatter": ([_PTR, _PTR, _PTR, _I64] + ([_PTR] * 4 + [_I64] * 4) * 2 + [_PTR, _PTR], _FLOAT),
     # u, v, w, g, h, x, scale, tiny, E, nb, d, part, ticket, dmax, stream
@@ -236,6 +237,14 @@ def check_vectors(name: str, *tensors: torch.Tensor) -> torch.dtype:
         if t.dim() != 1 or not t.is_contiguous():
             raise ValueError(f"{name}: expected contiguous 1-D tensors, got shape {tuple(t.shape)}")
     return t0.dtype
+
+
+def check_slot(name: str, like: torch.Tensor, t: torch.Tensor, size: int, what: str) -> None:
+    """Check that ``t`` is a contiguous float64 tensor of ``size`` values on
+    ``like``'s device: a value a kernel reads or writes in device memory."""
+    if t.dtype != torch.float64 or t.device != like.device or t.numel() != size or not t.is_contiguous():
+        raise ValueError(f"{name}: {what} must be {size} contiguous float64 value(s) on {like.device}, got "
+                         f"{t.dtype} of shape {tuple(t.shape)} on {t.device}")
 
 
 def check_indices(name: str, like: torch.Tensor, *indices: torch.Tensor) -> int:

@@ -16,9 +16,9 @@ import torch
 from dataclasses import replace
 
 from repro_torch import kernels as K
-from repro_torch.api import MWUOptions, Solver, Status
+from repro_torch.api import MWUOptions, Solver, Status, stack_problems
 from repro_torch.configs import get
-from repro_torch.graphs import bipartite_ratings, build, generalized_matching_problem, rgg
+from repro_torch.graphs import bipartite_ratings, build, erdos, generalized_matching_problem, rgg
 from repro_torch.kernels.axpy_reduce.ref import axpy_reduce_ref
 from repro_torch.kernels.flash_attention.ref import flash_attention_plain
 from repro_torch.core import operators as ops
@@ -152,7 +152,8 @@ def test_one_launch_reductions_beyond_one_wave_on_card(cuda):
 
 def _search_state(n, m, kind, seed, dtype, device):
     """A mid-solve state (tests/test_torch_stepsize.py's _state) at n packing
-    and m covering rows."""
+    and m covering rows; kind "below" is "far" with a packing step 300x as
+    large, so that f(1) < 1 and the search backs off below alpha = 1."""
     rng = np.random.default_rng(seed)
     y, dy = rng.random(n) * 0.3, rng.random(n) * 1e-3
     dz = rng.random(m) * 4e-3 + 1e-4
@@ -161,19 +162,25 @@ def _search_state(n, m, kind, seed, dtype, device):
         z = 1.0 - dz * rng.uniform(0.5, 3.0, m)
     elif kind == "done":
         z = 1.0 - dz * rng.uniform(0.2, 0.9, m)
+    elif kind == "below":
+        dy = dy * 300.0
     return [torch.from_numpy(t).to(dtype).to(device) for t in (y, z, dy, dz)]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("alpha0", [None, 1.0, 37.0])
-@pytest.mark.parametrize("kind", ["far", "near", "done"])
+@pytest.mark.parametrize("kind", ["far", "near", "done", "below"])
 @pytest.mark.parametrize("m", ["1", "n"])
 @pytest.mark.parametrize("n", [1, 12, 300, 9999, 497_959])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_newton_search_matches_host_loop_on_card(cuda, dtype, n, m, kind, alpha0):
     """The search kernel (one launch, one host read) against the host loop
     over the two-sided probe kernel on the same state: the same alpha bit
-    for bit, the same probes and completes."""
+    for bit, the same probes and completes. Its step form (max(d) and the
+    warm start alpha_prev read from device memory) gives the same three,
+    and the step and bad flag of the MWU iteration: step = alpha and
+    alpha_prev = alpha when max(d) > 0 and alpha >= 1, else step 0, bad,
+    alpha_prev kept (max(d) = 0 below, and the "below" states' alpha < 1)."""
     y, z, dy, dz = _search_state(n, 1 if m == "1" else n, kind, n, dtype, cuda)
     eta = float(10 * np.log(n + z.shape[0]) / 0.1) if n > 12 else 50.0
     host = stepsize._newton_step_host(y, z, dy, dz, eta, ls_eps=0.1, alpha0=alpha0)
@@ -181,6 +188,21 @@ def test_newton_search_matches_host_loop_on_card(cuda, dtype, n, m, kind, alpha0
     got = stepsize.newton_step(y, z, dy, dz, eta, ls_eps=0.1, alpha0=alpha0)
     assert K.launch_counts()["newton_search"] == 1 and K.launch_counts()["linesearch_probe"] == 0
     assert (_bits(got.alpha), got.probes, got.completes) == (_bits(host.alpha), host.probes, host.completes)
+    if kind == "below":
+        assert host.alpha < 1
+    start = 1.0 if alpha0 is None else alpha0
+    host = stepsize._newton_step_host(y, z, dy, dz, eta, ls_eps=0.1, alpha0=start)
+    for d_max in (1e-3, 0.0):
+        alpha_prev = torch.tensor([start], dtype=torch.float64, device=cuda)
+        out = torch.full((7,), -1.0, dtype=torch.float64, device=cuda)
+        rec = stepsize.newton_step_record(y, z, dy, dz, eta, 0.1, torch.tensor(d_max, dtype=dtype, device=cuda),
+                                          alpha_prev, out=out[1:6])
+        alpha, probes, completes, step, bad = rec.tolist()
+        assert (_bits(alpha), int(probes), bool(completes)) == (_bits(host.alpha), host.probes, host.completes)
+        want_bad = d_max <= 0 or host.alpha < 1
+        assert bool(bad) == want_bad and _bits(step) == _bits(0.0 if want_bad else host.alpha)
+        assert _bits(float(alpha_prev)) == _bits(start if want_bad else host.alpha)
+        assert out[0].item() == out[6].item() == -1.0  # nothing written outside the record
 
 
 @pytest.mark.cuda
@@ -199,6 +221,31 @@ def test_newton_search_near_plain_search_on_card(cuda, dtype, n, kind, alpha0):
     alpha, _, completes = newton_search_ref(y, dy, z, dz, eta, 0.1, alpha0).tolist()
     assert got.completes == bool(completes)
     assert abs(got.alpha - alpha) <= 0.1 * max(got.alpha, alpha), (tuple(got), alpha)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [1, 1030, 3_000_001])
+def test_axpy_device_step_matches_host_float_on_card(cuda, n, dtype):
+    """The axpy with its step read from device memory against the host-float
+    form: the same bits, in place and into a caller's out, with [min, max]
+    written into the caller's float64 slot."""
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    y = torch.rand(n, generator=gen, device=cuda, dtype=dtype)
+    dy = torch.rand(n, generator=gen, device=cuda, dtype=dtype) * 1e-3
+    for alpha in (3.25, 1.0 / 3.0, 0.0, 987.654321):
+        out, mn, mx = K.axpy_reduce(y, dy, alpha)
+        step = torch.tensor([alpha], dtype=torch.float64, device=cuda)
+        red = torch.zeros(4, dtype=torch.float64, device=cuda)
+        rows = torch.empty(2, n + 64, dtype=dtype, device=cuda)
+        rows[1, 1:n + 1] = y  # an odd offset: the row is off 16-byte alignment
+        K.reset_launch_counts()
+        got, gmn, gmx = K.axpy_reduce(rows[1, 1:n + 1], dy, step, out=rows[1, 1:n + 1], red=red[1:3])
+        assert K.launch_counts()["axpy_reduce"] == 1
+        assert torch.equal(got, out) and got.data_ptr() == rows[1, 1:].data_ptr()
+        assert _bits(float(mn)) == _bits(float(gmn)) and _bits(float(mx)) == _bits(float(gmx))
+        assert red[0].item() == red[3].item() == 0.0
+        assert torch.equal(out, axpy_reduce_ref(y, dy, alpha)[0])
 
 
 @pytest.mark.cuda
@@ -409,6 +456,61 @@ def test_card_solve_matches_cpu(cuda, family):
     # ones (gen-match) run the host loop over plain probes
     assert (counts["newton_search"] > 0) == (family != "gen-match")
     assert counts["linesearch_probe"] == 0
+
+
+def _lane_bounds(prob, cpu_bound):
+    """Four bounds around a solve's certified bound, each far enough from it
+    (30% and more: the (1+eps) band is 10%) that its status does not hang
+    on an ulp."""
+    if prob.bound_mode == "none":
+        return np.ones(4)
+    return cpu_bound * np.asarray([0.5, 0.7, 1.5, 2.0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["match", "bmatch", "vcover", "dom-set", "dense-sub", "gen-match"])
+def test_card_solve_batch_lanes_equal_feasible(cuda, family):
+    """A 4-lane card batch: each lane equals the card's feasible() at its
+    bound bit for bit; the statuses equal the CPU batch's at the same
+    bounds; a Solver of batch_width 4 runs its rounds through solve_batch."""
+    opts = MWUOptions(eps=EPS, step_rule="newton")
+    solver = Solver(opts)
+    prob, cpu_prob = _problem(family, cuda), _problem(family, "cpu")
+    bounds = _lane_bounds(prob, solver.solve(cpu_prob).bound)
+    batch = solver.solve_batch(prob, bounds)
+    cpu = solver.solve_batch(cpu_prob, bounds)
+    assert batch.x.shape == (4, prob.n_vars) and batch.x.device.type == "cuda"
+    assert list(batch.status) == list(cpu.status)
+    for j, b in enumerate(bounds):
+        res = solver.feasible(prob, float(b))
+        assert (int(batch.status[j]), int(batch.iters[j]), int(batch.ls_probes[j])) == \
+            (res.status, res.iters, res.ls_probes), j
+        assert _bits(float(batch.max_px[j])) == _bits(res.max_px) and _bits(float(batch.min_cx[j])) == _bits(res.min_cx)
+        assert torch.equal(batch.x[j], res.x), j
+
+
+@pytest.mark.cuda
+def test_card_solve_batch_reads_once_an_iteration(cuda, monkeypatch):
+    """Newton lanes of an unmasked problem read the host once a loop
+    iteration for all lanes (the record), plus once to start and once to
+    finish; two stacked instances run over their own operators and equal
+    their own card solves."""
+    prob = build("bmatch", bipartite_ratings(300, 80, avg_ratings=8.0, seed=2), device=cuda)
+    prob.P.csr  # built at the operator's first card product, once
+    solver = Solver(MWUOptions(eps=EPS, step_rule="newton"))
+    reads = []
+    for name in ("item", "tolist"):
+        method = getattr(torch.Tensor, name)
+        monkeypatch.setattr(torch.Tensor, name, lambda t, _m=method, _n=name: reads.append(_n) or _m(t))
+    batch = solver.solve_batch(prob, np.geomspace(prob.lo, prob.hi, 4))
+    monkeypatch.undo()
+    assert len(reads) == int(batch.iters.max()) + 2 and set(reads) == {"tolist"}
+    probs = [build("match", erdos(300, 1500, seed=s), device=cuda) for s in (3, 4)]
+    bounds = [p.lo for p in probs]
+    batch = solver.solve_batch(stack_problems(probs), bounds, batched_problem=True)
+    for j, (p, b) in enumerate(zip(probs, bounds)):
+        res = solver.feasible(p, b)
+        assert (int(batch.status[j]), int(batch.iters[j])) == (res.status, res.iters) and torch.equal(batch.x[j], res.x)
 
 
 @pytest.mark.cuda
