@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--n-users N]
+    python3 chip_smoke.py [--n-users N] [--serve-requests N]
 
 Builds the CUDA kernels of ``src/repro_torch/kernels/csrc`` with nvcc for
-sm_90a and drives the port's two paths, the MWU graph-LP solve and the
-hubert-xlarge encoder forward, in five phases; any failed phase exits
-non-zero before the result lines are printed.
+sm_90a and drives the port's three paths, the MWU graph-LP solve, the
+hubert-xlarge encoder forward and graph-LP serving (``repro_torch.lpserve``),
+in six phases; any failed phase exits non-zero before the result lines are
+printed.
 
 1. Card: its name and power limit (nvidia-smi) and the kernels' build time.
 2. Kernels vs their plain PyTorch versions on the card, at the main path's
@@ -52,7 +53,15 @@ non-zero before the result lines are printed.
    |plain|), two launches bitwise equal, with the v side as the operator
    cuts it into slabs of x and in one piece (that segment spans hundreds
    of merge tiles); its library time is the two ``index_add_`` calls it
-   replaces.
+   replaces. The masked forms (row masks, one byte a row: the padded rows
+   of phase 6's requests) get rows of their own at phase 6's bucket
+   V1048576xE4194304 with tier 1's rows real: softmax over the vertex rows
+   (weights exactly 0 off the mask), the two-sided probe over both (mins
+   exact), the search in both forms at a served match request's shape (the
+   vertex rows masked) held as above (bit for bit against the host loop
+   over the masked probe kernel, within ls_eps of the masked plain loop),
+   and the axpy's min and max over the edge rows (exact; the update bit for
+   bit over every row).
 3. The full-size solve: bipartite matching (bmatch) at float64 on the
    Netflix Prize shape, ``bipartite_ratings(480_189, 17_770,
    avg_ratings=209, seed=0)`` (498k vertices, 98.6M edges), through
@@ -103,11 +112,35 @@ non-zero before the result lines are printed.
    residual layers). Time per forward, frames/s, peak memory, and a
    torch.profiler breakdown (flash, matmuls, the rest) with the device's
    idle share.
+6. Graph-LP serving at card size: 12 requests (``--serve-requests``),
+   match and vcover alternating, request i on ``erdos(n, m, seed=i)`` of
+   tier i % 3 of (600k, 2.2M), (800k, 3M), (1.5M, 4M) vertices and edges,
+   through ``LPEngine(LPServeConfig(MWUOptions(eps=0.1,
+   step_rule="newton"), lanes=4))`` with the default bucket policy, in
+   float64: buckets V1048576xE4194304 and V2097152xE4194304, four
+   dispatch keys, every lane padded and masked. Prints per bucket its
+   requests, batches, occupancy and padding waste; latency p50 and p99 and
+   the engine's wall time, split into its rounds, its certificates (host
+   clock) and the rest; each round's lanes, iterations and time; per
+   request its calls and objective. Fails unless every request is found
+   and feasible, max Mx <= 1 + 1e-9 (match) or min M^T x >= 1 - 1e-9
+   (vcover) recomputed on the host, each objective within 3*eps of the
+   sequential ``Solver(batch_width=1).solve`` on the card
+   (examples/serve_lp_batch.py's contract), batches < feasibility calls,
+   and every lane iteration launched the search and the step direction
+   once (no lone probe). One more round, profiled (a fresh engine's
+   second round over four tier-0/1 match requests, their CSR built by its
+   first), must read the host at most its loop iterations + 3 times; it
+   prints its device time by kernel, the device-to-host copies' time and
+   the idle share against the same round of another fresh engine timed
+   without the profiler.
 
 The line before the last is ``{"kernels": [...]}``, one entry per kernel;
 the last is ``{"ok": true, "device": {...}}``. The flash entry takes row
 (a) in bf16 and its launches from phase 5; the axpy and the search take
-the row of the form the main path launches (device step, step form). The script exits non-zero
+the row of the form the main path launches (device step, step form), and
+each MWU kernel's masked row goes into its entry's ``masked`` field. Every
+entry's launches add phase 6's (``serving_launches``). The script exits non-zero
 without a result when no CUDA device is present or when it is run outside
 the repository.
 """
@@ -138,8 +171,15 @@ LOGITS_REL_L2_BAR = 5e-2  # pallas vs dense forward of phase 5, bf16 through 48 
 FLASH_REL_L2_BAR = 6e-3
 EPS = 0.1
 # the form of a kernel that the main path launches, where a kernel has two
-# rows in phase 2 (its kernels-line entry takes that row)
+# rows in phase 2 (its kernels-line entry takes that row); the "masked"
+# rows of phase 6's forms go into the entry's "masked" field
 MAIN_FORM = {"axpy_reduce": "device step", "newton_search": "step"}
+MASKED_FORM = {"softmax_weights": "masked", "linesearch_probe": "masked", "newton_search": "step masked",
+               "axpy_reduce": "masked"}
+# phase 6: graph-LP serving, request i on erdos(n, m, seed=i) of tier i % 3,
+# match and vcover alternating; both buckets have 4,194,304 edge slots
+SERVE_TIERS = [(600_000, 2_200_000), (800_000, 3_000_000), (1_500_000, 4_000_000)]
+SERVE_BUCKET = (1 << 20, 1 << 22)  # tiers 0 and 1
 
 
 class SmokeFailure(RuntimeError):
@@ -199,6 +239,7 @@ def bound(nbytes: int, ops: int, rate) -> tuple[float, str]:
 def kernel_rows(K, refs, n_vertices: int, n_items: int, n_edges: int, dtype, eta: float,
                 failures: list) -> list[dict]:
     """Each kernel vs its plain version at the main path's shapes in ``dtype``."""
+    from repro_torch.core.mwu import make_eta
     from repro_torch.core.operators import Incidence
     from repro_torch.kernels.incidence_scatter import MERGE_TILE, segments
 
@@ -369,6 +410,48 @@ def kernel_rows(K, refs, n_vertices: int, n_items: int, n_edges: int, dtype, eta
         lambda: refs["axpy_reduce"](y, dy, 3.25), 10, 3 * E * size, 4 * E, form="device step")
     del y, dy, buf
     torch.cuda.empty_cache()
+
+    # the masked forms, at phase 6's bucket V1048576xE4194304 with tier 1's
+    # real rows first (800k vertices, 3M edges), as pad_problem lays them
+    # out: softmax over the vertex rows, the two-sided probe over both, the
+    # search at a served match request's shape (the vertex rows masked, the
+    # objective row not), the z update's min and max over the edge rows
+    V, Eb = SERVE_BUCKET
+    kv = torch.arange(V, device=dev) < SERVE_TIERS[1][0]
+    ke = torch.arange(Eb, device=dev) < SERVE_TIERS[1][1]
+    eta_b = float(make_eta(V + 1, EPS))
+    y = torch.rand(V, generator=gen, device=dev, dtype=dtype) * 1.1
+    lse, wk = K.softmax_weights(y, eta_b, 1.0, keep=kv)
+    lse_r, w_r = refs["softmax_weights"](y, eta_b, 1.0, keep=kv)
+    lse_err, w_err = abs(lse.item() - lse_r.item()), (wk - w_r).abs().max().item()
+    ok = lse_err <= tol * max(1.0, abs(lse_r.item())) and w_err <= tol and not wk[~kv].any()
+    row("softmax_weights", [V], max(lse_err, w_err), tol, ok, lambda: K.softmax_weights(y, eta_b, 1.0, keep=kv),
+        lambda: refs["softmax_weights"](y, eta_b, 1.0, keep=kv), reps, 2 * V * size + V, 7 * V, form="masked")
+    dy = torch.rand(V, generator=gen, device=dev, dtype=dtype) * 1e-3
+    z, dz = (torch.rand(Eb, generator=gen, device=dev, dtype=dtype) * s for s in (1.1, 1e-3))
+    got = K.linesearch_probe2(y, dy, z, dz, 7.5, eta_b, p_keep=kv, c_keep=ke)
+    ref = refs["linesearch_probe2"](y, dy, z, dz, 7.5, eta_b, kv, ke)
+    err = (got - ref).abs().max().item()
+    ok = err <= tol * max(1.0, ref.abs().max().item()) and got[2].item() == ref[2].item() and \
+        got[5].item() == ref[5].item()
+    row("linesearch_probe", [V, Eb], err, tol, ok, lambda: K.linesearch_probe2(y, dy, z, dz, 7.5, eta_b, p_keep=kv,
+                                                                               c_keep=ke),
+        lambda: refs["linesearch_probe2"](y, dy, z, dz, 7.5, eta_b, kv, ke), reps, (2 * size + 1) * (V + Eb),
+        9 * (V + Eb), form="masked")
+    del y, dy
+    rows += search_rows(K, V, dtype, eta_b, failures, p_keep=kv)
+    red = torch.empty(2, dtype=torch.float64, device=dev)
+    step = torch.tensor([3.25], dtype=torch.float64, device=dev)
+    out, mn, mx = K.axpy_reduce(z, dz, step, red=red, keep=ke)
+    out_r, mn_r, mx_r = refs["axpy_reduce"](z, dz, 3.25, keep=ke)
+    same = torch.equal(out, out_r) and (mn.item(), mx.item()) == (mn_r.item(), mx_r.item())
+    check(failures, same, f"axpy_reduce masked {dtype} [{Eb}]: the update bit-equal to the plain version's over every "
+                          f"row, [min, max] {[mn.item(), mx.item()]} over the kept rows exact")
+    row("axpy_reduce", [Eb], (out - out_r).abs().max().item(), 0.0, same,
+        lambda: K.axpy_reduce(z, dz, step, out=z, red=red, keep=ke), lambda: refs["axpy_reduce"](z, dz, 3.25, keep=ke),
+        10, 3 * Eb * size + Eb, 4 * Eb, form="masked")
+    del z, dz, out, out_r
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -384,8 +467,10 @@ def search_state(n: int, kind: str, seed: int, dtype) -> list:
     return [torch.from_numpy(t).to(dtype).cuda() for t in (y, z, dy, dz)]
 
 
-def search_rows(K, n: int, dtype, eta: float, failures: list) -> list[dict]:
-    """The Newton search kernel on seeded n + 1 states. Against the host loop
+def search_rows(K, n: int, dtype, eta: float, failures: list, p_keep=None) -> list[dict]:
+    """The Newton search kernel on seeded n + 1 states (its packing rows
+    masked by ``p_keep`` when given, as a served match request's padded
+    vertex rows are: the rows' "masked" forms). Against the host loop
     over the probe kernel (stepsize._newton_step_host): alpha bit for bit,
     probes and completes equal. Against its plain version, the same loop
     over plain PyTorch probes on the card (ref.newton_search_ref), whose
@@ -420,35 +505,37 @@ def search_rows(K, n: int, dtype, eta: float, failures: list) -> list[dict]:
         return 1e3 * (time.perf_counter() - t0) / 20
 
     size = torch.finfo(dtype).bits // 8
+    masked = "" if p_keep is None else " masked"
+    mask_bytes = 0 if p_keep is None else n
     for kind, alpha0 in (("far", 1.0), ("near", 37.0), ("done", None)):
         y, z, dy, dz = search_state(n, kind, 1, dtype)
-        host = stepsize._newton_step_host(y, z, dy, dz, eta, ls_eps=EPS, alpha0=alpha0)
-        dev = stepsize.newton_step(y, z, dy, dz, eta, ls_eps=EPS, alpha0=alpha0)
-        p_alpha, p_probes, p_completes = newton_search_ref(y, dy, z, dz, eta, EPS, alpha0).tolist()
+        host = stepsize._newton_step_host(y, z, dy, dz, eta, p_keep, ls_eps=EPS, alpha0=alpha0)
+        dev = stepsize.newton_step(y, z, dy, dz, eta, p_keep, ls_eps=EPS, alpha0=alpha0)
+        p_alpha, p_probes, p_completes = newton_search_ref(y, dy, z, dz, eta, EPS, alpha0, p_keep).tolist()
         same = (struct.pack("d", dev.alpha), dev.probes, dev.completes) == \
             (struct.pack("d", host.alpha), host.probes, host.completes)
         bar = EPS * max(dev.alpha, p_alpha)
         near = dev.completes == bool(p_completes) and abs(dev.alpha - p_alpha) <= bar
-        check(failures, same, f"newton_search {dtype} [{n}, 1] {kind}, alpha0 {alpha0}: card {tuple(dev)} | host "
-                              f"loop {tuple(host)}")
-        check(failures, near, f"newton_search {dtype} [{n}, 1] {kind}, alpha0 {alpha0}: plain search "
+        check(failures, same, f"newton_search{masked} {dtype} [{n}, 1] {kind}, alpha0 {alpha0}: card {tuple(dev)} | "
+                              f"host loop {tuple(host)}")
+        check(failures, near, f"newton_search{masked} {dtype} [{n}, 1] {kind}, alpha0 {alpha0}: plain search "
                               f"({p_alpha!r}, {int(p_probes)}, {bool(p_completes)}), |alpha - plain| "
                               f"{abs(dev.alpha - p_alpha):.3g} (bar {bar:.3g})")
         if kind == "far":
             timed, err, probes, ok, far_bar = (y, z, dy, dz, alpha0), abs(dev.alpha - p_alpha), dev.probes, \
                 same and near, bar
     y, z, dy, dz, alpha0 = timed
-    ms = device_ms(lambda: K.newton_search(y, dy, z, dz, eta, EPS, alpha0), 50)
-    plain_ms = host_ms(lambda: newton_search_ref(y, dy, z, dz, eta, EPS, alpha0).tolist())
-    loop_ms = host_ms(lambda: stepsize._newton_step_host(y, z, dy, dz, eta, ls_eps=EPS, alpha0=alpha0))
-    call = call_ms(lambda: stepsize.newton_step(y, z, dy, dz, eta, ls_eps=EPS, alpha0=alpha0), 50)
-    # bound: the inputs read once; operations of every sweep the search took
-    b_ms, b_by = bound(2 * (n + 1) * size, 9 * (n + 1) * (probes + 1), dtype)
+    ms = device_ms(lambda: K.newton_search(y, dy, z, dz, eta, EPS, alpha0, p_keep=p_keep), 50)
+    plain_ms = host_ms(lambda: newton_search_ref(y, dy, z, dz, eta, EPS, alpha0, p_keep).tolist())
+    loop_ms = host_ms(lambda: stepsize._newton_step_host(y, z, dy, dz, eta, p_keep, ls_eps=EPS, alpha0=alpha0))
+    call = call_ms(lambda: stepsize.newton_step(y, z, dy, dz, eta, p_keep, ls_eps=EPS, alpha0=alpha0), 50)
+    # bound: the inputs (and the mask) read once; operations of every sweep the search took
+    b_ms, b_by = bound(2 * (n + 1) * size + mask_bytes, 9 * (n + 1) * (probes + 1), dtype)
     r = dict(name="newton_search", dtype=str(dtype).removeprefix("torch."), shape=[n, 1], max_abs_err=err,
              bar=far_bar, within_bar=ok, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
              call_ms=call, plain_call_ms=plain_ms, host_loop_ms=loop_ms, probes=probes,
              ms_per_probe=ms / (probes + 1))
-    check(failures, ok, f"newton_search {r['dtype']} [{n}, 1]: {probes} probes; device ms a search {ms:.4f} "
+    check(failures, ok, f"newton_search{masked} {r['dtype']} [{n}, 1]: {probes} probes; device ms a search {ms:.4f} "
                         f"({r['ms_per_probe']:.4f} a probe with the alpha = 0 sweep), bound {b_ms:.4f} ({b_by}); "
                         f"host clock ms a search: plain {plain_ms:.4f}, host loop over the probe kernel "
                         f"{loop_ms:.4f}, newton_step with its read {call:.4f}")
@@ -460,36 +547,39 @@ def search_rows(K, n: int, dtype, eta: float, failures: list) -> list[dict]:
     step_ok, step_err = True, 0.0
     for kind, alpha0 in (("far", 1.0), ("near", 37.0), ("done", 1.0), ("below", 1.0)):
         y, z, dy, dz = search_state(n, kind, 1, dtype)
-        host = stepsize._newton_step_host(y, z, dy, dz, eta, ls_eps=EPS, alpha0=alpha0)
+        host = stepsize._newton_step_host(y, z, dy, dz, eta, p_keep, ls_eps=EPS, alpha0=alpha0)
         for d_max in (1e-3, 0.0):
             dm = torch.tensor(d_max, dtype=dtype, device=dev)
             ap, ap_p = (torch.tensor([alpha0], dtype=torch.float64, device=dev) for _ in range(2))
-            rec = stepsize.newton_step_record(y, z, dy, dz, eta, EPS, dm, ap).tolist()
-            plain = newton_step_ref(y, dy, z, dz, eta, EPS, dm, ap_p).tolist()
+            rec = stepsize.newton_step_record(y, z, dy, dz, eta, EPS, dm, ap, p_mask=p_keep).tolist()
+            plain = newton_step_ref(y, dy, z, dz, eta, EPS, dm, ap_p, p_keep).tolist()
             bad = d_max <= 0 or host.alpha < 1
             same = (bits(rec[0]), int(rec[1]), bool(rec[2])) == (bits(host.alpha), host.probes, host.completes) \
                 and bool(rec[4]) == bad and bits(rec[3]) == bits(0.0 if bad else host.alpha) \
                 and bits(ap.item()) == bits(alpha0 if bad else host.alpha)
             near = (rec[2], rec[4]) == (plain[2], plain[4]) and abs(rec[0] - plain[0]) <= EPS * max(rec[0], plain[0])
             check(failures, same and near and (kind != "below" or host.alpha < 1),
-                  f"newton_search step form {dtype} [{n}, 1] {kind}, alpha_prev {alpha0}, max(d) {d_max}: record "
+                  f"newton_search{masked} step form {dtype} [{n}, 1] {kind}, alpha_prev {alpha0}, max(d) {d_max}: record "
                   f"{rec} | host loop {tuple(host)}, bad {bad}; plain {plain}")
             step_ok = step_ok and same and near
             step_err = max(step_err, abs(rec[0] - plain[0]))
     y, z, dy, dz = search_state(n, "far", 1, dtype)
     dm0, ap, out = (torch.zeros((), dtype=dtype, device=dev), torch.ones(1, dtype=torch.float64, device=dev),
                     torch.empty(5, dtype=torch.float64, device=dev))
-    probes = int(K.newton_search(y, dy, z, dz, eta, EPS, ap, d_max=dm0, out=out)[1].item())
-    ms = device_ms(lambda: K.newton_search(y, dy, z, dz, eta, EPS, ap, d_max=dm0, out=out), 50)
-    plain_ms = host_ms(lambda: newton_step_ref(y, dy, z, dz, eta, EPS, dm0, ap).tolist())
-    b_ms, b_by = bound(2 * (n + 1) * size, 9 * (n + 1) * (probes + 1), dtype)
-    s = dict(r, form="step", max_abs_err=step_err, within_bar=step_ok, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-             bound_by=b_by, call_ms=call_ms(lambda: K.newton_search(y, dy, z, dz, eta, EPS, ap, d_max=dm0, out=out), 50),
-             plain_call_ms=plain_ms, probes=probes, ms_per_probe=ms / (probes + 1))
-    check(failures, step_ok, f"newton_search step form {s['dtype']} [{n}, 1]: {probes} probes; device ms a search "
-                             f"{ms:.4f}, bound {b_ms:.4f} ({b_by}); plain {plain_ms:.4f} (host clock); eager call "
-                             f"{s['call_ms']:.4f}")
-    return [dict(r, form="host alpha0"), s]
+    def search():
+        return K.newton_search(y, dy, z, dz, eta, EPS, ap, d_max=dm0, out=out, p_keep=p_keep)
+
+    probes = int(search()[1].item())
+    ms = device_ms(search, 50)
+    plain_ms = host_ms(lambda: newton_step_ref(y, dy, z, dz, eta, EPS, dm0, ap, p_keep).tolist())
+    b_ms, b_by = bound(2 * (n + 1) * size + mask_bytes, 9 * (n + 1) * (probes + 1), dtype)
+    s = dict(r, form="step" + masked, max_abs_err=step_err, within_bar=step_ok, ms=ms, plain_ms=plain_ms,
+             bound_ms=b_ms, bound_by=b_by, call_ms=call_ms(search, 50), plain_call_ms=plain_ms, probes=probes,
+             ms_per_probe=ms / (probes + 1))
+    check(failures, step_ok, f"newton_search{masked} step form {s['dtype']} [{n}, 1]: {probes} probes; device ms a "
+                             f"search {ms:.4f}, bound {b_ms:.4f} ({b_by}); plain {plain_ms:.4f} (host clock); eager "
+                             f"call {s['call_ms']:.4f}")
+    return [dict(r, form="host alpha0" + masked), s]
 
 
 def scored_pairs(S: int, causal: bool, window) -> int:
@@ -1076,9 +1166,190 @@ def encoder_forward(K, failures: list) -> dict:
     return info
 
 
+# -- phase 6 -----------------------------------------------------------------
+def serve_requests(n_requests: int, failures: list) -> dict:
+    """Graph-LP serving at card size through the port's lpserve engine:
+    match and vcover alternating, request i on erdos(n, m, seed=i) of
+    SERVE_TIERS[i % 3], LPServeConfig(MWUOptions(eps=0.1, step_rule="newton"),
+    lanes=4), the default BucketPolicy, float64. Returns the phase's numbers
+    and its launches (counted from 0 over the engine's run alone)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import kernels as K
+    from repro_torch.api import MWUOptions, Solver
+    from repro_torch.graphs import build, erdos
+    from repro_torch.lpserve import LPEngine, LPServeConfig
+    from repro_torch.lpserve import engine as engine_mod
+
+    opts = MWUOptions(eps=EPS, step_rule="newton")
+    t0 = time.perf_counter()
+    graphs = [erdos(*SERVE_TIERS[i % 3], seed=i) for i in range(n_requests)]
+    probs = [build(("match", "vcover")[i % 2], g, device="cuda") for i, g in enumerate(graphs)]
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    print(f"  {n_requests} requests (match, vcover alternating; tiers {SERVE_TIERS}) generated and built in "
+          f"{t_build:.1f} s on the host", flush=True)
+
+    class RoundSolver(Solver):
+        """Keeps each round's lanes, iterations and wall time."""
+
+        def __init__(self):
+            super().__init__(opts, batch_width=1)
+            self.rounds = []
+
+        def solve_stack(self, problems, bounds):
+            t0 = time.perf_counter()
+            batch = super().solve_stack(problems, bounds)
+            self.rounds.append(dict(bucket=(problems[0].name, problems[0].P.shape if problems[0].P is not None
+                                            else problems[0].C.shape), lanes=len(problems),
+                                    iters=[int(i) for i in batch.iters], probes=int(np.sum(batch.ls_probes)),
+                                    wall_s=time.perf_counter() - t0))
+            self.last = batch
+            return batch
+
+    # the certificates' host time, inside the engine's rounds
+    certify, cert = engine_mod.certify_solution, dict(s=0.0, n=0)
+
+    def timed_certify(*a, **kw):
+        t0 = time.perf_counter()
+        out = certify(*a, **kw)
+        cert["s"], cert["n"] = cert["s"] + time.perf_counter() - t0, cert["n"] + 1
+        return out
+
+    engine = LPEngine(LPServeConfig(opts=opts, lanes=4))
+    engine.solver = RoundSolver()
+    torch.cuda.synchronize()
+    engine_mod.certify_solution = timed_certify
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        sols = engine.solve_many(probs)
+        torch.cuda.synchronize()
+    finally:
+        engine_mod.certify_solution = certify
+    t_engine = time.perf_counter() - t0
+    launches = K.launch_counts()
+    stats = engine.stats()
+    rounds = engine.solver.rounds
+
+    seq = Solver(opts, batch_width=1)
+    t0 = time.perf_counter()
+    refs = [seq.solve(p) for p in probs]
+    torch.cuda.synchronize()
+    t_seq = time.perf_counter() - t0
+
+    lane_iters = sum(sum(r["iters"]) for r in rounds)
+    loop_iters = sum(max(r["iters"]) for r in rounds)
+    info = dict(requests=n_requests, build_s=t_build, engine_wall_s=t_engine, sequential_wall_s=t_seq,
+                batches=stats["batches"], feasibility_calls=stats["feasibility_calls"],
+                mwu_iters=stats["mwu_iters"], lane_iters_launched=lane_iters, loop_iters=loop_iters,
+                lane_occupancy=stats["lane_occupancy"], padding_waste=stats["padding_waste"],
+                latency_p50_s=stats["latency_p50_s"], latency_p99_s=stats["latency_p99_s"],
+                rounds_wall_s=sum(r["wall_s"] for r in rounds), certify_s=cert["s"], certificates=cert["n"],
+                compiles=stats["compiles"],
+                compile_cache_hits=stats["compile_cache_hits"], launches=launches,
+                buckets={k: {f: b[f] for f in ("requests", "batches", "lane_occupancy", "padding_waste",
+                                               "feasibility_calls", "mwu_iters", "batch_seconds")}
+                         for k, b in stats["buckets"].items()})
+    print("  " + json.dumps(info), flush=True)
+    for key, b in stats["buckets"].items():
+        print(f"  bucket {key:24s} requests={b['requests']:3d} batches={b['batches']:3d} "
+              f"occupancy={b['lane_occupancy']:.0%} waste={b['padding_waste']:.1%} "
+              f"batch_seconds={b['batch_seconds']:.2f}", flush=True)
+    print(f"  engine {t_engine:.2f} s ({stats['batches']} batches, {stats['feasibility_calls']} calls, "
+          f"{stats['mwu_iters']} lane iterations of real lanes, {lane_iters} launched, {loop_iters} loop "
+          f"iterations): rounds {info['rounds_wall_s']:.2f} s, {cert['n']} certificates {cert['s']:.2f} s, the rest "
+          f"(x copies, padding at submit, bookkeeping) {t_engine - info['rounds_wall_s'] - cert['s']:.2f} s; latency "
+          f"p50 {stats['latency_p50_s']:.2f} s, p99 {stats['latency_p99_s']:.2f} s; sequential Solver(batch_width=1) "
+          f"{t_seq:.2f} s", flush=True)
+    for r in rounds:
+        print(f"    round {r['bucket'][0]} {list(r['bucket'][1])}: {r['lanes']} lanes, iterations {r['iters']}, "
+              f"{r['probes']} probes, {r['wall_s']:.3f} s", flush=True)
+
+    for i, (g, p, sol, ref) in enumerate(zip(graphs, probs, sols, refs)):
+        ok = sol.found and sol.feasible
+        if ok and p.name == "match":  # packing: max Mx <= 1 on the host
+            loads = np.bincount(g.u, sol.x, g.n) + np.bincount(g.v, sol.x, g.n)
+            cert, ok = f"max Mx {loads.max()!r}", loads.max() <= 1 + 1e-9
+        elif ok:  # covering: min M^T x >= 1 on the host
+            cover = sol.x[g.u] + sol.x[g.v]
+            cert, ok = f"min M^T x {cover.min()!r}", cover.min() >= 1 - 1e-9
+        else:
+            cert = "not found"
+        rel = abs(sol.objective - ref.objective) / max(abs(ref.objective), 1e-12)
+        check(failures, ok and ref.feasible and rel <= 3 * EPS,
+              f"request {i:2d}: {p.name:6s} erdos{SERVE_TIERS[i % 3]} calls {sol.feasibility_calls}, objective "
+              f"{sol.objective:.3f} (sequential {ref.objective:.3f}, rel {rel:.4f}, bar {3 * EPS}); {cert}")
+    check(failures, stats["batches"] < stats["feasibility_calls"],
+          f"batches {stats['batches']} < feasibility calls {stats['feasibility_calls']}")
+    check(failures, stats["completed"] == n_requests and stats["not_found"] == 0,
+          f"{stats['completed']} of {n_requests} requests completed, {stats['not_found']} not found")
+    check(failures, launches["newton_search"] == launches["step_direction"] == lane_iters
+          and launches["axpy_reduce"] == 3 * lane_iters and launches["softmax_weights"] == 2 * lane_iters
+          and launches["linesearch_probe"] == 0 and launches["flash_attention"] == 0,
+          f"every lane iteration on the card: launches {launches} for {lane_iters} lane iterations (the search, the "
+          f"step direction once each, the axpy 3x, softmax 2x, no lone probe)")
+
+    # one round profiled: a fresh engine's second round over the four
+    # requests of the first tier-0/1 match bucket (its first round built
+    # their CSR); reads are the device-to-host copies. The same round of a
+    # second fresh engine, timed without the profiler (a card solve repeats:
+    # the same iterations), gives the wall time the idle share is taken of.
+    quad = [p for i, p in enumerate(probs) if i % 2 == 0 and i % 3 != 2][:4]
+
+    def second_round(profiled: bool):
+        eng = LPEngine(LPServeConfig(opts=opts, lanes=4))
+        eng.solver = RoundSolver()
+        for p in quad:
+            eng.submit(p)
+        eng.step()
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) if profiled else None
+        if prof is not None:
+            prof.__enter__()
+        eng.step()
+        torch.cuda.synchronize()
+        if prof is not None:
+            prof.__exit__(None, None, None)
+        check(failures, len(eng.solver.rounds) == 2, f"the fresh engine ran {len(eng.solver.rounds)} rounds (2)")
+        return eng.solver.rounds[-1], 1e3 * (time.perf_counter() - t0), K.launch_counts(), prof
+
+    timed, wall_ms, _, _ = second_round(False)
+    r, prof_wall_ms, prof_launches, prof = second_round(True)
+    check(failures, r["iters"] == timed["iters"], f"the timed and the profiled round repeat ({timed['iters']} / "
+                                                  f"{r['iters']} iterations)")
+    events = prof.key_averages()
+    kernels = sorted(((e.self_device_time_total / 1e3, e.count, e.key) for e in events
+                      if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0), reverse=True)
+    busy = sum(k[0] for k in kernels)
+    reads = sum(e.count for e in events if e.device_type == DeviceType.CUDA and "DtoH" in e.key)
+    loop = max(r["iters"])
+    copy_ms = sum(k[0] for k in kernels if "Memcpy DtoH" in k[2])
+    prof_info = dict(lanes=r["lanes"], lane_iters=sum(r["iters"]), loop_iters=loop, probes=r["probes"],
+                     wall_ms=wall_ms, profiled_wall_ms=prof_wall_ms, device_busy_ms=busy, dtoh_copy_ms=copy_ms,
+                     device_idle_share=1.0 - busy / wall_ms,
+                     kernel_ms_per_lane_iter=(busy - copy_ms) / max(sum(r["iters"]), 1), host_reads=reads,
+                     host_reads_per_loop_iter=reads / max(loop, 1), launches=prof_launches)
+    info["profile_round"] = prof_info
+    print(f"  profile of one engine round: {json.dumps(prof_info)}", flush=True)
+    for ms, count, key in kernels[:14]:
+        print(f"    {ms:10.2f} ms {count:7d} x  {key[:110]}", flush=True)
+    check(failures, reads <= loop + 3,
+          f"profiled round: {reads} host reads in {loop} loop iterations ({r['probes']} probes; bar: loop "
+          f"iterations + 3)")
+    check(failures, prof_launches["linesearch_probe"] == 0 and prof_launches["newton_search"] == sum(r["iters"]),
+          f"profiled round: no probe read back one by one (linesearch_probe {prof_launches['linesearch_probe']}, "
+          f"newton_search {prof_launches['newton_search']} for {sum(r['iters'])} lane iterations)")
+    return info
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n-users", type=int, default=480_189, help="users of the full-size bmatch graph")
+    ap.add_argument("--serve-requests", type=int, default=12, help="requests of phase 6's serving run")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -1133,6 +1404,10 @@ def main() -> int:
     print("== phase 5: hubert-xlarge encoder forward at full width", flush=True)
     enc = encoder_forward(K, failures)
     end_phase("5", failures)
+
+    print("== phase 6: graph-LP serving at card size (lpserve)", flush=True)
+    serve = serve_requests(args.serve_requests, failures)
+    end_phase("6", failures)
     print(f"  total {time.perf_counter() - t_start:.1f} s", flush=True)
 
     # one entry per kernel: for the MWU kernels their float64 row at the
@@ -1150,10 +1425,16 @@ def main() -> int:
                      and r.get("form") in (None, MAIN_FORM.get(name))), key=lambda r: r["shape"][0])
             launches = {"linesearch_probe": binary_launches,
                         "incidence_gather": small_launches}.get(name, info["launches"])[name]
+        launches += serve["launches"][name]
+        masked = next((m for m in rows if name in MASKED_FORM and m["name"] == name and m["dtype"] == "float64"
+                       and m.get("form") == MASKED_FORM[name]), None)
         kernels.append(dict(name=name, route="cuda", source=source, replaces=replaces, launches=launches,
+                            serving_launches=serve["launches"][name],
                             **{k: r.get(k) for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                                      "library_ms", "call_ms", "plain_call_ms", "shape", "dtype", "bar",
-                                                     "within_bar", "form")}))
+                                                     "within_bar", "form")},
+                            masked=None if masked is None else {k: masked.get(k) for k in (
+                                "form", "shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -19,7 +19,10 @@ objective bound. Two execution modes, as in the reference:
 
 ``solve_batch`` exposes the raw fan-out: a batched ``MWUResult`` across an
 array of bounds, optionally also across stacked same-shape graph
-instances (:func:`stack_problems`).
+instances (:func:`stack_problems`). ``solve_stack`` takes such instances
+as a list instead, each lane over its own problem's operators, so that
+operators kept across calls (a served request's padded problem) keep
+their scatter CSR.
 """
 from __future__ import annotations
 
@@ -267,6 +270,23 @@ class Solver:
         else:
             lanes = [problem.instantiate(float(b)) for b in bounds]
         return solve_lanes(lanes, self.opts)
+
+    def solve_stack(self, problems: list[Problem], bounds) -> MWUResult:
+        """``solve_batch(stack_problems(problems), bounds,
+        batched_problem=True)`` without building the stack: the same checks
+        and messages, the same lanes and bits, but lane j runs over
+        ``problems[j]``'s own operators. An operator builds its scatter CSR
+        at its first card product and keeps it, so problems kept across calls
+        build it once, where the rows of a stacked Problem are new operators
+        at every call."""
+        problems = list(problems)
+        if not problems:
+            raise ValueError("stack_problems: need at least one problem")
+        _check_stackable(problems)
+        bounds = np.atleast_1d(np.asarray(bounds, dtype=np.float64))
+        if len(problems) != len(bounds):
+            raise ValueError(f"solve_batch: {len(bounds)} bounds for {len(problems)} stacked problems")
+        return solve_lanes([p.instantiate(float(b)) for p, b in zip(problems, bounds)], self.opts)
 
     def solve(self, problem: Problem, *, trace: bool = False) -> Solution:
         """Optimize ``problem`` via bound search over feasibility calls."""

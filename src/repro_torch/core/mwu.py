@@ -25,21 +25,25 @@ lane still running, on that lane's rows of the lane-major state (x
 - the covering gradient's transposed product,
 - two scatter-add products (``operators``: on the card the segmented-sum
   kernel, which sums in a fixed order, so a card solve repeats),
-- one step-size search (``stepsize``): for the Newton rule on an unmasked
-  problem, one launch of the search kernel, which takes max(d) from the
-  card and leaves the step there (``newton_step_record``); else a host
-  loop (one two-sided probe launch and one read a probe),
+- one step-size search (``stepsize``): for the Newton rule one launch of
+  the search kernel, masked or not, which takes max(d) from the card and
+  leaves the step there (``newton_step_record``); for the other rules a
+  host loop (one two-sided probe launch and one read a probe),
 - three fused updates of x, y and z in place (the axpy kernel), which
   read the step from device memory on the Newton lanes, and whose min of
   z is the loop condition.
 
-Each lane writes one float64 row of a ``[K, 9]`` record on the device:
-the search's ``[alpha, probes, completes, step, bad]``, then the z
-update's min and max and the y update's min and max. The loop reads that
-record once a loop iteration for all lanes, and from it advances each
-lane and drops the finished ones. A Newton lane of an unmasked problem
-reads nothing else; a lane of another rule also reads max(d) and its
-probes, and a masked lane its masked min of z. A finished lane launches
+Row masks (``p_mask``, ``c_mask``: padded rows of a served request,
+gen-match's rows with no lower bound) go into the kernels as their row
+masks, one byte a row: the softmax weights, the search's probes and the
+y and z updates' min and max run over the kept rows, as the reference's
+``where`` expressions do. Each lane writes one float64 row of a ``[K, 9]``
+record on the device: the search's ``[alpha, probes, completes, step,
+bad]``, then the z update's min and max and the y update's min and max
+over the kept rows. The loop reads that record once a loop iteration for
+all lanes, and from it advances each lane and drops the finished ones. A
+Newton lane, masked or not, reads nothing else; a lane of another rule
+also reads max(d) and its probes. A finished lane launches
 nothing and keeps its bits, and its iteration count stops, as a lane does
 under the reference's ``vmap``. Every lane runs the same launches on its
 own rows as a solve of that lane alone, so each lane equals its own
@@ -190,7 +194,7 @@ class _Lane:
     y: torch.Tensor
     z: torch.Tensor
     rec: torch.Tensor  # the lane's record row
-    alpha_dev: torch.Tensor | None  # alpha_prev on the device (Newton lanes of unmasked problems), else None
+    alpha_dev: torch.Tensor | None  # alpha_prev on the device (Newton lanes), else None
     min_z: float = 0.0  # masked min of z: the loop condition
     max_y: float = 0.0  # masked max of y (for the trace)
     it: int = 0
@@ -206,8 +210,8 @@ class _Lane:
 
 def _iteration(ln: _Lane, step_fn, ls_eps) -> None:
     """One MWU iteration (Alg. 2 body) on lane ``ln``'s rows. A Newton lane
-    of an unmasked problem leaves its step and the search's result in its
-    record; a lane of another rule keeps them in ``ln.host_step``."""
+    leaves its step and the search's result in its record; a lane of
+    another rule keeps them in ``ln.host_step``."""
     P, C, pm, cm, x, y, z = ln.P, ln.C, ln.pm, ln.cm, ln.x, ln.y, ln.z
 
     # gradients of the smoothed constraint potentials (lines 5-6)
@@ -228,7 +232,8 @@ def _iteration(ln: _Lane, step_fn, ls_eps) -> None:
 
     # step size (line 11) and the terminal test (lines 8 and 12)
     if ln.alpha_dev is not None:
-        newton_step_record(y, z, dy, dz, ln.eta, ls_eps, d_max, ln.alpha_dev, out=ln.rec[:_MIN_Z])
+        newton_step_record(y, z, dy, dz, ln.eta, ls_eps, d_max, ln.alpha_dev, out=ln.rec[:_MIN_Z], p_mask=pm,
+                           c_mask=cm)
         step = ln.rec[_STEP:_BAD]
     else:
         infeasible_dir = d_max.item() <= 0  # line 8
@@ -238,27 +243,21 @@ def _iteration(ln: _Lane, step_fn, ls_eps) -> None:
         step = 0.0 if bad else ss.alpha
 
     # apply (lines 14-15); a terminal iteration moves by 0. The fused
-    # updates give min(z) (the next loop condition) and max(y) for free.
+    # updates give min(z) (the next loop condition) and max(y) over the
+    # kept rows for free.
     axpy_reduce(x, d, step, out=x)
-    axpy_reduce(y, dy, step, out=y, red=ln.rec[_MIN_Y:_MAX_Y + 1])
-    axpy_reduce(z, dz, step, out=z, red=ln.rec[_MIN_Z:_MAX_Z + 1])
-    if cm is not None:
-        ln.min_z = _masked_min(z, cm).item()
+    axpy_reduce(y, dy, step, out=y, red=ln.rec[_MIN_Y:_MAX_Y + 1], keep=pm)
+    axpy_reduce(z, dz, step, out=z, red=ln.rec[_MIN_Z:_MAX_Z + 1], keep=cm)
 
 
-def _advance(ln: _Lane, r: list, trace: bool) -> tuple:
+def _advance(ln: _Lane, r: list) -> tuple:
     """Advance lane ``ln`` past its iteration from its record row ``r``;
     returns the iteration's trace row."""
     if ln.alpha_dev is not None:
         bad, alpha, probes = r[_BAD] != 0.0, r[_ALPHA], int(r[_PROBES])
     else:
         bad, alpha, probes = ln.host_step
-    if ln.cm is None:
-        ln.min_z = r[_MIN_Z]
-    if ln.pm is None:
-        ln.max_y = r[_MAX_Y]
-    elif trace:
-        ln.max_y = _masked_max(ln.y, ln.pm).item()
+    ln.min_z, ln.max_y = r[_MIN_Z], r[_MAX_Y]
     ln.status = Status.INFEASIBLE if bad else Status.RUNNING
     ln.it += 1
     ln.probes += probes
@@ -293,9 +292,8 @@ def _run(lanes: list, opts: MWUOptions, rows: list | None = None) -> tuple[list,
         X[k].copy_(x0[k])
         Y[k].copy_(P.matvec(x0[k]).to(dt))
         Z[k].copy_(C.matvec(x0[k]).to(dt))
-        device_step = opts.step_rule == "newton" and pm is None and cm is None
         state.append(_Lane(k=k, P=P, C=C, pm=pm, cm=cm, eta=eta, scale=scale, x=X[k], y=Y[k], z=Z[k], rec=rec[k],
-                           alpha_dev=alpha[k:k + 1] if device_step else None))
+                           alpha_dev=alpha[k:k + 1] if opts.step_rule == "newton" else None))
     # the starting min z and max y of every lane in one read
     start = torch.stack([torch.stack([_masked_min(ln.z, ln.cm), _masked_max(ln.y, ln.pm)]) for ln in state]).tolist()
     for ln, (min_z, max_y) in zip(state, start):
@@ -308,7 +306,7 @@ def _run(lanes: list, opts: MWUOptions, rows: list | None = None) -> tuple[list,
             _iteration(ln, step_fn, opts.ls_tol)
         r = rec.tolist()  # the one host read of a loop iteration, for all lanes
         for ln in active:
-            row = _advance(ln, r[ln.k], rows is not None)
+            row = _advance(ln, r[ln.k])
             if rows is not None:
                 rows[ln.k].append(row)
         active = [ln for ln in active if ln.running(opts.max_iter)]
@@ -352,8 +350,7 @@ def solve_traced(P: LinOp, C: LinOp, opts: MWUOptions = MWUOptions(), p_mask=Non
     ``max_violation`` = max(0, max(Px)-1, 1-min(Cx)) at the start of every
     iteration (plus the final state when the loop exits before the
     iteration cap), ``alpha``, ``probes`` — the reference's layout. The
-    rows come from the loop's one read an iteration (a masked lane also
-    reads its masked max of y).
+    rows come from the loop's one read an iteration.
     """
     rows: list = [[]]
     res = _finalize(opts, *_run([(P, C, p_mask, c_mask)], opts, rows=rows)).lane(0)

@@ -10,9 +10,10 @@ shifted logsumexp (eta = 10 log(m)/eps is far beyond the exp range).
 
 ``smax_and_weights`` / ``smin_and_weights`` — the per-iteration gradient
 step of the MWU loop — call :func:`repro_torch.kernels.softmax_weights`
-when unmasked (the CUDA kernel on the card, its plain version on the
-CPU). Masked calls stay plain PyTorch on every device, as the reference
-keeps them on XLA. ``eta`` is a host float throughout.
+(the CUDA kernel on the card, its plain version on the CPU), masked or
+not: the kernel takes ``where`` as its row mask, so a padded lane's
+weights cost one launch as an unpadded lane's do. ``eta`` is a host float
+throughout.
 """
 from __future__ import annotations
 
@@ -70,32 +71,15 @@ def smin_weights(v: torch.Tensor, eta: float, where: torch.Tensor | None = None)
     return torch.softmax(_neg_inf_where(-eta * v, where), dim=0)
 
 
-def _masked_and_weights(a: torch.Tensor, where):
-    a = _neg_inf_where(a, where)
-    shift = a.max()
-    shift = torch.where(torch.isfinite(shift), shift, torch.zeros_like(shift))
-    e = torch.exp(a - shift)
-    s = e.sum()
-    return shift + torch.log(s), e / s
-
-
 def smax_and_weights(v, eta, where=None):
-    """One-pass (smax, softmax(eta v)) sharing the max-shift.
-
-    Unmasked calls go to the fused softmax-weights kernel; masked calls
-    stay plain.
-    """
-    if where is None:
-        lse, w = softmax_weights(v, eta, sign=1.0)
-        return lse / eta, w
-    lse, w = _masked_and_weights(eta * v, where)
+    """One-pass (smax, softmax(eta v)) sharing the max-shift: the fused
+    softmax-weights kernel, with ``where`` as its row mask (weight 0 and
+    left out of smax where False)."""
+    lse, w = softmax_weights(v, eta, sign=1.0, keep=where)
     return lse / eta, w
 
 
 def smin_and_weights(v, eta, where=None):
     """One-pass (smin, softmax(-eta v)) sharing the max-shift (sign=-1 kernel)."""
-    if where is None:
-        lse, w = softmax_weights(v, eta, sign=-1.0)
-        return -lse / eta, w
-    lse, w = _masked_and_weights(-eta * v, where)
+    lse, w = softmax_weights(v, eta, sign=-1.0, keep=where)
     return -lse / eta, w

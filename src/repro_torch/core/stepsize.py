@@ -13,25 +13,26 @@ once min(z + alpha dz) >= 1 while f(alpha) >= 1, then shrinks the step to
 the smallest completing alpha.
 
 The reference runs these searches as ``lax.while_loop``s on the device.
-Here the Newton search of an unmasked problem on the card is one launch
-of :func:`repro_torch.kernels.newton_search`, which runs the whole search
-there. :func:`newton_step` reads its result back once; the MWU loop calls
-:func:`newton_step_record` instead, which takes max(d) from the card,
-decides the iteration's step there and leaves it in a device record, so
-that the loop reads the search only with the rest of its lane record.
-Elsewhere (the binary rule, masked problems,
-the CPU) the searches are Python loops over host floats: each probe
-evaluates both sides on the device (one
-:func:`repro_torch.kernels.linesearch_probe2` call for unmasked problems,
-the CUDA kernel on the card) and reads the six results back in one copy,
-which is one host sync per probe. The Newton search's host loop is the
-search kernel's plain version (``kernels/linesearch_probe/ref.py``); over
-the probe kernel on the card it is ``_newton_step_host``, and the search
-kernel gives the same alpha (bit for bit), probes and ``completes`` as
-that loop on the same state. The iteration caps and the probe counting
-are the reference's, so the same state gives the same alpha,
-``completes`` and probe count as the reference, except where an ulp of
-difference decides one of the search's comparisons.
+Here the Newton search on the card is one launch of
+:func:`repro_torch.kernels.newton_search`, which runs the whole search
+there, over the rows that the masks keep (padded rows of a served
+request, gen-match's rows with no lower bound). :func:`newton_step` reads
+its result back once; the MWU loop calls :func:`newton_step_record`
+instead, which takes max(d) from the card, decides the iteration's step
+there and leaves it in a device record, so that the loop reads the search
+only with the rest of its lane record. Elsewhere (the binary and standard
+rules, the CPU) the searches are Python loops over host floats: each
+probe evaluates both sides in one :func:`repro_torch.kernels.linesearch_probe2`
+call (the CUDA kernel on the card, masked or not) and reads the six
+results back in one copy, which is one host sync per probe. The Newton
+search's host loop is the search kernel's plain version
+(``kernels/linesearch_probe/ref.py``); over the probe kernel on the card
+it is ``_newton_step_host``, and the search kernel gives the same alpha
+(bit for bit), probes and ``completes`` as that loop on the same state.
+The iteration caps and the probe counting are the reference's, so the
+same state gives the same alpha, ``completes`` and probe count as the
+reference, except where an ulp of difference decides one of the search's
+comparisons.
 """
 from __future__ import annotations
 
@@ -40,9 +41,8 @@ from typing import Callable, NamedTuple
 import torch
 
 from ..kernels import linesearch_probe2, newton_search
-from ..kernels.linesearch_probe.ref import (MAX_BIN_ITERS, Probe, fmax, newton_search_loop, ratio, refine_completion,
+from ..kernels.linesearch_probe.ref import (MAX_BIN_ITERS, Probe, fmax, newton_search_loop, refine_completion,
                                             two_sided_probe_fn)
-from .smoothing import logsumexp_shifted
 
 __all__ = ["StepSizeResult", "standard_step", "binary_search_step", "newton_step", "newton_step_record",
            "make_probe_fn", "STEP_RULES"]
@@ -65,53 +65,18 @@ def _masked_min(v: torch.Tensor, mask) -> torch.Tensor:
 def make_probe_fn(y, z, dy, dz, eta: float, p_mask=None, c_mask=None, with_grad=False) -> Callable[[float], Probe]:
     """Close over the iteration state; returns probe(alpha) -> Probe.
 
-    Unmasked problems evaluate a probe as one two-sided probe sweep
-    (packing side sign +1, covering side sign -1), which gives the Newton
-    slopes for free; ``with_grad`` only matters on the masked path, as in
-    the reference.
+    A probe is one two-sided probe sweep (packing side sign +1 over the rows
+    ``p_mask`` keeps, covering side sign -1 over the rows ``c_mask``
+    keeps), which gives the Newton slopes for free: ``with_grad`` is moot,
+    as on the reference's kernel path.
     """
-    tiny = torch.finfo(y.dtype).tiny
+    buf = torch.empty(6, dtype=y.dtype, device=y.device)
 
-    if p_mask is None and c_mask is None:
-        buf = torch.empty(6, dtype=y.dtype, device=y.device)
+    def sweep(alpha):
+        # the one host sync of a probe
+        return linesearch_probe2(y, dy, z, dz, alpha, eta, out=buf, p_keep=p_mask, c_keep=c_mask).tolist()
 
-        def sweep(alpha):
-            return linesearch_probe2(y, dy, z, dz, alpha, eta, out=buf).tolist()  # the one host sync of a probe
-
-        return two_sided_probe_fn(sweep, eta, tiny)
-
-    ay = eta * y
-    az = -eta * z
-    if p_mask is not None:
-        ay = torch.where(p_mask, ay, -torch.inf)
-    if c_mask is not None:
-        az = torch.where(c_mask, az, -torch.inf)
-    lse_y0, _ = logsumexp_shifted(ay)
-    lse_z0, _ = logsumexp_shifted(az)
-    lse_y0, lse_z0 = torch.stack([lse_y0, lse_z0]).tolist()
-
-    def probe(alpha: float) -> Probe:
-        ya = eta * (y + alpha * dy)
-        za = -eta * (z + alpha * dz)
-        if p_mask is not None:
-            ya = torch.where(p_mask, ya, -torch.inf)
-        if c_mask is not None:
-            za = torch.where(c_mask, za, -torch.inf)
-        lse_ya, _ = logsumexp_shifted(ya)
-        lse_za, _ = logsumexp_shifted(za)
-        if with_grad:
-            dpsi = torch.dot(torch.exp(ya - lse_ya), dy)  # <softmax(eta(y+a dy)), dy>
-            dphi = torch.dot(torch.exp(za - lse_za), dz)  # <softmax(-eta(z+a dz)), dz>
-        else:
-            dpsi = dphi = torch.zeros((), dtype=y.dtype, device=y.device)
-        min_z = _masked_min(z + alpha * dz, c_mask)
-        lse_ya, lse_za, dpsi, dphi, min_z = torch.stack([lse_ya, lse_za, dpsi, dphi, min_z]).tolist()
-        # Psi = smax(y+a dy) - smax(y);  Phi = smin(z+a dz) - smin(z)
-        psi = (lse_ya - lse_y0) / eta
-        phi = -(lse_za - lse_z0) / eta
-        return Probe(f=ratio(phi, psi, tiny), phi=phi, psi=psi, dphi=dphi, dpsi=dpsi, min_z=min_z)
-
-    return probe
+    return two_sided_probe_fn(sweep, eta, torch.finfo(y.dtype).tiny)
 
 
 def standard_step(y, z, dy, dz, eta, p_mask=None, c_mask=None, ls_eps=0.1, alpha0=None) -> StepSizeResult:
@@ -180,34 +145,35 @@ def newton_step(y, z, dy, dz, eta, p_mask=None, c_mask=None, ls_eps=0.1, alpha0=
     """Warm-started, safeguarded Newton on g(alpha) = f(alpha) - 1 (§4.2).
 
     After convergence, multiplicatively backs off by (1 - ls_eps) until the
-    bang-for-buck invariant (16) holds, as the paper prescribes. An
-    unmasked search is one call of :func:`repro_torch.kernels.newton_search`
+    bang-for-buck invariant (16) holds, as the paper prescribes. The search
+    is one call of :func:`repro_torch.kernels.newton_search`, masked or not
     (on the card one launch, read once; on the CPU its plain version, the
-    host loop); a masked one runs the host loop over masked probes.
+    host loop over plain probes).
     """
-    if p_mask is None and c_mask is None:
-        alpha, probes, completes = newton_search(y, dy, z, dz, eta, ls_eps, alpha0).tolist()
-        return StepSizeResult(alpha=alpha, probes=int(probes), completes=bool(completes))
-    return _newton_step_host(y, z, dy, dz, eta, p_mask, c_mask, ls_eps, alpha0)
+    alpha, probes, completes = newton_search(y, dy, z, dz, eta, ls_eps, alpha0, p_keep=p_mask,
+                                             c_keep=c_mask).tolist()
+    return StepSizeResult(alpha=alpha, probes=int(probes), completes=bool(completes))
 
 
-def newton_step_record(y, z, dy, dz, eta, ls_eps, d_max, alpha_prev, out=None) -> torch.Tensor:
-    """``newton_step`` for an unmasked problem with the MWU iteration's step
-    decision, without a host read: the search warm-started at
-    ``alpha_prev`` (a one-value float64 tensor, updated when the step is
-    taken) and ``[alpha, probes, completes, step, bad]`` as a float64
+def newton_step_record(y, z, dy, dz, eta, ls_eps, d_max, alpha_prev, out=None, p_mask=None,
+                       c_mask=None) -> torch.Tensor:
+    """``newton_step`` with the MWU iteration's step decision, without a
+    host read: the search warm-started at ``alpha_prev`` (a one-value
+    float64 tensor, updated when the step is taken), over the rows the
+    masks keep, and ``[alpha, probes, completes, step, bad]`` as a float64
     5-vector on y's device, into ``out`` when given. ``bad`` is ``d_max <=
     0 or alpha < 1`` (Alg. 2 lines 8 and 12) and ``step`` is 0 if bad,
     else alpha. On the card one launch of the search kernel; on the CPU its
     plain version (``kernels/linesearch_probe/ref.py``, ``newton_step_ref``).
     alpha, probes and completes are ``newton_step``'s at the same state."""
-    return newton_search(y, dy, z, dz, eta, ls_eps, alpha_prev, d_max=d_max, out=out)
+    return newton_search(y, dy, z, dz, eta, ls_eps, alpha_prev, d_max=d_max, out=out, p_keep=p_mask,
+                         c_keep=c_mask)
 
 
 def _newton_step_host(y, z, dy, dz, eta, p_mask=None, c_mask=None, ls_eps=0.1, alpha0=None) -> StepSizeResult:
     """``newton_step`` as a host loop over ``make_probe_fn``'s probes (one
-    host sync each): the masked path, and over the probe kernel on the card
-    the search kernel's oracle."""
+    host sync each): over the probe kernel on the card, masked or not, the
+    search kernel's oracle."""
     probe = make_probe_fn(y, z, dy, dz, eta, p_mask, c_mask, with_grad=True)
     return StepSizeResult(*newton_search_loop(probe, torch.finfo(y.dtype).tiny, ls_eps, alpha0))
 

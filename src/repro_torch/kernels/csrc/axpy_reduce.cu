@@ -1,11 +1,14 @@
 // Fused update: out = y + alpha*dy together with red = [min out, max out].
+// With a row mask `keep` (one byte a row, or null) min and max run over the
+// kept rows only; the update covers every row, as the reference's does.
 //
 // Replaces src/repro/kernels/axpy_reduce/kernel.py:
 // axpy_reduce_pallas (body _axpy_kernel).
 //
-// Bound on the H100: bytes. Read y and dy, write out: 3*sizeof(T)*n. At
-// the main path's x update, E = 98.6M in f64, that is 2.37 GB, 0.71 ms at
-// 3.35 TB/s; the min and max cost no extra pass.
+// Bound on the H100: bytes. Read y and dy, write out: 3*sizeof(T)*n (and
+// n bytes of the mask, when there is one). At the main path's x update,
+// E = 98.6M in f64, that is 2.37 GB, 0.71 ms at 3.35 TB/s; the min and max
+// cost no extra pass.
 //
 // Design: one grid-stride sweep writes out and keeps a per-thread
 // (min, max), kUnroll elements a thread in flight; each block writes one
@@ -39,11 +42,11 @@ __device__ __forceinline__ MinMax<T> shfl_down(MinMax<T> a, int off) {
 }
 
 template <typename T>
-__device__ __forceinline__ void axpy_one(T yv, T dv, T alpha, T* o, MinMax<T>& st) {
+__device__ __forceinline__ void axpy_one(T yv, T dv, bool in, T alpha, T* o, MinMax<T>& st) {
   const T v = add_rn(yv, mul_rn(alpha, dv));
   *o = v;
-  st.mn = v < st.mn ? v : st.mn;
-  st.mx = v > st.mx ? v : st.mx;
+  st.mn = in && v < st.mn ? v : st.mn;
+  st.mx = in && v > st.mx ? v : st.mx;
 }
 
 // A thread takes kUnroll elements a step, all loaded before any is stored:
@@ -52,8 +55,8 @@ __device__ __forceinline__ void axpy_one(T yv, T dv, T alpha, T* o, MinMax<T>& s
 constexpr int kUnroll = 4;
 
 template <typename T>
-__global__ void axpy_partials_kernel(const T* y, const T* __restrict__ dy, T alpha_host,
-                                     const double* __restrict__ alpha_dev, int64_t n, T* out,
+__global__ void axpy_partials_kernel(const T* y, const T* __restrict__ dy, const uint8_t* __restrict__ keep,
+                                     T alpha_host, const double* __restrict__ alpha_dev, int64_t n, T* out,
                                      MinMax<T>* __restrict__ part) {
   const T alpha = alpha_dev ? (T)__ldg(alpha_dev) : alpha_host;
   MinMax<T> st = MinMax<T>::identity();
@@ -61,15 +64,17 @@ __global__ void axpy_partials_kernel(const T* y, const T* __restrict__ dy, T alp
   int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   for (; i + (kUnroll - 1) * stride < n; i += kUnroll * stride) {
     T yv[kUnroll], dv[kUnroll];
+    bool in[kUnroll];
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       yv[u] = y[i + u * stride];
       dv[u] = __ldg(dy + i + u * stride);
+      in[u] = kept(keep, i + u * stride, n);
     }
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) axpy_one(yv[u], dv[u], alpha, out + i + u * stride, st);
+    for (int u = 0; u < kUnroll; ++u) axpy_one(yv[u], dv[u], in[u], alpha, out + i + u * stride, st);
   }
-  for (; i < n; i += stride) axpy_one(y[i], __ldg(dy + i), alpha, out + i, st);
+  for (; i < n; i += stride) axpy_one(y[i], __ldg(dy + i), kept(keep, i, n), alpha, out + i, st);
   const MinMax<T> r = block_reduce(st);
   if (threadIdx.x == 0) part[blockIdx.x] = r;
 }
@@ -84,24 +89,27 @@ __global__ void axpy_combine_kernel(const MinMax<T>* __restrict__ part, int nb, 
 }
 
 // part: scratch of 2*nb values; red: [min, max] in double; alpha_dev: null
-// (the host form, alpha) or the step in device memory.
+// (the host form, alpha) or the step in device memory; keep: n bytes or
+// null.
 template <typename T>
-int axpy_reduce(const T* y, const T* dy, double alpha, const double* alpha_dev, int64_t n, int nb, T* out, T* part,
-                double* red, cudaStream_t stream) {
+int axpy_reduce(const T* y, const T* dy, const uint8_t* keep, double alpha, const double* alpha_dev, int64_t n, int nb,
+                T* out, T* part, double* red, cudaStream_t stream) {
   MinMax<T>* p = reinterpret_cast<MinMax<T>*>(part);
-  axpy_partials_kernel<T><<<nb, kThreads, 0, stream>>>(y, dy, (T)alpha, alpha_dev, n, out, p);
+  axpy_partials_kernel<T><<<nb, kThreads, 0, stream>>>(y, dy, keep, (T)alpha, alpha_dev, n, out, p);
   axpy_combine_kernel<T><<<1, kThreads, 0, stream>>>(p, nb, red);
   RT_RETURN_LAUNCH_STATUS();
 }
 
 }  // namespace rt
 
-extern "C" int rt_axpy_reduce_f32(const float* y, const float* dy, double alpha, const double* alpha_dev, int64_t n,
-                                  int nb, float* out, float* part, double* red, void* stream) {
-  return rt::axpy_reduce<float>(y, dy, alpha, alpha_dev, n, nb, out, part, red, (cudaStream_t)stream);
+extern "C" int rt_axpy_reduce_f32(const float* y, const float* dy, const uint8_t* keep, double alpha,
+                                  const double* alpha_dev, int64_t n, int nb, float* out, float* part, double* red,
+                                  void* stream) {
+  return rt::axpy_reduce<float>(y, dy, keep, alpha, alpha_dev, n, nb, out, part, red, (cudaStream_t)stream);
 }
 
-extern "C" int rt_axpy_reduce_f64(const double* y, const double* dy, double alpha, const double* alpha_dev,
-                                  int64_t n, int nb, double* out, double* part, double* red, void* stream) {
-  return rt::axpy_reduce<double>(y, dy, alpha, alpha_dev, n, nb, out, part, red, (cudaStream_t)stream);
+extern "C" int rt_axpy_reduce_f64(const double* y, const double* dy, const uint8_t* keep, double alpha,
+                                  const double* alpha_dev, int64_t n, int nb, double* out, double* part, double* red,
+                                  void* stream) {
+  return rt::axpy_reduce<double>(y, dy, keep, alpha, alpha_dev, n, nb, out, part, red, (cudaStream_t)stream);
 }

@@ -154,6 +154,14 @@ struct Chunk {
 template <typename T>
 __host__ __device__ inline int64_t tiles(int64_t n) { return (n + Chunk<T>::kTile - 1) / Chunk<T>::kTile; }
 
+// Whether element i of a vector of n takes part in a masked reduction: it
+// lies before n and its byte of `keep` is nonzero (keep null: every element
+// before n). The mask is read in the sweep's own stream, one byte an
+// element, so a kept element's arithmetic is the unmasked kernel's.
+__device__ __forceinline__ bool kept(const uint8_t* __restrict__ keep, int64_t i, int64_t n) {
+  return i < n && (keep == nullptr || __ldg(keep + i) != 0);
+}
+
 __device__ __forceinline__ bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 
 __device__ __forceinline__ void load16(const float* p, float* o) {

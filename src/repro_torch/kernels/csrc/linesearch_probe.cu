@@ -3,7 +3,11 @@
 // One launch evaluates both sides of a step-size probe, the packing side
 // (y, dy, se = +eta) and the covering side (z, dz, se = -eta), into
 // out = [lse_y, slope_y, min_y, lse_z, slope_z, min_z]; with nz = 0 it is
-// the one-sided probe and writes out[0:3] only.
+// the one-sided probe and writes out[0:3] only. Each side may carry a row
+// mask (ky, kz: one byte a row, or null): a row whose byte is 0 counts as
+// a = -inf and is left out of min v, so lse, slope and min run over the
+// kept rows (core/stepsize.py's masked make_probe_fn), and a kept row's
+// arithmetic is the unmasked sweep's.
 //
 // newton_search runs the whole warm-started Newton step-size search of
 // core/stepsize.py (newton_step: the alpha = 0 sweep, the Newton loop,
@@ -23,9 +27,9 @@
 // over it.
 //
 // Bound on the H100: bytes. One read of y, dy, z and dz,
-// 2*sizeof(T)*(ny + nz) bytes, and six values written. At the main path's
-// shape (ny = 498k, nz = 1, f64) that is 8 MB, 2.4 us; a search reads
-// them again at every probe, from the 50 MB L2.
+// 2*sizeof(T)*(ny + nz) bytes (and ny + nz bytes of masks), and six values
+// written. At the main path's shape (ny = 498k, nz = 1, f64) that is 8 MB,
+// 2.4 us; a search reads them again at every probe, from the 50 MB L2.
 //
 // Design. The blocks split over the two sides in proportion to their
 // tiles, at least one block a side (probe_split). Each thread takes a
@@ -122,10 +126,12 @@ __device__ __forceinline__ void store_cg(ProbeState<T>* p, const ProbeState<T>& 
   __stcg(&p->mn, s.mn);
 }
 
-// This thread's state over tiles b, b + nb, ... of one side.
+// This thread's state over tiles b, b + nb, ... of one side (the rows
+// that `keep` keeps).
 template <typename T>
-__device__ ProbeState<T> probe_sweep(const T* __restrict__ y, const T* __restrict__ dy, int64_t n, T alpha, T se,
-                                     int64_t b, int64_t nb) {
+__device__ ProbeState<T> probe_sweep(const T* __restrict__ y, const T* __restrict__ dy,
+                                     const uint8_t* __restrict__ keep, int64_t n, T alpha, T se, int64_t b,
+                                     int64_t nb) {
   using C = Chunk<T>;
   const bool vec = aligned16(y) && aligned16(dy);
   const int64_t nt = tiles<T>(n);
@@ -137,7 +143,7 @@ __device__ ProbeState<T> probe_sweep(const T* __restrict__ y, const T* __restric
     T m = neg_inf<T>(), mn = pos_inf<T>();
 #pragma unroll
     for (int j = 0; j < C::kSize; ++j) {
-      const bool in = C::index(k, j) < n;
+      const bool in = kept(keep, C::index(k, j), n);
       const T v = add_rn(yv[j], mul_rn(alpha, dv[j]));
       a[j] = in ? mul_rn(v, se) : neg_inf<T>();
       mn = in && v < mn ? v : mn;
@@ -160,6 +166,7 @@ __device__ ProbeState<T> probe_sweep(const T* __restrict__ y, const T* __restric
 template <typename T>
 struct ProbeArgs {
   const T *y, *dy, *z, *dz;
+  const uint8_t *ky, *kz;  // row masks, or null
   int64_t ny, nz;
   T se_y, se_z;
   int gy, gz;  // blocks on each side: y takes blocks [0, gy), z [gy, gy + gz)
@@ -170,8 +177,8 @@ struct ProbeArgs {
 template <typename T>
 __device__ __forceinline__ ProbeState<T> block_partial(const ProbeArgs<T>& p, T alpha) {
   const int b = (int)blockIdx.x;
-  const ProbeState<T> st = b < p.gy ? probe_sweep(p.y, p.dy, p.ny, alpha, p.se_y, b, p.gy)
-                                    : probe_sweep(p.z, p.dz, p.nz, alpha, p.se_z, b - p.gy, p.gz);
+  const ProbeState<T> st = b < p.gy ? probe_sweep(p.y, p.dy, p.ky, p.ny, alpha, p.se_y, b, p.gy)
+                                    : probe_sweep(p.z, p.dz, p.kz, p.nz, alpha, p.se_z, b - p.gy, p.gz);
   const T m = block_all_reduce(Max<T>{st.m}).m;
   const T c = rescale(st.m, m);
   const SumMin<T> r = block_reduce(SumMin<T>{mul_rn(st.s, c), mul_rn(st.t, c), st.mn});
@@ -300,42 +307,44 @@ inline Split probe_split(int64_t ny, int64_t nz, int nb_max) {
 }
 
 template <typename T>
-inline ProbeArgs<T> probe_args(const T* y, const T* dy, int64_t ny, double se_y, const T* z, const T* dz, int64_t nz,
-                               double se_z, int nb_max) {
+inline ProbeArgs<T> probe_args(const T* y, const T* dy, const uint8_t* ky, int64_t ny, double se_y, const T* z,
+                               const T* dz, const uint8_t* kz, int64_t nz, double se_z, int nb_max) {
   const Split s = probe_split<T>(ny, nz, nb_max);
-  return {y, dy, z, dz, ny, nz, (T)se_y, (T)se_z, s.gy, s.gz};
+  return {y, dy, z, dz, ky, kz, ny, nz, (T)se_y, (T)se_z, s.gy, s.gz};
 }
 
 // A search and a lone probe launch the same kernel on the same grid, so
 // that a probe inside a search gives the lone probe's bits.
 template <typename T>
-int launch_search(const T* y, const T* dy, int64_t ny, double se_y, const T* z, const T* dz, int64_t nz,
-                  double se_z, const SearchArgs& args, T* part, double* out, T* probe_out, double alpha,
-                  const T* dmax, double* alpha_prev, cudaStream_t stream) {
+int launch_search(const T* y, const T* dy, const uint8_t* ky, int64_t ny, double se_y, const T* z, const T* dz,
+                  const uint8_t* kz, int64_t nz, double se_z, const SearchArgs& args, T* part, double* out,
+                  T* probe_out, double alpha, const T* dmax, double* alpha_prev, cudaStream_t stream) {
   int nb_max = 0;
   if (const cudaError_t rc = coop_blocks(newton_search_kernel<T>, nb_max)) return (int)rc;
-  const SearchParams<T> prm{probe_args(y, dy, ny, se_y, z, dz, nz, se_z, nb_max), args,
+  const SearchParams<T> prm{probe_args(y, dy, ky, ny, se_y, z, dz, kz, nz, se_z, nb_max), args,
                             reinterpret_cast<ProbeState<T>*>(part), out, probe_out, alpha, dmax, alpha_prev};
   return launch_cooperative(newton_search_kernel<T>, prm.p.gy + prm.p.gz, prm, stream);
 }
 
-// part: scratch of 4*kMaxPartials values; out: 6 values (3 when nz = 0).
+// part: scratch of 4*kMaxPartials values; out: 6 values (3 when nz = 0);
+// ky, kz: ny and nz bytes, or null.
 template <typename T>
-int linesearch_probe2(const T* y, const T* dy, int64_t ny, double se_y, const T* z, const T* dz, int64_t nz,
-                      double se_z, double alpha, T* part, T* out, cudaStream_t stream) {
-  return launch_search(y, dy, ny, se_y, z, dz, nz, se_z, SearchArgs{}, part, nullptr, out, alpha, (const T*)nullptr,
-                       nullptr, stream);
+int linesearch_probe2(const T* y, const T* dy, const uint8_t* ky, int64_t ny, double se_y, const T* z, const T* dz,
+                      const uint8_t* kz, int64_t nz, double se_z, double alpha, T* part, T* out,
+                      cudaStream_t stream) {
+  return launch_search(y, dy, ky, ny, se_y, z, dz, kz, nz, se_z, SearchArgs{}, part, nullptr, out, alpha,
+                       (const T*)nullptr, nullptr, stream);
 }
 
 // part: scratch of 8*kMaxPartials values; out: 3 doubles, or 5 in the step
 // form (dmax and alpha_prev given; alpha0 is then read from alpha_prev).
 template <typename T>
-int newton_search(const T* y, const T* dy, int64_t ny, const T* z, const T* dz, int64_t nz, double eta, double ls_eps,
-                  double alpha0, int has_alpha0, double tiny, T* part, double* out, const T* dmax, double* alpha_prev,
-                  cudaStream_t stream) {
+int newton_search(const T* y, const T* dy, const uint8_t* ky, int64_t ny, const T* z, const T* dz, const uint8_t* kz,
+                  int64_t nz, double eta, double ls_eps, double alpha0, int has_alpha0, double tiny, T* part,
+                  double* out, const T* dmax, double* alpha_prev, cudaStream_t stream) {
   if ((dmax == nullptr) != (alpha_prev == nullptr)) return (int)cudaErrorInvalidValue;
-  return launch_search(y, dy, ny, eta, z, dz, nz, -eta, SearchArgs{eta, ls_eps, tiny, alpha0, has_alpha0}, part, out,
-                       (T*)nullptr, 0.0, dmax, alpha_prev, stream);
+  return launch_search(y, dy, ky, ny, eta, z, dz, kz, nz, -eta, SearchArgs{eta, ls_eps, tiny, alpha0, has_alpha0},
+                       part, out, (T*)nullptr, 0.0, dmax, alpha_prev, stream);
 }
 
 }  // namespace rt
@@ -344,28 +353,32 @@ int newton_search(const T* y, const T* dy, int64_t ny, const T* z, const T* dz, 
 // newton_search) at most: the wrappers size their scratch by it.
 extern "C" int rt_max_partials() { return rt::kMaxPartials; }
 
-extern "C" int rt_linesearch_probe2_f32(const float* y, const float* dy, int64_t ny, double se_y, const float* z,
-                                        const float* dz, int64_t nz, double se_z, double alpha, float* part,
-                                        float* out, void* stream) {
-  return rt::linesearch_probe2<float>(y, dy, ny, se_y, z, dz, nz, se_z, alpha, part, out, (cudaStream_t)stream);
+extern "C" int rt_linesearch_probe2_f32(const float* y, const float* dy, const uint8_t* ky, int64_t ny, double se_y,
+                                        const float* z, const float* dz, const uint8_t* kz, int64_t nz, double se_z,
+                                        double alpha, float* part, float* out, void* stream) {
+  return rt::linesearch_probe2<float>(y, dy, ky, ny, se_y, z, dz, kz, nz, se_z, alpha, part, out,
+                                      (cudaStream_t)stream);
 }
 
-extern "C" int rt_linesearch_probe2_f64(const double* y, const double* dy, int64_t ny, double se_y, const double* z,
-                                        const double* dz, int64_t nz, double se_z, double alpha, double* part,
-                                        double* out, void* stream) {
-  return rt::linesearch_probe2<double>(y, dy, ny, se_y, z, dz, nz, se_z, alpha, part, out, (cudaStream_t)stream);
+extern "C" int rt_linesearch_probe2_f64(const double* y, const double* dy, const uint8_t* ky, int64_t ny,
+                                        double se_y, const double* z, const double* dz, const uint8_t* kz, int64_t nz,
+                                        double se_z, double alpha, double* part, double* out, void* stream) {
+  return rt::linesearch_probe2<double>(y, dy, ky, ny, se_y, z, dz, kz, nz, se_z, alpha, part, out,
+                                       (cudaStream_t)stream);
 }
 
-extern "C" int rt_newton_search_f32(const float* y, const float* dy, int64_t ny, const float* z, const float* dz,
-                                    int64_t nz, double eta, double ls_eps, double alpha0, int has_alpha0, double tiny,
-                                    float* part, double* out, const float* dmax, double* alpha_prev, void* stream) {
-  return rt::newton_search<float>(y, dy, ny, z, dz, nz, eta, ls_eps, alpha0, has_alpha0, tiny, part, out, dmax,
-                                  alpha_prev, (cudaStream_t)stream);
+extern "C" int rt_newton_search_f32(const float* y, const float* dy, const uint8_t* ky, int64_t ny, const float* z,
+                                    const float* dz, const uint8_t* kz, int64_t nz, double eta, double ls_eps,
+                                    double alpha0, int has_alpha0, double tiny, float* part, double* out,
+                                    const float* dmax, double* alpha_prev, void* stream) {
+  return rt::newton_search<float>(y, dy, ky, ny, z, dz, kz, nz, eta, ls_eps, alpha0, has_alpha0, tiny, part, out,
+                                  dmax, alpha_prev, (cudaStream_t)stream);
 }
 
-extern "C" int rt_newton_search_f64(const double* y, const double* dy, int64_t ny, const double* z, const double* dz,
-                                    int64_t nz, double eta, double ls_eps, double alpha0, int has_alpha0, double tiny,
-                                    double* part, double* out, const double* dmax, double* alpha_prev, void* stream) {
-  return rt::newton_search<double>(y, dy, ny, z, dz, nz, eta, ls_eps, alpha0, has_alpha0, tiny, part, out, dmax,
-                                   alpha_prev, (cudaStream_t)stream);
+extern "C" int rt_newton_search_f64(const double* y, const double* dy, const uint8_t* ky, int64_t ny, const double* z,
+                                    const double* dz, const uint8_t* kz, int64_t nz, double eta, double ls_eps,
+                                    double alpha0, int has_alpha0, double tiny, double* part, double* out,
+                                    const double* dmax, double* alpha_prev, void* stream) {
+  return rt::newton_search<double>(y, dy, ky, ny, z, dz, kz, nz, eta, ls_eps, alpha0, has_alpha0, tiny, part, out,
+                                   dmax, alpha_prev, (cudaStream_t)stream);
 }

@@ -1,13 +1,16 @@
 // Softmax weights: with a = se*v (se = sign*eta),
 //   lse = logsumexp(a),  w = exp(a - lse),
-// written as stats = [max a, lse] and w.
+// written as stats = [max a, lse] and w. With a row mask `keep` (one byte
+// a row, or null) a row whose byte is 0 counts as a = -inf: it is left out
+// of lse and its weight is exactly 0 (core/smoothing.py's `where`).
 //
 // Replaces src/repro/kernels/softmax_weights/kernel.py:
 // softmax_weights_pallas (bodies _reduce_kernel and _normalize_kernel).
 //
-// Bound on the H100: bytes. Read v once and write w once: 2*sizeof(T)*n
-// (v is read a second time, once lse is known, from L2). At the main
-// path's n = 498k f64 that is 8 MB, 2.4 us.
+// Bound on the H100: bytes. Read v once and write w once: 2*sizeof(T)*n,
+// and the mask once, n more bytes (v and the mask are read a second time,
+// once lse is known, from L2). At the main path's n = 498k f64 that is
+// 8 MB, 2.4 us.
 //
 // Design: one launch on a cooperative (co-resident) grid of at most
 // kCoopBlocksPerSM blocks an SM. Each thread takes chunks of 8 (f64) or
@@ -63,6 +66,7 @@ __device__ __forceinline__ Sum<T> shfl_down(Sum<T> a, int off) {
 template <typename T>
 struct SoftmaxParams {
   const T* v;
+  const uint8_t* keep;  // null: every row
   T se;
   int64_t n;
   MaxSum<T>* part;  // one partial a block
@@ -85,7 +89,7 @@ __global__ void __launch_bounds__(kThreads, kCoopBlocksPerSM) softmax_kernel(Sof
     T m = neg_inf<T>();
 #pragma unroll
     for (int j = 0; j < C::kSize; ++j) {
-      a[j] = C::index(k, j) < p.n ? mul_rn(a[j], p.se) : neg_inf<T>();
+      a[j] = kept(p.keep, C::index(k, j), p.n) ? mul_rn(a[j], p.se) : neg_inf<T>();
       m = a[j] > m ? a[j] : m;
     }
     if (m == neg_inf<T>()) continue;  // the chunk lies past n
@@ -133,29 +137,35 @@ __global__ void __launch_bounds__(kThreads, kCoopBlocksPerSM) softmax_kernel(Sof
     load_chunk(p.v, p.n, k, vec, x);
 #pragma unroll
     for (int j = 0; j < C::kSize; ++j) x[j] = exp_(sub_rn(mul_rn(x[j], p.se), lse));
+    if (p.keep != nullptr) {  // the rows left out weigh exactly 0
+#pragma unroll
+      for (int j = 0; j < C::kSize; ++j) x[j] = kept(p.keep, C::index(k, j), p.n) ? x[j] : T(0);
+    }
     store_chunk(p.w, p.n, k, vec, x);
   }
 }
 
-// part: scratch of 2*kMaxPartials values; stats: [m, lse]; w: n values.
+// part: scratch of 2*kMaxPartials values; stats: [m, lse]; w: n values;
+// keep: n bytes or null.
 template <typename T>
-int softmax_weights(const T* v, double se, int64_t n, T* part, T* stats, T* w, cudaStream_t stream) {
+int softmax_weights(const T* v, const uint8_t* keep, double se, int64_t n, T* part, T* stats, T* w,
+                    cudaStream_t stream) {
   int nb_max = 0;
   if (const cudaError_t rc = coop_blocks(softmax_kernel<T>, nb_max)) return (int)rc;
   const int64_t nt = tiles<T>(n);
   const int blocks = (int)(nt < nb_max ? nt : nb_max);
-  const SoftmaxParams<T> p{v, (T)se, n, reinterpret_cast<MaxSum<T>*>(part), stats, w};
+  const SoftmaxParams<T> p{v, keep, (T)se, n, reinterpret_cast<MaxSum<T>*>(part), stats, w};
   return launch_cooperative(softmax_kernel<T>, blocks, p, stream);
 }
 
 }  // namespace rt
 
-extern "C" int rt_softmax_weights_f32(const float* v, double se, int64_t n, float* part, float* stats, float* w,
-                                      void* stream) {
-  return rt::softmax_weights<float>(v, se, n, part, stats, w, (cudaStream_t)stream);
+extern "C" int rt_softmax_weights_f32(const float* v, const uint8_t* keep, double se, int64_t n, float* part,
+                                      float* stats, float* w, void* stream) {
+  return rt::softmax_weights<float>(v, keep, se, n, part, stats, w, (cudaStream_t)stream);
 }
 
-extern "C" int rt_softmax_weights_f64(const double* v, double se, int64_t n, double* part, double* stats, double* w,
-                                      void* stream) {
-  return rt::softmax_weights<double>(v, se, n, part, stats, w, (cudaStream_t)stream);
+extern "C" int rt_softmax_weights_f64(const double* v, const uint8_t* keep, double se, int64_t n, double* part,
+                                      double* stats, double* w, void* stream) {
+  return rt::softmax_weights<double>(v, keep, se, n, part, stats, w, (cudaStream_t)stream);
 }

@@ -11,6 +11,12 @@ in one launch, and in its step form also decides the MWU iteration's
 step there. CUDA tensors launch the hand-written kernel of
 ``csrc/linesearch_probe.cu`` (a lone probe is the search kernel's
 one-probe case); CPU tensors take the plain versions in ``ref.py``.
+
+Each side may carry a row mask (``p_keep`` for (y, dy), ``c_keep`` for
+(z, dz); bool or uint8, one byte a row): the rows it does not keep count
+as a = -inf and are left out of min v, as the masked rows of
+``core.stepsize.make_probe_fn``. A kept row's arithmetic is the unmasked
+kernel's, so an all-true mask gives the unmasked bits.
 """
 import torch
 
@@ -18,13 +24,13 @@ from .. import loader
 from .ref import linesearch_probe2_ref, linesearch_probe_ref, newton_search_ref, newton_step_ref
 
 
-def _launch(name, y, dy, z, dz, nz, se_y, se_z, alpha, out):
+def _launch(name, y, dy, ky, z, dz, kz, nz, se_y, se_z, alpha, out):
     dtype, dev = y.dtype, y.device
     with torch.cuda.device(dev):
         part = loader.scratch("linesearch_probe", y, 4)
         rc = loader.kernel_fn("rt_linesearch_probe2", dtype)(
-            y.data_ptr(), dy.data_ptr(), y.shape[0], float(se_y), z.data_ptr(), dz.data_ptr(), nz, float(se_z),
-            float(alpha), part.data_ptr(), out.data_ptr(), loader.stream_handle(y),
+            y.data_ptr(), dy.data_ptr(), ky, y.shape[0], float(se_y), z.data_ptr(), dz.data_ptr(), kz, nz,
+            float(se_z), float(alpha), part.data_ptr(), out.data_ptr(), loader.stream_handle(y),
         )
     loader.check_status(rc, name)
     loader.LAUNCHES["linesearch_probe"] += 1
@@ -49,42 +55,46 @@ def _out(name, out, like, size):
 
 
 def linesearch_probe(y: torch.Tensor, dy: torch.Tensor, alpha: float, eta: float, sign: float = 1.0,
-                     out: torch.Tensor | None = None) -> torch.Tensor:
+                     out: torch.Tensor | None = None, keep: torch.Tensor | None = None) -> torch.Tensor:
     """``[lse, slope, min_v]`` as a 3-vector in y's dtype on y's device.
 
     ``alpha`` and ``eta`` are host floats. ``out`` (a contiguous 3-vector)
     receives the result when given.
     """
     if y.device.type == "cpu":
-        r = linesearch_probe_ref(y, dy, alpha, eta, sign)
+        r = linesearch_probe_ref(y, dy, alpha, eta, sign, keep)
         return r if out is None else out.copy_(r)
     loader.check_vectors("linesearch_probe", y, dy)
     _check("linesearch_probe", y, dy)
+    ky = loader.check_keep("linesearch_probe", y, keep)
     out = _out("linesearch_probe", out, y, 3)
-    return _launch("linesearch_probe", y, dy, y, dy, 0, float(sign) * float(eta), 0.0, alpha, out)
+    return _launch("linesearch_probe", y, dy, ky, y, dy, None, 0, float(sign) * float(eta), 0.0, alpha, out)
 
 
 def linesearch_probe2(y: torch.Tensor, dy: torch.Tensor, z: torch.Tensor, dz: torch.Tensor, alpha: float,
-                      eta: float, out: torch.Tensor | None = None) -> torch.Tensor:
+                      eta: float, out: torch.Tensor | None = None, *, p_keep: torch.Tensor | None = None,
+                      c_keep: torch.Tensor | None = None) -> torch.Tensor:
     """Both sides of a step-size probe in one launch: ``[lse_y, slope_y,
     min_y, lse_z, slope_z, min_z]``, the packing side (y, dy) at sign +1
     and the covering side (z, dz) at sign -1, as a 6-vector in y's dtype on
     y's device. ``out`` (a contiguous 6-vector) receives it when given, so
     that the caller reads a probe back in one copy."""
     if y.device.type == "cpu":
-        r = linesearch_probe2_ref(y, dy, z, dz, alpha, eta)
+        r = linesearch_probe2_ref(y, dy, z, dz, alpha, eta, p_keep, c_keep)
         return r if out is None else out.copy_(r)
     loader.check_vectors("linesearch_probe2", y, dy, z, dz)
     _check("linesearch_probe2", y, dy)
     _check("linesearch_probe2", z, dz)
+    ky, kz = loader.check_keep("linesearch_probe2", y, p_keep), loader.check_keep("linesearch_probe2", z, c_keep)
     out = _out("linesearch_probe2", out, y, 6)
-    return _launch("linesearch_probe2", y, dy, z, dz, z.shape[0], float(eta), -float(eta), alpha, out)
+    return _launch("linesearch_probe2", y, dy, ky, z, dz, kz, z.shape[0], float(eta), -float(eta), alpha, out)
 
 
 def newton_search(y: torch.Tensor, dy: torch.Tensor, z: torch.Tensor, dz: torch.Tensor, eta: float, ls_eps: float,
-                  alpha0=None, *, d_max: torch.Tensor | None = None, out: torch.Tensor | None = None) -> torch.Tensor:
+                  alpha0=None, *, d_max: torch.Tensor | None = None, out: torch.Tensor | None = None,
+                  p_keep: torch.Tensor | None = None, c_keep: torch.Tensor | None = None) -> torch.Tensor:
     """The warm-started, safeguarded Newton step-size search of
-    ``core.stepsize.newton_step`` for an unmasked problem, in one launch:
+    ``core.stepsize.newton_step``, over the rows the masks keep, in one launch:
     ``[alpha, probes, completes]`` as a float64 3-vector on y's device,
     which the caller reads once. On the card it gives the same alpha (bit
     for bit), probes and completes as the host loop over
@@ -101,12 +111,13 @@ def newton_search(y: torch.Tensor, dy: torch.Tensor, z: torch.Tensor, dz: torch.
     """
     step = d_max is not None
     if y.device.type == "cpu":
-        r = newton_step_ref(y, dy, z, dz, eta, ls_eps, d_max, alpha0) if step else \
-            newton_search_ref(y, dy, z, dz, eta, ls_eps, alpha0)
+        r = newton_step_ref(y, dy, z, dz, eta, ls_eps, d_max, alpha0, p_keep, c_keep) if step else \
+            newton_search_ref(y, dy, z, dz, eta, ls_eps, alpha0, p_keep, c_keep)
         return r if out is None else out.copy_(r)
     dtype = loader.check_vectors("newton_search", y, dy, z, dz)
     _check("newton_search", y, dy)
     _check("newton_search", z, dz)
+    ky, kz = loader.check_keep("newton_search", y, p_keep), loader.check_keep("newton_search", z, c_keep)
     dev = y.device
     size = 5 if step else 3
     if step:
@@ -119,7 +130,7 @@ def newton_search(y: torch.Tensor, dy: torch.Tensor, z: torch.Tensor, dz: torch.
     with torch.cuda.device(dev):
         part = loader.scratch("newton_search", y, 8)
         rc = loader.kernel_fn("rt_newton_search", dtype)(
-            y.data_ptr(), dy.data_ptr(), y.shape[0], z.data_ptr(), dz.data_ptr(), z.shape[0], float(eta),
+            y.data_ptr(), dy.data_ptr(), ky, y.shape[0], z.data_ptr(), dz.data_ptr(), kz, z.shape[0], float(eta),
             float(ls_eps), 0.0 if step or alpha0 is None else float(alpha0), not step and alpha0 is not None,
             torch.finfo(dtype).tiny, part.data_ptr(), out.data_ptr(), d_max.data_ptr() if step else None,
             alpha0.data_ptr() if step else None, loader.stream_handle(y),

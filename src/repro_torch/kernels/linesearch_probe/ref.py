@@ -3,8 +3,11 @@ of the Newton step-size search over it.
 
 The search is ``core.stepsize``'s Newton rule as a host loop over probes,
 one host read a probe. :func:`newton_search_loop` takes any probe
-function: ``core.stepsize`` runs it over masked probes, and over the probe
-kernel on the card, where it is the search kernel's oracle.
+function: ``core.stepsize`` runs it over the probe kernel on the card,
+where it is the search kernel's oracle. Every function takes optional row
+masks (``keep``; ``p_keep`` for the packing side, ``c_keep`` for the
+covering side): a row that is not kept counts as a = -inf and is left out
+of min v, as ``core.stepsize``'s masked ``make_probe_fn`` leaves it out.
 """
 from __future__ import annotations
 
@@ -18,21 +21,31 @@ MAX_BACKOFF_ITERS = 64
 MAX_BIN_ITERS = 64
 
 
-def linesearch_probe_ref(y: torch.Tensor, dy: torch.Tensor, alpha: float, eta: float, sign: float = 1.0):
-    """[lse, slope, min_v] for v = y + alpha*dy and a = sign*eta*v, as one vector."""
+def linesearch_probe_ref(y: torch.Tensor, dy: torch.Tensor, alpha: float, eta: float, sign: float = 1.0,
+                         keep: torch.Tensor | None = None):
+    """[lse, slope, min_v] for v = y + alpha*dy and a = sign*eta*v, as one
+    vector, over the rows ``keep`` keeps. The masked form is the reference's
+    masked probe (``repro.core.stepsize.make_probe_fn``: the slope as
+    <exp(a - lse), dy>, rounded as there), so the CPU's masked searches keep
+    its bits."""
     v = y + alpha * dy
     a = (sign * eta) * v
+    if keep is not None:
+        a, v = torch.where(keep, a, -torch.inf), torch.where(keep, v, torch.inf)
     m = a.max()
+    if keep is not None:  # every row masked out: lse = -inf, not NaN
+        m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
     e = torch.exp(a - m)
     s = e.sum()
     lse = m + torch.log(s)
-    slope = (e * dy).sum() / s
+    slope = (e * dy).sum() / s if keep is None else torch.dot(torch.exp(a - lse), dy)
     return torch.stack([lse, slope, v.min()])
 
 
-def linesearch_probe2_ref(y, dy, z, dz, alpha: float, eta: float):
+def linesearch_probe2_ref(y, dy, z, dz, alpha: float, eta: float, p_keep=None, c_keep=None):
     """Both sides of a step-size probe: (y, dy) at sign +1, then (z, dz) at sign -1."""
-    return torch.cat([linesearch_probe_ref(y, dy, alpha, eta, 1.0), linesearch_probe_ref(z, dz, alpha, eta, -1.0)])
+    return torch.cat([linesearch_probe_ref(y, dy, alpha, eta, 1.0, p_keep),
+                      linesearch_probe_ref(z, dz, alpha, eta, -1.0, c_keep)])
 
 
 class Probe(NamedTuple):
@@ -134,23 +147,26 @@ def newton_search_loop(probe: Callable[[float], Probe], tiny: float, ls_eps: flo
     return a, n + n_bo + n_ref, completes
 
 
-def newton_search_ref(y, dy, z, dz, eta: float, ls_eps: float, alpha0: float | None = None) -> torch.Tensor:
+def newton_search_ref(y, dy, z, dz, eta: float, ls_eps: float, alpha0: float | None = None, p_keep=None,
+                      c_keep=None) -> torch.Tensor:
     """The Newton search over plain two-sided probes: ``[alpha, probes,
     completes]`` as a float64 3-vector on y's device."""
     tiny = torch.finfo(y.dtype).tiny
-    probe = two_sided_probe_fn(lambda a: linesearch_probe2_ref(y, dy, z, dz, a, eta).tolist(), eta, tiny)
+    probe = two_sided_probe_fn(lambda a: linesearch_probe2_ref(y, dy, z, dz, a, eta, p_keep, c_keep).tolist(), eta,
+                               tiny)
     return torch.tensor(newton_search_loop(probe, tiny, ls_eps, alpha0), dtype=torch.float64, device=y.device)
 
 
-def newton_step_ref(y, dy, z, dz, eta: float, ls_eps: float, d_max: torch.Tensor,
-                    alpha_prev: torch.Tensor) -> torch.Tensor:
+def newton_step_ref(y, dy, z, dz, eta: float, ls_eps: float, d_max: torch.Tensor, alpha_prev: torch.Tensor,
+                    p_keep=None, c_keep=None) -> torch.Tensor:
     """The search's step form: the Newton search warm-started at
     ``alpha_prev`` (a one-value float64 tensor) and the MWU iteration's
     decision on it (Alg. 2 lines 8 and 12), ``[alpha, probes, completes,
     step, bad]`` as a float64 5-vector with ``bad = max(d) <= 0 or alpha <
     1`` and ``step = 0 if bad else alpha``; ``alpha_prev`` becomes alpha
     when the step is taken."""
-    alpha, probes, completes = newton_search_ref(y, dy, z, dz, eta, ls_eps, float(alpha_prev)).tolist()
+    alpha, probes, completes = newton_search_ref(y, dy, z, dz, eta, ls_eps, float(alpha_prev), p_keep,
+                                                 c_keep).tolist()
     bad = float(d_max) <= 0 or alpha < 1
     if not bad:
         alpha_prev.fill_(alpha)

@@ -46,6 +46,7 @@ __all__ = [
     "check_vectors",
     "check_slot",
     "check_indices",
+    "check_keep",
 ]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -73,14 +74,16 @@ _F64 = ctypes.c_double
 _FLOAT = (torch.float32, torch.float64)
 _ENTRY_POINTS = {
     "rt_incidence_gather": ([_PTR, _PTR, _PTR, _PTR, _I64, _PTR], _FLOAT),
-    # v, se, n, part, stats, w, stream
-    "rt_softmax_weights": ([_PTR, _F64, _I64, _PTR, _PTR, _PTR, _PTR], _FLOAT),
-    # y, dy, ny, se_y, z, dz, nz, se_z, alpha, part, out, stream
-    "rt_linesearch_probe2": ([_PTR, _PTR, _I64, _F64, _PTR, _PTR, _I64, _F64, _F64, _PTR, _PTR, _PTR], _FLOAT),
-    # y, dy, ny, z, dz, nz, eta, ls_eps, alpha0, has_alpha0, tiny, part, out, dmax, alpha_prev, stream
-    "rt_newton_search": ([_PTR, _PTR, _I64, _PTR, _PTR, _I64, _F64, _F64, _F64, _INT, _F64] + [_PTR] * 5, _FLOAT),
-    # y, dy, alpha, alpha_dev, n, nb, out, part, red, stream
-    "rt_axpy_reduce": ([_PTR, _PTR, _F64, _PTR, _I64, _INT, _PTR, _PTR, _PTR, _PTR], _FLOAT),
+    # v, keep, se, n, part, stats, w, stream
+    "rt_softmax_weights": ([_PTR, _PTR, _F64, _I64, _PTR, _PTR, _PTR, _PTR], _FLOAT),
+    # y, dy, ky, ny, se_y, z, dz, kz, nz, se_z, alpha, part, out, stream
+    "rt_linesearch_probe2": ([_PTR, _PTR, _PTR, _I64, _F64, _PTR, _PTR, _PTR, _I64, _F64, _F64, _PTR, _PTR, _PTR],
+                             _FLOAT),
+    # y, dy, ky, ny, z, dz, kz, nz, eta, ls_eps, alpha0, has_alpha0, tiny, part, out, dmax, alpha_prev, stream
+    "rt_newton_search": ([_PTR, _PTR, _PTR, _I64, _PTR, _PTR, _PTR, _I64, _F64, _F64, _F64, _INT, _F64] + [_PTR] * 5,
+                         _FLOAT),
+    # y, dy, keep, alpha, alpha_dev, n, nb, out, part, red, stream
+    "rt_axpy_reduce": ([_PTR, _PTR, _PTR, _F64, _PTR, _I64, _INT, _PTR, _PTR, _PTR, _PTR], _FLOAT),
     # x, base, out, n; (offsets, splits, src, wt, nnz, lo, span, slabs) of side A, then of side B; scratch, stream
     "rt_incidence_scatter": ([_PTR, _PTR, _PTR, _I64] + ([_PTR] * 4 + [_I64] * 4) * 2 + [_PTR, _PTR], _FLOAT),
     # u, v, w, g, h, x, scale, tiny, E, nb, d, part, ticket, dmax, stream
@@ -259,3 +262,19 @@ def check_indices(name: str, like: torch.Tensor, *indices: torch.Tensor) -> int:
         if t.dim() != 1 or not t.is_contiguous() or t.shape[0] != n:
             raise ValueError(f"{name}: indices must be contiguous 1-D tensors of one length")
     return n
+
+
+def check_keep(name: str, like: torch.Tensor, keep: torch.Tensor | None) -> int | None:
+    """Check that a row mask is a contiguous 1-D bool or uint8 tensor of
+    ``like``'s length on its device (one byte a row, nonzero: kept); return
+    its address for a kernel, None for no mask."""
+    if keep is None:
+        return None
+    if keep.dtype not in (torch.bool, torch.uint8):
+        raise TypeError(f"{name}: a row mask must be bool or uint8, got {keep.dtype}")
+    if keep.device != like.device:
+        raise ValueError(f"{name}: row mask on {keep.device}, values on {like.device}")
+    if keep.dim() != 1 or not keep.is_contiguous() or keep.shape[0] != like.shape[0]:
+        raise ValueError(f"{name}: a row mask must be a contiguous 1-D tensor of {like.shape[0]} values, got shape "
+                         f"{tuple(keep.shape)}")
+    return keep.data_ptr()

@@ -29,6 +29,7 @@ from repro_torch.kernels.step_direction.ref import step_direction_ref
 from repro_torch.core import stepsize
 from repro_torch.kernels.linesearch_probe.ref import linesearch_probe2_ref, linesearch_probe_ref, newton_search_ref
 from repro_torch.kernels.softmax_weights.ref import softmax_weights_ref
+from repro_torch.lpserve import BucketSpec, LPEngine, LPServeConfig, pad_problem
 from repro_torch.models import Model
 
 EPS = 0.1
@@ -452,9 +453,8 @@ def test_card_solve_matches_cpu(cuda, family):
     # dom-set's ops are scatter-based; match and bmatch gather inside the
     # step-direction kernel; the others' transposed products gather
     assert (counts["incidence_gather"] > 0) == (family not in ("dom-set", "match", "bmatch"))
-    # unmasked Newton searches run on the card in one launch each; masked
-    # ones (gen-match) run the host loop over plain probes
-    assert (counts["newton_search"] > 0) == (family != "gen-match")
+    # every Newton search runs on the card in one launch, masked (gen-match) or not
+    assert counts["newton_search"] == card.mwu_iters_total
     assert counts["linesearch_probe"] == 0
 
 
@@ -656,3 +656,204 @@ def test_model_forward_card_matches_cpu(cuda, arch):
     assert torch.equal(got[..., V:], ref[..., V:])
     scale = ref[..., :V].abs().max()
     torch.testing.assert_close(got[..., :V] / scale, ref[..., :V] / scale, atol=1e-4, rtol=0)
+
+
+# -- masked forms: padded rows of served requests, gen-match's free rows ------
+def _keep(n, seed, device, share=0.6):
+    gen = torch.Generator().manual_seed(seed)
+    k = torch.rand(n, generator=gen) < share
+    k[n // 2] = True
+    return k.to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [1, 3, 1030, 300_000, 1_048_576])
+def test_masked_kernels_match_plain_on_card(cuda, n, dtype):
+    """The masked softmax, two-sided probe and axpy against their masked
+    plain versions: the bars of tests/test_kernels.py, the mins and maxes
+    exact, weights exactly 0 off the mask, the update bit-equal to the
+    unmasked one."""
+    tol = 1e-4 if dtype == torch.float32 else 1e-10
+    gen = torch.Generator().manual_seed(n)
+    y, z = (torch.rand(n, generator=gen, dtype=dtype) for _ in range(2))
+    dy, dz = (torch.rand(n, generator=gen, dtype=dtype) * 1e-3 for _ in range(2))
+    ky, kz = _keep(n, 1, "cpu"), _keep(n, 2, "cpu")
+    c = {k: v.to(cuda) for k, v in dict(y=y, z=z, dy=dy, dz=dz, ky=ky, kz=kz).items()}
+    eta = float(10 * np.log(2 * n + 1) / 0.1)
+    K.reset_launch_counts()
+    for sign, v, k in ((1.0, "y", "ky"), (-1.0, "z", "kz")):
+        lse, w = K.softmax_weights(c[v], eta, sign=sign, keep=c[k])
+        lse_r, w_r = softmax_weights_ref(dict(y=y, z=z)[v], eta, sign=sign, keep=dict(ky=ky, kz=kz)[k])
+        assert abs(float(lse) - float(lse_r)) <= tol * max(1.0, abs(float(lse_r)))
+        assert float((w.cpu() - w_r).abs().max()) <= tol and not w[~c[k]].any()
+    got = K.linesearch_probe2(c["y"], c["dy"], c["z"], c["dz"], 7.5, eta, p_keep=c["ky"], c_keep=c["kz"]).cpu()
+    ref = linesearch_probe2_ref(y, dy, z, dz, 7.5, eta, ky, kz)
+    assert float((got - ref).abs().max()) <= tol * max(1.0, float(ref.abs().max()))
+    assert float(got[2]) == float(ref[2]) and float(got[5]) == float(ref[5])
+    out, mn, mx = K.axpy_reduce(c["y"], c["dy"], 3.25, keep=c["ky"])
+    out_r, mn_r, mx_r = axpy_reduce_ref(y, dy, 3.25, ky)
+    assert torch.equal(out.cpu(), out_r) and torch.equal(out, K.axpy_reduce(c["y"], c["dy"], 3.25)[0])
+    assert float(mn) == float(mn_r) and float(mx) == float(mx_r)
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    assert (counts["softmax_weights"], counts["linesearch_probe"], counts["axpy_reduce"]) == (2, 1, 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [5, 9999, 1_048_576])
+def test_masked_kernels_keep_unmasked_bits_on_card(cuda, n, dtype):
+    """A kept row's arithmetic is the unmasked kernel's: an all-true mask
+    gives the unmasked bits in every kernel (the search's record too), and a
+    partial mask gives the unmasked kernel's bits on the same vectors with
+    the masked-out rows sent to a = -inf (y to -inf on the sign +1 side, z
+    to +inf on the sign -1 side, whose min they then leave alone)."""
+    y, z, dy, dz = _search_state(n, n, "far", n, dtype, cuda)
+    eta = float(10 * np.log(2 * n) / 0.1)
+    ones = torch.ones(n, dtype=torch.bool, device=cuda)
+    for sign, v in ((1.0, y), (-1.0, z)):
+        (lse, w), (lse1, w1) = K.softmax_weights(v, eta, sign=sign), K.softmax_weights(v, eta, sign=sign, keep=ones)
+        assert torch.equal(w, w1) and _bits(float(lse)) == _bits(float(lse1))
+    probe = K.linesearch_probe2(y, dy, z, dz, 7.5, eta)
+    assert torch.equal(probe, K.linesearch_probe2(y, dy, z, dz, 7.5, eta, p_keep=ones, c_keep=ones))
+    search = K.newton_search(y, dy, z, dz, eta, 0.1, 1.0)
+    assert torch.equal(search, K.newton_search(y, dy, z, dz, eta, 0.1, 1.0, p_keep=ones, c_keep=ones))
+    out, mn, mx = K.axpy_reduce(y, dy, 3.25)
+    out1, mn1, mx1 = K.axpy_reduce(y, dy, 3.25, keep=ones)
+    assert torch.equal(out, out1) and (float(mn), float(mx)) == (float(mn1), float(mx1))
+
+    ky, kz = _keep(n, 3, cuda), _keep(n, 4, cuda)
+    y_off, z_off = torch.where(ky, y, -torch.inf), torch.where(kz, z, torch.inf)
+    lse, w = K.softmax_weights(y, eta, keep=ky)
+    lse_u, w_u = K.softmax_weights(y_off, eta)
+    assert torch.equal(w, w_u) and _bits(float(lse)) == _bits(float(lse_u))
+    got = K.linesearch_probe2(y, dy, z, dz, 7.5, eta, p_keep=ky, c_keep=kz).tolist()
+    unm = K.linesearch_probe2(y_off, dy, z_off, dz, 7.5, eta).tolist()
+    assert [_bits(v) for v in got[:2] + got[3:]] == [_bits(v) for v in unm[:2] + unm[3:]]
+    assert got[2] == float(torch.where(ky, y + 7.5 * dy, torch.inf).min())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("alpha0", [None, 1.0, 37.0])
+@pytest.mark.parametrize("kind", ["far", "near", "done", "below"])
+@pytest.mark.parametrize("n", [12, 9999, 1_048_576])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_masked_newton_search_matches_host_loop_on_card(cuda, dtype, n, kind, alpha0):
+    """The masked search kernel in both forms against the host loop over the
+    masked probe kernel (stepsize._newton_step_host with the masks): alpha
+    bit for bit, probes and completes equal, step and bad as Alg. 2 decides
+    them; and within ls_eps of its plain version (the masked host loop over
+    plain probes) on the far, near and done states, as the unmasked
+    near-plain test holds them (the "below" states back off to alpha ~1e-7,
+    where f32 probes are rounding noise)."""
+    y, z, dy, dz = _search_state(n, n, kind, n, dtype, cuda)
+    pm, cm = _keep(n, 5, cuda), _keep(n, 6, cuda)
+    eta = float(10 * np.log(2 * n) / 0.1) if n > 12 else 50.0
+    host = stepsize._newton_step_host(y, z, dy, dz, eta, pm, cm, ls_eps=0.1, alpha0=alpha0)
+    K.reset_launch_counts()
+    got = stepsize.newton_step(y, z, dy, dz, eta, pm, cm, ls_eps=0.1, alpha0=alpha0)
+    assert K.launch_counts()["newton_search"] == 1 and K.launch_counts()["linesearch_probe"] == 0
+    assert (_bits(got.alpha), got.probes, got.completes) == (_bits(host.alpha), host.probes, host.completes)
+    if kind != "below":
+        alpha, _, completes = newton_search_ref(y, dy, z, dz, eta, 0.1, alpha0, pm, cm).tolist()
+        assert got.completes == bool(completes) and abs(got.alpha - alpha) <= 0.1 * max(got.alpha, alpha)
+    start = 1.0 if alpha0 is None else alpha0
+    host = stepsize._newton_step_host(y, z, dy, dz, eta, pm, cm, ls_eps=0.1, alpha0=start)
+    for d_max in (1e-3, 0.0):
+        alpha_prev = torch.tensor([start], dtype=torch.float64, device=cuda)
+        rec = stepsize.newton_step_record(y, z, dy, dz, eta, 0.1, torch.tensor(d_max, dtype=dtype, device=cuda),
+                                          alpha_prev, p_mask=pm, c_mask=cm).tolist()
+        assert (_bits(rec[0]), int(rec[1]), bool(rec[2])) == (_bits(host.alpha), host.probes, host.completes)
+        bad = d_max <= 0 or host.alpha < 1
+        assert bool(rec[4]) == bad and _bits(rec[3]) == _bits(0.0 if bad else host.alpha)
+        assert _bits(float(alpha_prev)) == _bits(start if bad else host.alpha)
+
+
+@pytest.mark.cuda
+def test_card_wrappers_reject_bad_masks(cuda):
+    x = torch.rand(10, device=cuda, dtype=torch.float64)
+    with pytest.raises(TypeError):
+        K.softmax_weights(x, 1.0, keep=torch.ones(10, dtype=torch.int32, device=cuda))
+    with pytest.raises(ValueError):
+        K.axpy_reduce(x, x, 1.0, keep=torch.ones(9, dtype=torch.bool, device=cuda))
+    with pytest.raises(ValueError):
+        K.linesearch_probe2(x, x, x, x, 1.0, 1.0, c_keep=torch.ones(10, dtype=torch.bool))  # on the host
+    with pytest.raises(ValueError):
+        K.newton_search(x, x, x, x, 1.0, 0.1, p_keep=torch.ones(20, dtype=torch.bool, device=cuda)[::2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["match", "vcover"])
+def test_card_lpserve_round_lanes_equal_feasible(cuda, family, monkeypatch):
+    """Served requests on the card: each lane of each engine round equals
+    feasible() of its padded request at its bound, bit for bit; a round
+    whose requests' CSR exists reads the host once a loop iteration plus
+    three times (start, finish, the lanes' x); no round calls the host
+    loop of the search; the engine's answers agree with the CPU engine's
+    (found, feasible, objective within 2*eps)."""
+    opts = MWUOptions(eps=EPS, step_rule="newton")
+    sizes = [(300, 1500), (500, 1800), (420, 1200)]
+
+    def probs(device):
+        return [build(family, erdos(*sizes[i], seed=i), device=device) for i in range(3)]
+
+    rounds, reads, counting = [], [], [False]
+    solve_stack = Solver.solve_stack
+
+    def record(self, problems, bounds):
+        n = len(reads)
+        batch = solve_stack(self, problems, bounds)
+        rounds.append((list(problems), list(bounds), batch, len(reads) - n))
+        return batch
+
+    for name in ("item", "tolist", "cpu"):
+        method = getattr(torch.Tensor, name)
+        monkeypatch.setattr(torch.Tensor, name,
+                            lambda t, *a, _m=method, _n=name, **k: (counting[0] and reads.append(_n)) or _m(t, *a, **k))
+    monkeypatch.setattr(Solver, "solve_stack", record)
+    monkeypatch.setattr(stepsize, "_newton_step_host", None)  # a call would raise
+    engine = LPEngine(LPServeConfig(opts=opts, lanes=4))
+    for p in probs(cuda):
+        engine.submit(p)
+    engine.step()  # the first round builds the requests' CSR
+    counting[0] = True
+    engine.run()
+    counting[0] = False
+    monkeypatch.undo()
+    assert len(rounds) >= 2
+    for problems, bounds, batch, n_reads in rounds[1:]:
+        assert n_reads <= int(batch.iters.max()) + 3, (n_reads, batch.iters)
+    solver = Solver(opts)
+    for problems, bounds, batch, _ in rounds:
+        for j, (p, b) in enumerate(zip(problems, bounds)):
+            res = solver.feasible(p, b)
+            assert (int(batch.status[j]), int(batch.iters[j]), int(batch.ls_probes[j])) == \
+                (res.status, res.iters, res.ls_probes)
+            assert _bits(float(batch.min_cx[j])) == _bits(res.min_cx) and torch.equal(batch.x[j], res.x)
+    cpu = LPEngine(LPServeConfig(opts=opts, lanes=4)).solve_many(probs("cpu"))
+    for r, want in enumerate(cpu):
+        got = engine.result(r)
+        assert (got.found, got.feasible) == (want.found, want.feasible) == (True, True)
+        assert got.objective == pytest.approx(want.objective, rel=2 * EPS)
+
+
+@pytest.mark.cuda
+def test_card_padded_solve_is_masked_on_card(cuda):
+    """A padded request solved alone on the card: the same status, bound and
+    objective bars against the unpadded card solve and the padded CPU
+    solve, padded variables frozen, every search on the card."""
+    opts = MWUOptions(eps=EPS, step_rule="newton")
+    prob = build("match", erdos(700, 2500, seed=5), device=cuda)
+    padded = pad_problem(prob, BucketSpec(1024, 4096))
+    K.reset_launch_counts()
+    got = Solver(opts, batch_width=1).solve(padded)
+    counts = K.launch_counts()
+    plain = Solver(opts, batch_width=1).solve(prob)
+    cpu = Solver(opts, batch_width=1).solve(pad_problem(build("match", erdos(700, 2500, seed=5), device="cpu"),
+                                                         BucketSpec(1024, 4096)))
+    assert got.feasible and cpu.feasible and plain.feasible
+    assert got.bound == pytest.approx(cpu.bound, rel=1e-5) and got.objective == pytest.approx(cpu.objective, rel=2 * EPS)
+    assert abs(got.objective - plain.objective) <= EPS * plain.objective
+    assert np.ptp(got.x[prob.n_vars:]) == 0.0
+    assert counts["newton_search"] == got.mwu_iters_total and counts["linesearch_probe"] == 0

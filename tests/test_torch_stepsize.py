@@ -88,10 +88,11 @@ def test_step_rule_parity(rule, masked, alpha0):
 @pytest.mark.parametrize("alpha0", [None, 1.0, 37.0])
 @pytest.mark.parametrize("masked", [False, True], ids=["plain", "masked"])
 def test_newton_step_takes_host_loop_off_card(monkeypatch, masked, alpha0):
-    """On CPU tensors newton_step runs a host loop and launches nothing: a
-    masked state through _newton_step_host, an unmasked one through the
-    search wrapper, whose CPU path is its plain version (the same loop over
-    plain probes); both give _newton_step_host's result."""
+    """On CPU tensors newton_step runs a host loop and launches nothing:
+    masked or not, through the search wrapper, whose CPU path is its plain
+    version (the same loop over plain probes, masked as the state is); it
+    gives _newton_step_host's result, the loop over make_probe_fn's
+    probes."""
     calls = []
     host, plain = T._newton_step_host, probe_ops.newton_search_ref
     monkeypatch.setattr(T, "_newton_step_host", lambda *a, **k: calls.append("host") or host(*a, **k))
@@ -102,11 +103,10 @@ def test_newton_step_takes_host_loop_off_card(monkeypatch, masked, alpha0):
         pm, cm = (torch.from_numpy(m) for m in _masks(seed)) if masked else (None, None)
         got = T.newton_step(*args, 50.0, pm, cm, ls_eps=LS_EPS, alpha0=alpha0)
         assert got == host(*args, 50.0, pm, cm, ls_eps=LS_EPS, alpha0=alpha0)
-        if not masked:
-            y, z, dy, dz = args
-            alpha, probes, completes = K.newton_search(y, dy, z, dz, 50.0, LS_EPS, alpha0).tolist()
-            assert (alpha, int(probes), bool(completes)) == tuple(got)
-    assert calls == (["host"] * len(CASES) if masked else ["plain"] * (2 * len(CASES)))
+        y, z, dy, dz = args
+        alpha, probes, completes = K.newton_search(y, dy, z, dz, 50.0, LS_EPS, alpha0, p_keep=pm, c_keep=cm).tolist()
+        assert (alpha, int(probes), bool(completes)) == tuple(got)
+    assert calls == ["plain"] * (2 * len(CASES))  # never the host loop itself
     assert K.launch_counts() == {name: 0 for name in K.KERNELS}
 
 
