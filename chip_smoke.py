@@ -60,8 +60,10 @@ printed.
    exact), the search in both forms at a served match request's shape (the
    vertex rows masked) held as above (bit for bit against the host loop
    over the masked probe kernel, within ls_eps of the masked plain loop),
-   and the axpy's min and max over the edge rows (exact; the update bit for
-   bit over every row).
+   the axpy's min and max over the edge rows (exact; the update bit for
+   bit over every row), and the scatter over the match operator of tier
+   1's request padded onto the bucket (3M of 4,194,304 edges kept; x fits
+   the L2), held as above, with cuSPARSE's time.
 3. The full-size solve: bipartite matching (bmatch) at float64 on the
    Netflix Prize shape, ``bipartite_ratings(480_189, 17_770,
    avg_ratings=209, seed=0)`` (498k vertices, 98.6M edges), through
@@ -147,6 +149,7 @@ the repository.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import subprocess
 import sys
@@ -175,7 +178,7 @@ EPS = 0.1
 # rows of phase 6's forms go into the entry's "masked" field
 MAIN_FORM = {"axpy_reduce": "device step", "newton_search": "step"}
 MASKED_FORM = {"softmax_weights": "masked", "linesearch_probe": "masked", "newton_search": "step masked",
-               "axpy_reduce": "masked"}
+               "axpy_reduce": "masked", "incidence_scatter": "masked"}
 # phase 6: graph-LP serving, request i on erdos(n, m, seed=i) of tier i % 3,
 # match and vcover alternating; both buckets have 4,194,304 edge slots
 SERVE_TIERS = [(600_000, 2_200_000), (800_000, 3_000_000), (1_500_000, 4_000_000)]
@@ -184,6 +187,12 @@ SERVE_BUCKET = (1 << 20, 1 << 22)  # tiers 0 and 1
 
 class SmokeFailure(RuntimeError):
     pass
+
+
+def sha256(t) -> str:
+    """sha256 of a tensor's or an array's bytes, to compare two trees' bits."""
+    a = t.detach().cpu().numpy() if isinstance(t, torch.Tensor) else t
+    return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
 
 
 def check(failures: list, ok: bool, what: str) -> None:
@@ -236,6 +245,54 @@ def bound(nbytes: int, ops: int, rate) -> tuple[float, str]:
 
 
 # -- phase 2 -----------------------------------------------------------------
+def scatter_inputs(n_vertices: int, n_items: int, n_edges: int, seed: int = 0) -> tuple:
+    """The scatter's edges at the bmatch graph's shape: users ascending, items
+    of the Zipf popularity of graphs/generators.py (item = n_items / rank,
+    rank = U^-2 at zipf_a 1.5: item 0 holds ~E / sqrt(n_items) entries);
+    u, v int32 on the card from a generator seeded with ``seed``."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    n_users = n_vertices - n_items
+    u = torch.randint(0, n_users, (n_edges,), generator=gen, device=dev, dtype=torch.int32).sort().values
+    v = n_users + torch.clamp((n_items * torch.rand(n_edges, generator=gen, device=dev, dtype=torch.float64) ** 2)
+                              .to(torch.int32), max=n_items - 1)
+    return u, v
+
+
+def scatter_x(n_edges: int, dtype, seed: int = 1) -> torch.Tensor:
+    """The scatter's x: n_edges values in [0, 1) on the card, seeded."""
+    dev = torch.device("cuda")
+    return torch.rand(n_edges, generator=torch.Generator(device=dev).manual_seed(seed), device=dev, dtype=dtype)
+
+
+def serving_scatter_op():
+    """The match operator of phase 6's request 4 (tier 1: erdos(800_000,
+    3_000_000, seed=4)) as the engine serves it: padded by ``pad_problem``
+    onto the bucket V1048576xE4194304, its padded edges masked."""
+    from repro_torch.graphs import build, erdos
+    from repro_torch.lpserve import BucketSpec, pad_problem
+
+    return pad_problem(build("match", erdos(*SERVE_TIERS[1], seed=4), device="cuda"), BucketSpec(*SERVE_BUCKET)).P
+
+
+def sparse_matrix(sides, dtype) -> torch.Tensor:
+    """The rows x cols ``torch.sparse_csr_tensor`` (int32 indices) of the
+    segments' entries, all sides together: ``torch.mv`` over it (cuSPARSE)
+    is the one PyTorch call that computes the same product. A yardstick,
+    which the port never calls."""
+    rows, cols, vals = [], [], []
+    for s in sides:
+        q = torch.arange(s.slabs * s.span, device=s.offsets.device)
+        rows.append(s.lo + torch.repeat_interleave(q, s.offsets[1:] - s.offsets[:-1], output_size=s.nnz) % s.span)
+        cols.append(torch.arange(s.nnz, dtype=torch.int32, device=q.device) if s.src is None else s.src)
+        vals.append(torch.ones(s.nnz, dtype=dtype, device=q.device) if s.wt is None else s.wt.to(dtype))
+    r, order = torch.sort(torch.cat(rows), stable=True)
+    n = sides[0].rows
+    crow = torch.searchsorted(r, torch.arange(n + 1, device=r.device)).to(torch.int32)
+    return torch.sparse_csr_tensor(crow, torch.cat(cols)[order], torch.cat(vals)[order], size=(n, sides[0].cols),
+                                   check_invariants=False)
+
+
 def kernel_rows(K, refs, n_vertices: int, n_items: int, n_edges: int, dtype, eta: float,
                 failures: list) -> list[dict]:
     """Each kernel vs its plain version at the main path's shapes in ``dtype``."""
@@ -300,18 +357,19 @@ def kernel_rows(K, refs, n_vertices: int, n_items: int, n_edges: int, dtype, eta
     del h, x, w
     torch.cuda.empty_cache()
 
-    # the scatter M x on the same edges with the items' Zipf popularity of
-    # graphs/generators.py (item = n_items / rank, rank = U^-2 at zipf_a
-    # 1.5): item 0 holds ~E / sqrt(n_items) = 740k entries. The v side as
+    # the scatter M x at the bmatch graph's shape with the items' Zipf
+    # popularity (scatter_inputs: item 0 holds ~740k entries). The v side as
     # the operator builds it (cut into slabs of x) and in one piece (no
     # slabs: one segment of hundreds of merge tiles); in both many CSR rows
-    # cross merge-tile edges
-    v = (n - n_items) + torch.clamp((n_items * torch.rand(E, generator=gen, device=dev, dtype=torch.float64) ** 2)
-                                    .to(torch.int32), max=n_items - 1)
+    # cross merge-tile edges. Its library time is cuSPARSE's CSR product;
+    # the two index_add_ calls the kernel replaced are printed beside it
+    del u, v
+    u, v = scatter_inputs(n, n_items, E)
     op = Incidence(u=u, v=v, n_vertices=n)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     a, b = op.csr
+    order = op.scatter_order
     torch.cuda.synchronize()
     t_csr = time.perf_counter() - t0
     whole = segments(v, n, E, slab_cols=E)
@@ -325,28 +383,43 @@ def kernel_rows(K, refs, n_vertices: int, n_items: int, n_edges: int, dtype, eta
     check(failures, longest >= 2**18 and min(cross[1:]) > 0 and a.src is None and b.slabs > 1,
           f"scatter segments: u side sorted (no permutation: {a.src is None}); v side in {b.slabs} slabs of rows "
           f"[{b.lo}, {b.lo + b.span}); longest segment in one piece {longest} entries (>= 2^18); CSR rows across "
-          f"merge tiles (u, v, v in one piece) {cross}; CSR {(a.nbytes + b.nbytes) / 1e6:.1f} MB built in "
-          f"{t_csr:.2f} s")
-    x = torch.rand(E, generator=gen, device=dev, dtype=dtype)
-    got, again = K.incidence_scatter(x, a, b), K.incidence_scatter(x, a, b)
+          f"merge tiles (u, v, v in one piece) {cross}; CSR {(a.nbytes + b.nbytes) / 1e6:.1f} MB and the "
+          f"dispatch order of {a.tiles} + {b.tiles} tiles built in {t_csr:.2f} s")
+    x = scatter_x(E, dtype)
+    got, again = K.incidence_scatter(x, a, b, order=order), K.incidence_scatter(x, a, b, order=order)
     ref = refs["incidence_scatter"](x, a, b)
     same = torch.equal(got, again)
     err = ((got - ref).abs() / ref.abs().clamp(min=1.0)).max().item()
+    side_major = K.incidence_scatter(x, a, b, order=torch.arange(a.tiles + b.tiles, dtype=torch.int32, device=dev))
+    check(failures, torch.equal(side_major, got), f"incidence_scatter {dtype}: the side-major and the interleaved "
+                                                  f"dispatch orders give the same bits")
+    if dtype == torch.float64:
+        print(f"sha256 scatter f64 [{E}, {n}]: {sha256(got)}", flush=True)
     one, one_again = K.incidence_scatter(x, a, whole), K.incidence_scatter(x, a, whole)
     one_err = ((one - ref).abs() / ref.abs().clamp(min=1.0)).max().item()
     check(failures, torch.equal(one, one_again) and one_err <= tol,
           f"incidence_scatter {dtype}, v side in one piece: two launches bitwise equal, {one_err:.3g} from the "
           f"plain version (relative; bar {tol})")
-    del one, one_again, whole
-    lib_err = ((torch.zeros(n, dtype=dtype, device=dev).index_add_(0, u, x).index_add_(0, v, x) - ref).abs()
+    del one, one_again, whole, side_major
+    mat = sparse_matrix((a, b), dtype)
+    lib, lib_again = torch.mv(mat, x), torch.mv(mat, x)
+    lib_err = ((lib - ref).abs() / ref.abs().clamp(min=1.0)).max().item()
+    print(f"  cuSPARSE torch.mv {dtype} [{E}, {n}]: two calls bit-equal: {torch.equal(lib, lib_again)}", flush=True)
+    check(failures, lib_err <= tol, f"cuSPARSE torch.mv M x agrees with the plain version ({lib_err:.3g}, relative)")
+    del lib, lib_again
+    add_err = ((torch.zeros(n, dtype=dtype, device=dev).index_add_(0, u, x).index_add_(0, v, x) - ref).abs()
                / ref.abs().clamp(min=1.0)).max().item()
     del got, again, ref
     check(failures, same, f"incidence_scatter {dtype} [{E}, {n}]: two launches bitwise equal")
-    check(failures, lib_err <= tol, f"index_add_ M x agrees with the plain version ({lib_err:.3g}, relative)")
-    row("incidence_scatter", [E, n], err, tol, err <= tol and same, lambda: K.incidence_scatter(x, a, b),
+    check(failures, add_err <= tol, f"index_add_ M x agrees with the plain version ({add_err:.3g}, relative)")
+    row("incidence_scatter", [E, n], err, tol, err <= tol and same, lambda: K.incidence_scatter(x, a, b, order=order),
         lambda: refs["incidence_scatter"](x, a, b), 10, E * (size + 4) + 2 * (n + 1) * 8 + n * size, 2 * E,
-        lambda: torch.zeros(n, dtype=dtype, device=dev).index_add_(0, u, x).index_add_(0, v, x))
-    del u, v, x, op, a, b
+        lambda: torch.mv(mat, x))
+    rows[-1]["index_add_ms"] = call_ms(lambda: torch.zeros(n, dtype=dtype, device=dev).index_add_(0, u, x)
+                                       .index_add_(0, v, x), 10)
+    print(f"  incidence_scatter {dtype} [{E}, {n}]: cuSPARSE {rows[-1]['library_ms']:.4f} ms, index_add_ x2 "
+          f"{rows[-1]['index_add_ms']:.4f} ms (eager calls)", flush=True)
+    del u, v, x, op, a, b, order, mat
     torch.cuda.empty_cache()
 
     # softmax weights on the packing side (n) and the one-row objective side
@@ -451,6 +524,29 @@ def kernel_rows(K, refs, n_vertices: int, n_items: int, n_edges: int, dtype, eta
         lambda: K.axpy_reduce(z, dz, step, out=z, red=red, keep=ke), lambda: refs["axpy_reduce"](z, dz, 3.25, keep=ke),
         10, 3 * Eb * size + Eb, 4 * Eb, form="masked")
     del z, dz, out, out_r
+    torch.cuda.empty_cache()
+
+    # the scatter at the same bucket: the match operator of tier 1's request,
+    # padded (3M of its 4,194,304 edge slots kept); x fits the L2
+    op = serving_scatter_op()
+    a, b = op.csr
+    x = scatter_x(Eb, dtype)
+    got, again = (K.incidence_scatter(x, a, b, order=op.scatter_order) for _ in range(2))
+    ref = refs["incidence_scatter"](x, a, b)
+    err = ((got - ref).abs() / ref.abs().clamp(min=1.0)).max().item()
+    same = torch.equal(got, again)
+    mat = sparse_matrix((a, b), dtype)
+    lib, lib_again = torch.mv(mat, x), torch.mv(mat, x)
+    lib_err = ((lib - ref).abs() / ref.abs().clamp(min=1.0)).max().item()
+    check(failures, same and lib_err <= tol, f"incidence_scatter masked {dtype} [{Eb}, {V}], {a.nnz} edges kept: two "
+                                             f"launches bitwise equal; cuSPARSE {lib_err:.3g} from the plain version "
+                                             f"(relative), two calls bit-equal: {torch.equal(lib, lib_again)}")
+    del got, again, ref, lib, lib_again
+    nnz = a.nnz + b.nnz  # the kept entries: x, each side's permutation, offsets, out
+    row("incidence_scatter", [Eb, V], err, tol, err <= tol and same,
+        lambda: K.incidence_scatter(x, a, b, order=op.scatter_order), lambda: refs["incidence_scatter"](x, a, b), 10,
+        a.nnz * size + 4 * nnz + 2 * (V + 1) * 8 + V * size, nnz, lambda: torch.mv(mat, x), form="masked")
+    del op, a, b, x, mat
     torch.cuda.empty_cache()
     return rows
 
@@ -846,6 +942,8 @@ def full_solve(n_users: int, failures: list) -> dict:
                 rounds_wall_s=sum(r["wall_s"] or 0.0 for r in rounds), second_wall_s=wall2,
                 second_ms_per_iter=1e3 * wall2 / max(sol2.mwu_iters_total, 1))
     print("  " + json.dumps(info), flush=True)
+    print(f"sha256 bmatch x: {sha256(sol.x)} ({sol.mwu_iters_total} lane iterations, objective {sol.objective!r})",
+          flush=True)
     for r in rounds:
         print(f"  round: {len(r['bounds'])} lanes at bounds {[round(b, 3) for b in r['bounds']]}, lane iterations "
               f"{r['iters']} (loop iterations {max(r['iters'])}), {r['wall_s']} s", flush=True)
@@ -940,7 +1038,7 @@ def profile_run(run, what: str, failures: list) -> dict:
                                              f"({out['host_reads_per_loop_iter']:.3f} a loop iteration)")
     atomic = [k for k in kernels if any(w in k[2] for w in ("indexFunc", "index_add", "scatter_add"))]
     check(failures, not atomic, f"no index_add_ / scatter_add kernel in the profile ({[k[2][:60] for k in atomic]})")
-    for name in ("scatter_tiles_kernel", "scatter_rows_kernel", "step_direction_kernel"):
+    for name in ("incidence_scatter_kernel", "step_direction_kernel"):
         hit = [k for k in kernels if f"rt::{name}" in k[2]]
         check(failures, bool(hit), f"rt::{name} in the profile: {sum(k[0] for k in hit):.2f} ms, "
                                    f"{sum(k[1] for k in hit)} launches")
@@ -1434,7 +1532,8 @@ def main() -> int:
                                                      "library_ms", "call_ms", "plain_call_ms", "shape", "dtype", "bar",
                                                      "within_bar", "form")},
                             masked=None if masked is None else {k: masked.get(k) for k in (
-                                "form", "shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}))
+                                "form", "shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                "library_ms")}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -13,7 +13,8 @@ Products with an operator are scatter-adds, as the reference leaves
 them to XLA's scatter. On the CPU they are ``index_add_``. On the card
 they go through :func:`repro_torch.kernels.incidence_scatter`, a segmented
 sum over each side's CSR form (``csr``, built once per operator at its
-first card product and kept on it), which sums in a fixed order, so a
+first card product and kept on it, with the kernel's dispatch order over
+its tiles, ``scatter_order``), which sums in a fixed order, so a
 card solve repeats bit for bit; ``index_add_``'s float atomics do not.
 Products with the transpose of ``Incidence`` and ``VertexEdgePair`` are
 gathers and go through :func:`repro_torch.kernels.incidence_gather`, which
@@ -43,7 +44,7 @@ from typing import Any
 import torch
 
 from ..kernels import incidence_gather, incidence_scatter
-from ..kernels.incidence_scatter import segments
+from ..kernels.incidence_scatter import dispatch_order, segments
 
 __all__ = [
     "LinOp",
@@ -161,15 +162,20 @@ class Coo(LinOp):
         return (segments(self.rows, m, n, src=self.cols, wt=self.vals),
                 segments(self.cols, n, m, src=self.rows, wt=self.vals))
 
+    @functools.cached_property
+    def scatter_order(self):
+        """The dispatch order of each product's tiles (one side each: in order)."""
+        return tuple(dispatch_order(s) for s in self.csr)
+
     def matvec(self, x):
         if x.device.type != "cpu":
-            return incidence_scatter(x, self.csr[0])
+            return incidence_scatter(x, self.csr[0], order=self.scatter_order[0])
         out = torch.zeros(self._shape[0], dtype=x.dtype, device=x.device)
         return out.index_add_(0, self.rows, self.vals.to(x.dtype) * x.index_select(0, self.cols))
 
     def rmatvec(self, y):
         if y.device.type != "cpu":
-            return incidence_scatter(y, self.csr[1])
+            return incidence_scatter(y, self.csr[1], order=self.scatter_order[1])
         out = torch.zeros(self._shape[1], dtype=y.dtype, device=y.device)
         return out.index_add_(0, self.cols, self.vals.to(y.dtype) * y.index_select(0, self.rows))
 
@@ -219,10 +225,15 @@ class Incidence(LinOp):
         E = int(self.u.shape[0])
         return tuple(segments(r, self.n_vertices, E, wt=self.weights, keep=self.edge_mask) for r in (self.u, self.v))
 
+    @functools.cached_property
+    def scatter_order(self):
+        """The kernel's dispatch order over both sides' merge tiles."""
+        return dispatch_order(*self.csr)
+
     def matvec(self, x):
         # y_u += x_e ; y_v += x_e  (scatter direction)
         if x.device.type != "cpu":
-            return incidence_scatter(x, *self.csr)
+            return incidence_scatter(x, *self.csr, order=self.scatter_order)
         xw = self._weighted(x)
         out = torch.zeros(self.n_vertices, dtype=x.dtype, device=x.device)
         return out.index_add_(0, self.u, xw).index_add_(0, self.v, xw)
@@ -264,9 +275,14 @@ class AdjacencyPlusId(LinOp):
         n, m = self.n_vertices, self.edge_mask
         return (segments(self.u, n, n, src=self.v, keep=m), segments(self.v, n, n, src=self.u, keep=m))
 
+    @functools.cached_property
+    def scatter_order(self):
+        """The kernel's dispatch order over both sides' merge tiles."""
+        return dispatch_order(*self.csr)
+
     def matvec(self, x):
         if x.device.type != "cpu":
-            return incidence_scatter(x, *self.csr, base=x)  # x: the identity part
+            return incidence_scatter(x, *self.csr, base=x, order=self.scatter_order)  # x: the identity part
         xu = _masked(x.index_select(0, self.u), self.edge_mask)
         xv = _masked(x.index_select(0, self.v), self.edge_mask)
         out = x.clone()  # identity part
@@ -317,9 +333,14 @@ class VertexEdgePair(LinOp):
         return (segments(self.u, self.n_vertices, 2 * E, src=e2, keep=self.edge_mask),
                 segments(self.v, self.n_vertices, 2 * E, src=e2 + 1, keep=self.edge_mask))
 
+    @functools.cached_property
+    def scatter_order(self):
+        """The kernel's dispatch order over both sides' merge tiles."""
+        return dispatch_order(*self.csr)
+
     def matvec(self, z):
         if z.device.type != "cpu":
-            return incidence_scatter(z, *self.csr)
+            return incidence_scatter(z, *self.csr, order=self.scatter_order)
         z2 = z.view(-1, 2)
         zu = _masked(z2[:, 0], self.edge_mask)
         zv = _masked(z2[:, 1], self.edge_mask)

@@ -1,2 +1,2 @@
-from .csr import MERGE_TILE, Segments, segments
+from .csr import MERGE_TILE, Segments, dispatch_order, segments
 from .ops import incidence_scatter

@@ -23,6 +23,12 @@ the kernel adds a row's slabs in an order fixed by their count.
 The kernel walks the merge of the CSR's row ends with its entries (merge
 path) in tiles of :data:`MERGE_TILE` items; where each tile starts in that
 merge depends on the CSR alone, so it is computed here once (``splits``).
+The order in which the kernel takes the tiles of a product's two sides is
+data too (:func:`dispatch_order`), computed once per operator: where one
+side is cut into slabs of x and the other reads x in order, the tiles that
+read one slab run together, so that slab is fetched from device memory
+once for both sides. A tile's sums depend on the CSR alone, so every
+order gives the same bits.
 """
 from __future__ import annotations
 
@@ -30,7 +36,7 @@ from dataclasses import dataclass
 
 import torch
 
-__all__ = ["MERGE_TILE", "SLAB_COLS", "Segments", "merge_splits", "segments"]
+__all__ = ["MERGE_TILE", "SLAB_COLS", "Segments", "dispatch_order", "merge_splits", "segments"]
 
 #: merge items a block of the kernel takes (csrc/incidence_scatter.cu,
 #: kScatterTile; the wrapper checks that the two agree)
@@ -45,7 +51,8 @@ class Segments:
     ``offsets[q+1] - 1``; entry i is ``wt[i] * x[src[i]]`` (``src`` None:
     ``x[i]``; ``wt`` None: weight 1) for an x of ``cols`` values. CSR row
     ``k * span + q`` is output row ``lo + q`` over slab k of ``slabs``; the
-    output has ``rows`` rows (unslabbed: lo 0, span rows, slabs 1)."""
+    output has ``rows`` rows (unslabbed: lo 0, span rows, slabs 1).
+    ``ordered``: the entries, in CSR order, read x at ascending indices."""
 
     rows: int
     cols: int
@@ -57,6 +64,11 @@ class Segments:
     lo: int = 0
     span: int = 0
     slabs: int = 1
+    ordered: bool = True
+
+    @property
+    def tiles(self) -> int:
+        return int(self.splits.shape[0]) - 1
 
     @property
     def nbytes(self) -> int:
@@ -86,7 +98,8 @@ def segments(row_of: torch.Tensor, rows: int, cols: int, *, src: torch.Tensor | 
     # the x index each entry reads, in CSR order (None: entry i reads x[i])
     at = idx if src is None else (src if idx is None else src.index_select(0, idx))
     lo, span, slabs = 0, rows, 1
-    if at is not None and nnz > 1 and not bool((at[1:] >= at[:-1]).all()):
+    ordered = at is None or nnz <= 1 or bool((at[1:] >= at[:-1]).all())
+    if not ordered:
         lo, span = int(r[0]), int(r[-1]) - int(r[0]) + 1
         slabs = max(1, min(-(-cols // slab_cols), nnz // (8 * span)))
     if slabs > 1:
@@ -100,7 +113,7 @@ def segments(row_of: torch.Tensor, rows: int, cols: int, *, src: torch.Tensor | 
         src = idx.to(torch.int32) if src is None else src.index_select(0, idx)
         wt = None if wt is None else wt.index_select(0, idx)
     return Segments(rows=rows, cols=cols, nnz=nnz, offsets=offsets, src=src, wt=wt,
-                    splits=merge_splits(offsets, nnz), lo=lo, span=span, slabs=slabs)
+                    splits=merge_splits(offsets, nnz), lo=lo, span=span, slabs=slabs, ordered=ordered)
 
 
 def merge_splits(offsets: torch.Tensor, nnz: int) -> torch.Tensor:
@@ -115,3 +128,33 @@ def merge_splits(offsets: torch.Tensor, nnz: int) -> torch.Tensor:
     tiles = -(-items // MERGE_TILE)
     starts = torch.arange(tiles + 1, dtype=torch.int64, device=offsets.device) * MERGE_TILE
     return torch.searchsorted(ends, starts.clamp(max=items))
+
+
+def dispatch_order(a: Segments, b: Segments | None = None) -> torch.Tensor:
+    """The order in which the kernel takes the merge tiles of ``a`` and ``b``:
+    int32, one entry a tile, entry t < ``a.tiles`` naming a's tile t and the
+    rest b's tile t - ``a.tiles``.
+
+    Where one side is cut into slabs of x and the other reads x in order,
+    the tiles are grouped by the slab of x each starts reading: for slab k,
+    the in-order side's tiles, then the slabbed side's slab-k tiles. The
+    first stream slab k into the L2 and the second read it there. Otherwise
+    (one side; both or neither in slabs; an unslabbed side that reads x out
+    of order) a's tiles, then b's. Either way each side keeps its own tile
+    order. Built with PyTorch on the segments' device, without reading it
+    back."""
+    ids = torch.arange(a.tiles + (0 if b is None else b.tiles), dtype=torch.int32, device=a.offsets.device)
+    if b is None or (a.slabs > 1) == (b.slabs > 1):
+        return ids
+    flat, cut = (a, b) if b.slabs > 1 else (b, a)
+    if not flat.ordered or flat.nnz == 0 or flat.cols != cut.cols:
+        return ids
+    # the in-order side: the slab of x that holds each tile's first entry
+    t = torch.arange(flat.tiles, dtype=torch.int64, device=ids.device)
+    first = (t * MERGE_TILE - flat.splits[:-1]).clamp(max=flat.nnz - 1)
+    at = first if flat.src is None else flat.src.index_select(0, first).to(torch.int64)
+    flat_key = 2 * (at * cut.slabs // cut.cols)
+    # the slabbed side: the slab of the CSR row open at each tile's start
+    cut_key = 2 * (cut.splits[:-1].clamp(max=cut.slabs * cut.span - 1) // cut.span) + 1
+    keys = torch.cat([flat_key, cut_key] if flat is a else [cut_key, flat_key])
+    return torch.sort(keys, stable=True).indices.to(torch.int32)

@@ -12,7 +12,7 @@ from __future__ import annotations
 import torch
 
 from .. import loader
-from .csr import MERGE_TILE, Segments
+from .csr import MERGE_TILE, Segments, dispatch_order
 from .ref import incidence_scatter_ref
 
 
@@ -36,9 +36,12 @@ def _check(name: str, x: torch.Tensor, s: Segments, rows: int) -> None:
 
 
 def incidence_scatter(x: torch.Tensor, a: Segments, b: Segments | None = None,
-                      base: torch.Tensor | None = None) -> torch.Tensor:
+                      base: torch.Tensor | None = None, order: torch.Tensor | None = None) -> torch.Tensor:
     """The rows' sums of ``a`` and ``b`` over x, added to ``base`` (None: 0),
-    in x's dtype; ``b`` None: one side."""
+    in x's dtype; ``b`` None: one side. ``order``: the kernel's dispatch
+    order over the two sides' merge tiles (None: ``dispatch_order(a, b)``,
+    built on this call; an operator keeps its own). Every order gives the
+    same bits."""
     if x.device.type == "cpu":
         return incidence_scatter_ref(x, a, b, base)
     n = a.rows
@@ -49,6 +52,12 @@ def incidence_scatter(x: torch.Tensor, a: Segments, b: Segments | None = None,
         _check("incidence_scatter", x, s, n)
     if base is not None and base.shape[0] != n:
         raise ValueError(f"incidence_scatter: base has {base.shape[0]} values, expected {n}")
+    if order is None:
+        order = dispatch_order(a, b)
+    tiles = sum(s.tiles for s in sides)
+    if order.device != x.device or order.dtype != torch.int32 or order.shape != (tiles,) or \
+            not order.is_contiguous():
+        raise ValueError(f"incidence_scatter: order must be {tiles} contiguous int32 values on {x.device}")
     lib = loader.load()
     if lib.rt_incidence_scatter_tile() != MERGE_TILE:
         raise RuntimeError(f"incidence_scatter: the kernel's merge tile is {lib.rt_incidence_scatter_tile()}, "
@@ -66,7 +75,8 @@ def incidence_scatter(x: torch.Tensor, a: Segments, b: Segments | None = None,
             [ptr(s.offsets), ptr(s.splits), ptr(s.src), ptr(wt), s.nnz, s.lo, s.span, s.slabs]
     with torch.cuda.device(x.device):
         rc = loader.kernel_fn("rt_incidence_scatter", dtype)(
-            x.data_ptr(), ptr(base), out.data_ptr(), n, *args, scratch.data_ptr(), loader.stream_handle(x)
+            x.data_ptr(), ptr(base), out.data_ptr(), n, *args, order.data_ptr(), scratch.data_ptr(),
+            loader.stream_handle(x)
         )
     loader.check_status(rc, "incidence_scatter")
     loader.LAUNCHES["incidence_scatter"] += 1

@@ -84,8 +84,9 @@ _ENTRY_POINTS = {
                          _FLOAT),
     # y, dy, keep, alpha, alpha_dev, n, nb, out, part, red, stream
     "rt_axpy_reduce": ([_PTR, _PTR, _PTR, _F64, _PTR, _I64, _INT, _PTR, _PTR, _PTR, _PTR], _FLOAT),
-    # x, base, out, n; (offsets, splits, src, wt, nnz, lo, span, slabs) of side A, then of side B; scratch, stream
-    "rt_incidence_scatter": ([_PTR, _PTR, _PTR, _I64] + ([_PTR] * 4 + [_I64] * 4) * 2 + [_PTR, _PTR], _FLOAT),
+    # x, base, out, n; (offsets, splits, src, wt, nnz, lo, span, slabs) of side A, then of side B; order,
+    # scratch, stream
+    "rt_incidence_scatter": ([_PTR, _PTR, _PTR, _I64] + ([_PTR] * 4 + [_I64] * 4) * 2 + [_PTR] * 3, _FLOAT),
     # u, v, w, g, h, x, scale, tiny, E, nb, d, part, ticket, dmax, stream
     "rt_step_direction": ([_PTR] * 6 + [_F64, _F64, _I64, _INT] + [_PTR] * 5, _FLOAT),
     # q, k, v, o; B, S, Hq, Hkv, D; (batch, seq, head) strides of q, k, v, o; causal, window; stream

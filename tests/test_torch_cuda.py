@@ -338,6 +338,47 @@ def test_incidence_scatter_matches_plain_on_card(cuda, shape, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_incidence_scatter_orders_and_edges_on_card(cuda, dtype):
+    """The scatter's one cooperative launch against its plain version, within
+    the bars above: the operator's interleaved dispatch order, the
+    side-major one and a random permutation of the tiles give the same
+    bits; a hot row spread over hundreds of merge tiles, with an edge mask,
+    weights and base; n = 1 and E = 1."""
+    tol = 1e-4 if dtype == torch.float32 else 1e-10
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    op = _power_law_incidence(60_000, 17_770, 3_000_000, cuda, seed=3)
+    a, b = op.csr
+    side_major = torch.arange(a.tiles + b.tiles, dtype=torch.int32, device=cuda)
+    assert b.slabs > 1 and not torch.equal(op.scatter_order, side_major)
+    x = torch.rand(3_000_000, generator=gen, device=cuda, dtype=dtype)
+    got = op.matvec(x)
+    for order in (side_major, torch.randperm(a.tiles + b.tiles, generator=gen, device=cuda).to(torch.int32)):
+        assert torch.equal(K.incidence_scatter(x, a, b, order=order), got)
+    ref = incidence_scatter_ref(x, a, b)
+    assert float(((got - ref).abs() / ref.abs().clamp(min=1.0)).max()) <= tol
+
+    E, n = 1_200_000, 2_001  # v: every edge on vertex 2000, one segment of ~586 merge tiles
+    u = torch.randint(0, n - 1, (E,), generator=gen, device=cuda, dtype=torch.int32).sort().values
+    v = torch.full((E,), n - 1, dtype=torch.int32, device=cuda)
+    keep = torch.rand(E, generator=gen, device=cuda) > 0.1
+    wt = torch.randint(1, 4, (E,), generator=gen, device=cuda).to(torch.float64)
+    a, b = (segments(r, n, E, wt=wt, keep=keep) for r in (u, v))
+    assert int((b.offsets[1:] - b.offsets[:-1]).max()) > 200 * 2048
+    x = torch.rand(E, generator=gen, device=cuda, dtype=dtype)
+    base = torch.rand(n, generator=gen, device=cuda, dtype=dtype)
+    got, again = (K.incidence_scatter(x, a, b, base=base) for _ in range(2))
+    ref = incidence_scatter_ref(x, a, b, base)
+    assert torch.equal(got, again)
+    assert float(((got - ref).abs() / ref.abs().clamp(min=1.0)).max()) <= tol
+
+    one = ops.Incidence(u=torch.zeros(1, dtype=torch.int32, device=cuda),
+                        v=torch.zeros(1, dtype=torch.int32, device=cuda), n_vertices=1)
+    x = torch.tensor([0.7], dtype=dtype, device=cuda)
+    assert torch.equal(one.matvec(x), x + x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_scatter_operators_match_cpu_on_card(cuda, dtype):
     """Every operator that scatters on the card (masked, weighted, base,
     interleaved sources, COO both ways) against its CPU index_add_ product

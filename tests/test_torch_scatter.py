@@ -10,6 +10,12 @@ on the CPU.
   bit on integer-valued data (every partial sum is exact).
 * Every operator's CPU product is still today's ``index_add_`` expression,
   bit for bit (the card path alone goes through the kernel).
+* The kernel's dispatch order over both sides' merge tiles
+  (``dispatch_order``) equals a numpy reckoning from the CSR: every tile
+  once, each side in its own order, the in-order side's tiles of slab k
+  next to the slabbed side's slab-k tiles, the same on every build, and
+  side-major where there is nothing to interleave (one side, an empty,
+  unslabbed or out-of-order side, both sides in slabs).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -19,7 +25,7 @@ import torch
 from repro.core import operators as R
 from repro_torch import kernels as K
 from repro_torch.core import operators as T
-from repro_torch.kernels.incidence_scatter import MERGE_TILE, segments
+from repro_torch.kernels.incidence_scatter import MERGE_TILE, dispatch_order, segments
 from repro_torch.kernels.incidence_scatter.ref import incidence_scatter_ref
 
 KINDS = ["incidence", "incidence_masked", "adjacency", "adjacency_masked", "vertex_edge_pair",
@@ -249,3 +255,140 @@ def test_slabbed_segments(slab_cols, dtype):
         got = incidence_scatter_ref(torch.as_tensor(x), a, b).numpy()
         np.testing.assert_allclose(got, want, rtol=TOLS[dtype], atol=TOLS[dtype])
     np.testing.assert_array_equal(got, want)
+
+
+def _ratings(n_users=3_000, n_items=40, seed=1):
+    """A bipartite graph whose v side (few items, many ratings) is cut into
+    slabs of x at 5,000 values a slab: ~56k edges, some 57 merge tiles."""
+    from repro_torch.graphs import bipartite_ratings
+
+    g = bipartite_ratings(n_users, n_items, avg_ratings=30.0, seed=seed)
+    return g, torch.as_tensor(g.u), torch.as_tensor(g.v)
+
+
+def _np_dispatch_order(sides):
+    """The dispatch order reckoned with numpy from the CSR alone: each tile's
+    start by the merge-path search; where one side is in slabs and the other
+    reads x in ascending order, tiles sorted by (slab of x they start
+    reading, in-order side first), stably; else side-major."""
+    tiles = [-(-(s.slabs * s.span + s.nnz) // MERGE_TILE) for s in sides]
+    ids = np.arange(sum(tiles))
+    if len(sides) == 1 or (sides[0].slabs > 1) == (sides[1].slabs > 1):
+        return ids
+    cut = 0 if sides[0].slabs > 1 else 1
+    flat = sides[1 - cut]
+    at_flat = np.arange(flat.nnz) if flat.src is None else flat.src.numpy()
+    if flat.nnz == 0 or np.any(np.diff(at_flat) < 0):
+        return ids
+    keys = []
+    for k, (s, t) in enumerate(zip(sides, tiles)):
+        offsets = s.offsets.numpy()
+        starts = [_merge_path_rows(offsets, d * MERGE_TILE) for d in range(t)]  # CSR rows before each tile
+        if k == cut:
+            keys.append(2 * (np.minimum(starts, s.slabs * s.span - 1) // s.span) + 1)
+        else:
+            first = np.minimum(np.arange(t) * MERGE_TILE - np.asarray(starts), s.nnz - 1)
+            keys.append(2 * (at_flat[first] * sides[cut].slabs // s.cols))
+    return np.argsort(np.concatenate(keys), kind="stable")
+
+
+ORDER_CASES = ["interleaved", "swapped", "masked", "weighted", "unslabbed", "one_side", "empty_side",
+               "both_slabbed", "out_of_order_unslabbed"]
+
+
+def _order_case(case):
+    g, u, v = _ratings()
+    n, m = g.n, g.m
+    keep = torch.as_tensor(np.random.default_rng(5).random(m) > 0.25)
+    wt = torch.as_tensor(np.random.default_rng(6).integers(1, 4, m).astype(np.float64))
+    side = {"interleaved": lambda: (segments(u, n, m, slab_cols=5_000), segments(v, n, m, slab_cols=5_000)),
+            "swapped": lambda: (segments(v, n, m, slab_cols=5_000), segments(u, n, m, slab_cols=5_000)),
+            "masked": lambda: (segments(u, n, m, keep=keep, slab_cols=5_000),
+                               segments(v, n, m, keep=keep, slab_cols=5_000)),
+            "weighted": lambda: (segments(u, n, m, wt=wt, keep=keep, slab_cols=5_000),
+                                 segments(v, n, m, wt=wt, keep=keep, slab_cols=5_000)),
+            "unslabbed": lambda: (segments(u, n, m), segments(v, n, m)),
+            "one_side": lambda: (segments(v, n, m, slab_cols=5_000),),
+            "empty_side": lambda: (segments(u, n, m, keep=torch.zeros(m, dtype=torch.bool), slab_cols=5_000),
+                                   segments(v, n, m, slab_cols=5_000)),
+            "both_slabbed": lambda: (segments(u, n, n, src=v, slab_cols=97), segments(v, n, n, src=u, slab_cols=97)),
+            "out_of_order_unslabbed": lambda: (segments(v, n, m, slab_cols=10**9),
+                                               segments(v, n, m, slab_cols=5_000))}[case]
+    return side()
+
+
+@pytest.mark.parametrize("case", ORDER_CASES)
+def test_dispatch_order_matches_numpy(case):
+    """The kernel's dispatch order over both sides' merge tiles against a
+    numpy reckoning from the CSR: every tile of both sides exactly once,
+    each side's tiles in their own order, and the same order from a second
+    build of the segments."""
+    sides = _order_case(case)
+    order = dispatch_order(*sides)
+    assert order.dtype == torch.int32
+    want = _np_dispatch_order(sides)
+    np.testing.assert_array_equal(order.numpy(), want)
+    tiles = [s.tiles for s in sides]
+    assert sorted(order.tolist()) == list(range(sum(tiles)))
+    o = order.numpy()
+    assert np.all(np.diff(o[o < tiles[0]]) > 0) and np.all(np.diff(o[o >= tiles[0]]) > 0)
+    assert torch.equal(dispatch_order(*_order_case(case)), order)
+    interleaved = case in ("interleaved", "swapped", "masked", "weighted")
+    assert interleaved != torch.equal(order, torch.arange(sum(tiles), dtype=torch.int32))
+
+
+@pytest.mark.parametrize("case", ["interleaved", "swapped", "masked"])
+def test_dispatch_order_groups_tiles_by_slab(case):
+    """Along the interleaved order the slab of x each tile starts reading
+    never decreases, and slab k's tiles of the in-order side come right
+    before the slabbed side's slab-k tiles: the in-order side's tiles that
+    read x[k C, (k + 1) C) sit with slab k."""
+    sides = _order_case(case)
+    cut = 0 if sides[0].slabs > 1 else 1
+    flat, slabbed = sides[1 - cut], sides[cut]
+    order = dispatch_order(*sides).numpy()
+    t_first = sides[0].tiles
+    slab, is_cut = [], []
+    for t in order:
+        k, local = (0, t) if t < t_first else (1, t - t_first)
+        s = sides[k]
+        start = int(s.splits[local])  # CSR rows before the tile
+        if k == cut:
+            slab.append(min(start, s.slabs * s.span - 1) // s.span)
+        else:
+            j = min(local * MERGE_TILE - start, s.nnz - 1)
+            x_at = j if s.src is None else int(s.src[j])
+            slab.append(x_at * slabbed.slabs // flat.cols)
+        is_cut.append(k == cut)
+    slab, is_cut = np.asarray(slab), np.asarray(is_cut)
+    assert np.all(np.diff(2 * slab + is_cut) >= 0)
+    assert len(set(slab[is_cut].tolist())) == slabbed.slabs > 8  # every slab has tiles of the slabbed side
+    for k in range(slabbed.slabs):
+        run = np.flatnonzero(slab == k)
+        assert np.all(np.diff(run) == 1)  # slab k's tiles of both sides are one run
+
+
+def test_segments_ordered_flag():
+    """``ordered`` says whether the entries, in CSR order, read x at
+    ascending indices; a side cut into slabs never does."""
+    g, u, v = _ratings()
+    n, m = g.n, g.m
+    keep = torch.as_tensor(np.random.default_rng(5).random(m) > 0.25)
+    for s, want in ((segments(u, n, m), True), (segments(u, n, m, keep=keep), True),
+                    (segments(v, n, m, slab_cols=10**9), False), (segments(v, n, m, slab_cols=5_000), False),
+                    (segments(u, n, n, src=v), False), (segments(u[:1], n, 1), True)):
+        assert s.ordered == want
+        at = np.arange(s.nnz) if s.src is None else s.src.numpy()
+        assert want == bool(np.all(np.diff(at) >= 0))
+    assert segments(v, n, m, slab_cols=5_000).slabs > 1
+
+
+def test_cpu_scatter_ignores_order(small_graphs):
+    """On the CPU the wrapper is the plain version whatever order it is
+    given: the order only schedules the kernel's tiles."""
+    g, u, v = _ratings()
+    a, b = segments(u, g.n, g.m, slab_cols=5_000), segments(v, g.n, g.m, slab_cols=5_000)
+    x = torch.as_tensor(np.random.default_rng(2).random(g.m))
+    want = incidence_scatter_ref(x, a, b)
+    for order in (dispatch_order(a, b), torch.arange(a.tiles + b.tiles, dtype=torch.int32)):
+        assert torch.equal(K.incidence_scatter(x, a, b, order=order), want)
