@@ -6,8 +6,9 @@
 Builds the CUDA kernels of ``src/repro_torch/kernels/csrc`` with nvcc for
 sm_90a and drives the port's three paths, the MWU graph-LP solve, the
 hubert-xlarge encoder forward and graph-LP serving (``repro_torch.lpserve``),
-in six phases; any failed phase exits non-zero before the result lines are
-printed.
+and the paper's two comparison studies (Table 3's step rules, Figure 3's
+MPCSolver baseline), in seven phases; any failed phase exits non-zero
+before the result lines are printed.
 
 1. Card: its name and power limit (nvidia-smi) and the kernels' build time.
 2. Kernels vs their plain PyTorch versions on the card, at the main path's
@@ -42,7 +43,12 @@ printed.
    from device memory, the record [alpha, probes, completes, step, bad]
    written there), gets a row of its own, held on those states and one
    whose alpha < 1, at max(d) > 0 and = 0, to the host loop bit for bit
-   and to its plain version. The axpy gets a second row too: its step read
+   and to its plain version. The binary search kernel (Alg. 3 in one
+   launch, ``binary_rows``) gets its step-form row at the solve's shape and
+   masked at phase 6's bucket, held in both forms to the host loop over the
+   probe kernel bit for bit (alpha, probes, completes; step, bad and
+   alpha_prev) and to its plain version within ls_eps where alpha >= 1.
+   The axpy gets a second row too: its step read
    from device memory (the form the loop launches), bit for bit the
    host-float form and the plain version, in place as well.
    ``step_direction`` (g gathered from w, as bmatch's solve runs it) must
@@ -55,7 +61,9 @@ printed.
    of merge tiles); its library time is the two ``index_add_`` calls it
    replaces. The masked forms (row masks, one byte a row: the padded rows
    of phase 6's requests) get rows of their own at phase 6's bucket
-   V1048576xE4194304 with tier 1's rows real: softmax over the vertex rows
+   V1048576xE4194304 with tier 1's rows real: the gather over the padded
+   match operator's edges (a masked ``Incidence`` is no plain gather, so
+   served match lanes launch it; beside cuSPARSE's M^T w), softmax over the vertex rows
    (weights exactly 0 off the mask), the two-sided probe over both (mins
    exact), the search in both forms at a served match request's shape (the
    vertex rows masked) held as above (bit for bit against the host loop
@@ -100,9 +108,12 @@ printed.
    the six families and a ``stack_problems`` batch of two match instances
    (erdos(4096, 40000)): each lane equal to the card's ``feasible()`` at
    its bound bit for bit. Then match and vcover on
-   rgg(12) with ``step_rule="binary"``: its host loop launches the probe
-   kernel once a probe, and those launches are the probe's count in the
-   kernels line.
+   rgg(12) with ``step_rule="binary"``: the binary search kernel once a
+   lane iteration (its launches are its count in the kernels line), no
+   lone probe (the probe's count there: 0), the host read once a loop
+   iteration (printed), and each solve's status, iterations, probes and
+   ``sha256 binary x`` line to compare with another tree
+   (``tools/binary_bits.py``).
 5. The hubert-xlarge encoder forward at full width: 48 layers, d_model
    1280, 16 heads of d 80, ``attn_impl="pallas"``, bf16 compute over f32
    params from a seeded random init, on 16 utterances x 1500 frames (30 s
@@ -136,10 +147,24 @@ printed.
    prints its device time by kernel, the device-to-host copies' time and
    the idle share against the same round of another fresh engine timed
    without the profiler.
+7. The paper's comparison studies at full width, on phase 3's graph,
+   float64. (a) Table 3: one profiled ``Solver.feasible`` of phase 3's
+   bmatch problem at its certified bound per step rule, newton, binary
+   and std (std cut to 500 iterations; the cut is printed): status,
+   iterations, probes an iteration, device ms a lane iteration, ms a
+   search launch, host reads a loop iteration (at most 1.01 for every
+   rule, else the phase fails) and the idle share. (b) Figure 3:
+   generalized matching with ``benchmarks/bench_convergence.py``'s bounds
+   (users lb = min(3, deg), ub = 5; items ub = 200), eps 0.05, by
+   ``solve_traced`` with the newton and the std rule and by ``mpc_solve``,
+   each cut to 2,000 iterations (std to 500): iterations to eps (or "not
+   reached by the cap"), the final violation, ms an iteration and host reads an
+   iteration; first ``mpc_solve`` on a small instance on the card against
+   the CPU (the same iterations, x within rel 1e-9).
 
 The line before the last is ``{"kernels": [...]}``, one entry per kernel;
 the last is ``{"ok": true, "device": {...}}``. The flash entry takes row
-(a) in bf16 and its launches from phase 5; the axpy and the search take
+(a) in bf16 and its launches from phase 5; the axpy and the searches take
 the row of the form the main path launches (device step, step form), and
 each MWU kernel's masked row goes into its entry's ``masked`` field. Every
 entry's launches add phase 6's (``serving_launches``). The script exits non-zero
@@ -149,6 +174,7 @@ the repository.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import hashlib
 import json
 import subprocess
@@ -176,9 +202,19 @@ EPS = 0.1
 # the form of a kernel that the main path launches, where a kernel has two
 # rows in phase 2 (its kernels-line entry takes that row); the "masked"
 # rows of phase 6's forms go into the entry's "masked" field
-MAIN_FORM = {"axpy_reduce": "device step", "newton_search": "step"}
+MAIN_FORM = {"axpy_reduce": "device step", "newton_search": "step", "binary_search": "step"}
 MASKED_FORM = {"softmax_weights": "masked", "linesearch_probe": "masked", "newton_search": "step masked",
-               "axpy_reduce": "masked", "incidence_scatter": "masked"}
+               "binary_search": "step masked", "axpy_reduce": "masked", "incidence_scatter": "masked",
+               "incidence_gather": "masked"}
+# phase 7: iteration caps of the comparison studies (cuts: the reference's
+# bench_convergence.py runs 6,000 iterations, MWUOptions' default cap is
+# 5,000). The std rule, whose iterations are alike (alpha 1, no search),
+# is cut further to keep the phase short: it reaches neither the bound nor
+# eps within any of these caps.
+TABLE3_STD_CAP = 500
+FIG3_CAP = 2_000
+FIG3_STD_CAP = 500
+FIG3_EPS = 0.05
 # phase 6: graph-LP serving, request i on erdos(n, m, seed=i) of tier i % 3,
 # match and vcover alternating; both buckets have 4,194,304 edge slots
 SERVE_TIERS = [(600_000, 2_200_000), (800_000, 3_000_000), (1_500_000, 4_000_000)]
@@ -235,6 +271,45 @@ def device_ms(fn, reps: int) -> float:
     graph.replay()
     torch.cuda.synchronize()
     return _events_ms(graph.replay, reps)
+
+
+def host_ms(fn, reps: int = 20) -> float:
+    """Mean host-clock time of fn() after a warm-up call: for loops that
+    read the card back between launches."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return 1e3 * (time.perf_counter() - t0) / reps
+
+
+@contextlib.contextmanager
+def counted_reads():
+    """Count the host's reads of CUDA tensors' values (``item``,
+    ``tolist``, ``float``, ``cpu``, ``numpy``) while active: yields a
+    one-element list that holds the count."""
+    reads, active = [0], [False]
+    saved = {name: getattr(torch.Tensor, name) for name in ("item", "tolist", "__float__", "cpu", "numpy")}
+
+    def counting(method):
+        def read(t, *a, **k):
+            if t.is_cuda and not active[0]:
+                reads[0] += 1
+            active[0], outer = True, active[0]
+            try:
+                return method(t, *a, **k)
+            finally:
+                active[0] = outer
+        return read
+
+    for name, method in saved.items():
+        setattr(torch.Tensor, name, counting(method))
+    try:
+        yield reads
+    finally:
+        for name, method in saved.items():
+            setattr(torch.Tensor, name, method)
 
 
 def bound(nbytes: int, ops: int, rate) -> tuple[float, str]:
@@ -451,6 +526,7 @@ def kernel_rows(K, refs, n_vertices: int, n_items: int, n_edges: int, dtype, eta
         lambda: refs["linesearch_probe2"](y, dy, z, dz, 7.5, eta), reps, 2 * (n + 1) * size, 9 * (n + 1))
     del y, dy, z, dz
     rows += search_rows(K, n, dtype, eta, failures)
+    rows += binary_rows(K, n, dtype, eta, failures)
 
     # fused update at E (the x update)
     y = torch.rand(E, generator=gen, device=dev, dtype=dtype)
@@ -513,6 +589,7 @@ def kernel_rows(K, refs, n_vertices: int, n_items: int, n_edges: int, dtype, eta
         9 * (V + Eb), form="masked")
     del y, dy
     rows += search_rows(K, V, dtype, eta_b, failures, p_keep=kv)
+    rows += binary_rows(K, V, dtype, eta_b, failures, p_keep=kv)
     red = torch.empty(2, dtype=torch.float64, device=dev)
     step = torch.tensor([3.25], dtype=torch.float64, device=dev)
     out, mn, mx = K.axpy_reduce(z, dz, step, red=red, keep=ke)
@@ -546,7 +623,23 @@ def kernel_rows(K, refs, n_vertices: int, n_items: int, n_edges: int, dtype, eta
     row("incidence_scatter", [Eb, V], err, tol, err <= tol and same,
         lambda: K.incidence_scatter(x, a, b, order=op.scatter_order), lambda: refs["incidence_scatter"](x, a, b), 10,
         a.nnz * size + 4 * nnz + 2 * (V + 1) * 8 + V * size, nnz, lambda: torch.mv(mat, x), form="masked")
-    del op, a, b, x, mat
+    del a, b, x, mat
+    # the gather at the same bucket, over the padded operator's edges: a
+    # masked Incidence is no plain gather, so served match lanes launch it
+    # (the mask is applied after it); its library call is M^T w over the CSR
+    # of the 4,194,304 x 1,048,576 transposed incidence
+    u, v = op.u, op.v
+    w = torch.rand(V, generator=gen, device=dev, dtype=dtype)
+    err = (K.incidence_gather(u, v, w) - refs["incidence_gather"](u, v, w)).abs().max().item()
+    crow = torch.arange(0, 2 * Eb + 1, 2, device=dev, dtype=torch.int32)
+    mt = torch.sparse_csr_tensor(crow, torch.stack([u, v], dim=1).reshape(-1),
+                                 torch.ones(2 * Eb, device=dev, dtype=dtype), size=(Eb, V), check_invariants=False)
+    lib_err = (torch.mv(mt, w) - K.incidence_gather(u, v, w)).abs().max().item()
+    check(failures, lib_err <= tol, f"sparse M^T w agrees with the gather at the bucket ({lib_err:.3g})")
+    row("incidence_gather", [Eb, V], err, 0.0, err == 0.0, lambda: K.incidence_gather(u, v, w),
+        lambda: refs["incidence_gather"](u, v, w), 10, Eb * (4 + 4 + size) + V * size, Eb, lambda: torch.mv(mt, w),
+        form="masked")
+    del op, u, v, w, crow, mt
     torch.cuda.empty_cache()
     return rows
 
@@ -591,14 +684,6 @@ def search_rows(K, n: int, dtype, eta: float, failures: list, p_keep=None) -> li
 
     from repro_torch.core import stepsize
     from repro_torch.kernels.linesearch_probe.ref import newton_search_ref, newton_step_ref
-
-    def host_ms(fn) -> float:
-        fn()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(20):
-            fn()
-        return 1e3 * (time.perf_counter() - t0) / 20
 
     size = torch.finfo(dtype).bits // 8
     masked = "" if p_keep is None else " masked"
@@ -676,6 +761,83 @@ def search_rows(K, n: int, dtype, eta: float, failures: list, p_keep=None) -> li
                              f"search {ms:.4f}, bound {b_ms:.4f} ({b_by}); plain {plain_ms:.4f} (host clock); eager "
                              f"call {s['call_ms']:.4f}")
     return [dict(r, form="host alpha0" + masked), s]
+
+
+def binary_rows(K, n: int, dtype, eta: float, failures: list, p_keep=None) -> list[dict]:
+    """The binary search kernel (Alg. 3 in one launch) on the seeded n + 1
+    states of ``search_rows`` (its packing rows masked by ``p_keep`` when
+    given: the row's "masked" form). In both forms against the host loop
+    over the probe kernel (stepsize._binary_search_step_host): alpha,
+    probes and completes bit for bit; the step form (max(d) and the warm
+    start alpha_prev read from device memory, the record [alpha, probes,
+    completes, step, bad] written there) at max(d) > 0 and = 0, with step,
+    bad and alpha_prev as the MWU iteration decides them. Against its plain
+    version (ref.binary_step_ref, the same loop over plain PyTorch probes):
+    completes and bad equal and alpha within ls_eps * alpha where alpha >=
+    1 (a step the loop takes; far below 1, as on the "below" state, whose
+    alpha < 1 is checked, f32 probes are rounding noise). The row is the step form, as the MWU loop
+    launches it, timed on the "far" state from a cold start at max(d) = 0
+    (alpha_prev stays, so every replay runs the same search): ms a search
+    (one launch replayed from a CUDA graph), its probes, ms a sweep (the
+    probes, the alpha = 0 sweep and the completion test's sweep); its plain
+    version on the host clock."""
+    import struct
+
+    from repro_torch.core import stepsize
+    from repro_torch.kernels.linesearch_probe.ref import binary_step_ref
+
+    def bits(v: float) -> bytes:
+        return struct.pack("d", v)
+
+    dev = torch.device("cuda")
+    size = torch.finfo(dtype).bits // 8
+    masked = "" if p_keep is None else " masked"
+    ok, err = True, 0.0
+    for kind, alpha0 in (("far", 1.0), ("near", 37.0), ("done", 1.0), ("below", 1.0)):
+        y, z, dy, dz = search_state(n, kind, 1, dtype)
+        host = stepsize._binary_search_step_host(y, z, dy, dz, eta, p_keep, ls_eps=EPS, alpha0=alpha0)
+        lone = stepsize.binary_search_step(y, z, dy, dz, eta, p_keep, ls_eps=EPS, alpha0=alpha0)
+        same = (bits(lone.alpha), lone.probes, lone.completes) == (bits(host.alpha), host.probes, host.completes)
+        for d_max in (1e-3, 0.0):
+            dm = torch.tensor(d_max, dtype=dtype, device=dev)
+            ap, ap_p = (torch.tensor([alpha0], dtype=torch.float64, device=dev) for _ in range(2))
+            rec = stepsize.binary_step_record(y, z, dy, dz, eta, EPS, dm, ap, p_mask=p_keep).tolist()
+            plain = binary_step_ref(y, dy, z, dz, eta, EPS, dm, ap_p, p_keep).tolist()
+            bad = d_max <= 0 or host.alpha < 1
+            same = same and (bits(rec[0]), int(rec[1]), bool(rec[2])) == \
+                (bits(host.alpha), host.probes, host.completes) and bool(rec[4]) == bad \
+                and bits(rec[3]) == bits(0.0 if bad else host.alpha) and bits(ap.item()) == bits(alpha0 if bad else
+                                                                                                 host.alpha)
+            near = host.alpha < 1 if kind == "below" else host.alpha < 1 or \
+                (rec[2], rec[4]) == (plain[2], plain[4]) and abs(rec[0] - plain[0]) <= EPS * max(rec[0], plain[0])
+            check(failures, same and near,
+                  f"binary_search{masked} {dtype} [{n}, 1] {kind}, alpha_prev {alpha0}, max(d) {d_max}: record {rec} | "
+                  f"host loop {tuple(host)}, bad {bad}; one-call form {tuple(lone)}; plain {plain}")
+            ok = ok and same and near
+            if host.alpha >= 1:
+                err = max(err, abs(rec[0] - plain[0]))
+    y, z, dy, dz = search_state(n, "far", 1, dtype)
+    dm0, ap, out = (torch.zeros((), dtype=dtype, device=dev), torch.ones(1, dtype=torch.float64, device=dev),
+                    torch.empty(5, dtype=torch.float64, device=dev))
+
+    def search():
+        return K.binary_search(y, dy, z, dz, eta, EPS, ap, d_max=dm0, out=out, p_keep=p_keep)
+
+    probes = int(search()[1].item())
+    ms = device_ms(search, 50)
+    plain_ms = host_ms(lambda: binary_step_ref(y, dy, z, dz, eta, EPS, dm0, ap, p_keep).tolist())
+    loop_ms = host_ms(lambda: stepsize._binary_search_step_host(y, z, dy, dz, eta, p_keep, ls_eps=EPS, alpha0=1.0))
+    # bound: the inputs (and the mask) read once; the operations of every sweep the search took
+    b_ms, b_by = bound(2 * (n + 1) * size + (0 if p_keep is None else n), 9 * (n + 1) * (probes + 2), dtype)
+    r = dict(name="binary_search", form="step" + masked, dtype=str(dtype).removeprefix("torch."), shape=[n, 1],
+             max_abs_err=err, bar=EPS, within_bar=ok, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+             library_ms=None, call_ms=call_ms(search, 50), plain_call_ms=plain_ms, host_loop_ms=loop_ms,
+             probes=probes, ms_per_sweep=ms / (probes + 2))
+    check(failures, ok, f"binary_search{masked} step form {r['dtype']} [{n}, 1]: {probes} probes; device ms a search "
+                        f"{ms:.4f} ({r['ms_per_sweep']:.4f} a sweep, {probes + 2} sweeps), bound {b_ms:.4f} ({b_by}); "
+                        f"host clock ms a search: plain {plain_ms:.4f}, host loop over the probe kernel {loop_ms:.4f}; "
+                        f"eager call {r['call_ms']:.4f}")
+    return [r]
 
 
 def scored_pairs(S: int, causal: bool, window) -> int:
@@ -851,7 +1013,9 @@ def round_solver(opts, batch_width: int = 4):
     return RoundSolver()
 
 
-def full_solve(n_users: int, failures: list) -> dict:
+def full_solve(n_users: int, failures: list) -> tuple:
+    """Phase 3; returns its numbers, the bmatch problem on the card and its
+    host graph (phase 7 runs on both)."""
     from repro_torch import kernels as K
     from repro_torch.api import MWUOptions, Solver, Status
     from repro_torch.api.solver import certify_solution
@@ -967,7 +1131,7 @@ def full_solve(n_users: int, failures: list) -> dict:
     for name, count in launches.items():
         if name == "flash_attention":  # the LM plane's kernel, off this path
             check(failures, count == 0, f"{name} launched {count} times in the solve")
-        elif name == "linesearch_probe":  # the Newton search probes inside its own launch (phase 4 runs it)
+        elif name in ("linesearch_probe", "binary_search"):  # probes inside the search; the binary rule: phases 4, 7
             check(failures, count == 0, f"{name} launched {count} times in the solve")
         elif name == "incidence_gather":  # step_direction gathers M^T w itself (phase 4 runs the gather)
             check(failures, count == 0, f"{name} launched {count} times in the solve")
@@ -988,7 +1152,7 @@ def full_solve(n_users: int, failures: list) -> dict:
                                       "the certified bound", failures)
         info["profile_round"] = profile_run(lambda: Solver(opts).solve_batch(prob, rounds[0]["bounds"]),
                                             "round 1's batch of 4 lanes", failures)
-    return info
+    return info, prob, g
 
 
 def profile_run(run, what: str, failures: list) -> dict:
@@ -998,16 +1162,20 @@ def profile_run(run, what: str, failures: list) -> dict:
     repeats). Lane iterations are the lanes' iterations summed, loop
     iterations the longest lane's; host reads are the device-to-host
     copies. The profile must show the scatter and step-direction kernels
-    and no index_add_ / scatter_add kernel."""
+    and no index_add_ / scatter_add kernel. It traces the device alone:
+    every number here comes from device events, and tracing the host's
+    operators too slows a long run several times over."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.api import Status
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res = run()
     torch.cuda.synchronize()
     wall_ms = 1e3 * (time.perf_counter() - t0)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         profiled = run()
         torch.cuda.synchronize()
     # device-side events only: the operators that launched them carry the
@@ -1016,17 +1184,20 @@ def profile_run(run, what: str, failures: list) -> dict:
                       if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0), reverse=True)
     busy_ms = sum(k[0] for k in kernels)
     port_ms = sum(k[0] for k in kernels if "rt::" in k[2])
-    search_ms = sum(k[0] for k in kernels if "newton_search" in k[2])
+    search = [k for k in kernels if "rt::search_kernel" in k[2]]  # the Newton or the binary search
+    search_ms = sum(k[0] for k in search)
     # host reads: the device-to-host copies (.item(), .tolist()) the run made
     reads = sum(e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA and "DtoH" in e.key)
     iters = np.atleast_1d(res.iters)
     lane_iters, loop_iters = int(iters.sum()), int(iters.max())
-    out = dict(lanes=len(iters), lane_iters=lane_iters, loop_iters=loop_iters, probes=int(np.sum(res.ls_probes)),
+    out = dict(lanes=len(iters), status=[Status.NAMES[int(s)] for s in np.atleast_1d(res.status)],
+               lane_iters=lane_iters, loop_iters=loop_iters, probes=int(np.sum(res.ls_probes)),
                wall_ms=wall_ms, wall_ms_per_lane_iter=wall_ms / max(lane_iters, 1), device_busy_ms=busy_ms,
                device_ms_per_lane_iter=busy_ms / max(lane_iters, 1),
                device_idle_share=1.0 - busy_ms / wall_ms if busy_ms else None,
-               port_kernels_ms=port_ms, other_device_ms=busy_ms - port_ms, newton_search_ms=search_ms,
-               newton_search_share=search_ms / busy_ms if busy_ms else None, host_reads=reads,
+               port_kernels_ms=port_ms, other_device_ms=busy_ms - port_ms, search_ms=search_ms,
+               search_launches=sum(k[1] for k in search), search_share=search_ms / busy_ms if busy_ms else None,
+               host_reads=reads,
                host_reads_per_loop_iter=reads / max(loop_iters, 1))
     print(f"  profile of {what}: {json.dumps(out)}", flush=True)
     for ms, count, key in kernels[:20]:
@@ -1141,8 +1312,13 @@ def batch_solves(failures: list) -> None:
 
 
 def binary_solves(failures: list) -> dict:
-    """The binary step rule, card vs CPU: a host loop over the two-sided
-    probe kernel (one launch a probe), the path that still launches it."""
+    """The binary step rule, card vs CPU, on match and vcover of rgg(12):
+    every lane iteration launches the binary search kernel once (its step
+    form, no lone probe), and the loop reads the host once a loop iteration
+    for all lanes (the reads, counted, include each round's start and
+    finish and the certificate's copies of x and c). Prints each card
+    solve's status, iterations, probes and the sha256 of x, to compare the
+    bits with another tree (tools/binary_bits.py runs the same solves)."""
     from repro_torch import kernels as K
     from repro_torch.api import MWUOptions, Solver, Status
     from repro_torch.graphs import build, rgg
@@ -1152,11 +1328,15 @@ def binary_solves(failures: list) -> dict:
     families = ("match", "vcover")
     sols = {(f, "cpu"): Solver(opts).solve(build(f, g, device="cpu")) for f in families}
     probs = {f: build(f, g, device="cuda") for f in families}
+    solvers = {f: round_solver(opts) for f in families}
     torch.cuda.synchronize()
     K.reset_launch_counts()
-    for family in probs:
-        sols[family, "cuda"] = Solver(opts).solve(probs[family])
+    t0 = time.perf_counter()
+    with counted_reads() as reads:
+        for family in probs:
+            sols[family, "cuda"] = solvers[family].solve(probs[family])
     torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
     launches = K.launch_counts()
     for family in probs:
         a, b = sols[family, "cuda"], sols[family, "cpu"]
@@ -1165,9 +1345,19 @@ def binary_solves(failures: list) -> dict:
         check(failures, same, f"{family}, binary rule: card {Status.NAMES[a.status]} bound {a.bound:.6g} objective "
                               f"{a.objective:.6g} probes {a.ls_probes_total} | cpu {Status.NAMES[b.status]} bound "
                               f"{b.bound:.6g} objective {b.objective:.6g} probes {b.ls_probes_total}")
-    check(failures, launches["linesearch_probe"] > 0 and launches["newton_search"] == 0,
-          f"binary-rule solves launched linesearch_probe {launches['linesearch_probe']} times, newton_search "
-          f"{launches['newton_search']}")
+        print(f"sha256 binary x {family}: {sha256(a.x)} ({Status.NAMES[a.status]}, {a.feasibility_calls} calls, "
+              f"{a.mwu_iters_total} lane iterations, {a.ls_probes_total} probes)", flush=True)
+    lane_iters = sum(sols[f, "cuda"].mwu_iters_total for f in probs)
+    rounds = [r for f in families for r in solvers[f].rounds]
+    loop_iters = sum(max(r["iters"]) for r in rounds)
+    probes = sum(sols[f, "cuda"].ls_probes_total for f in probs)
+    check(failures, launches["binary_search"] == lane_iters and launches["linesearch_probe"] == 0
+          and launches["newton_search"] == 0,
+          f"binary-rule solves launched binary_search {launches['binary_search']} times for {lane_iters} lane "
+          f"iterations ({probes} probes, {probes / max(lane_iters, 1):.2f} a lane iteration), linesearch_probe "
+          f"{launches['linesearch_probe']}, newton_search {launches['newton_search']}")
+    print(f"  binary-rule card solves: {reads[0]} host reads in {loop_iters} loop iterations over {len(rounds)} rounds "
+          f"({reads[0] / max(loop_iters, 1):.3f} a loop iteration); {wall:.2f} s", flush=True)
     return launches
 
 
@@ -1444,6 +1634,126 @@ def serve_requests(n_requests: int, failures: list) -> dict:
     return info
 
 
+# -- phase 7 -----------------------------------------------------------------
+def table3(prob, bound: float, failures: list) -> dict:
+    """Table 3 at full width: one profiled feasibility solve of phase 3's
+    bmatch problem at its certified bound per step rule (newton, binary,
+    std; std cut to TABLE3_STD_CAP iterations), each through ``profile_run``: its
+    iterations, probes an iteration, device ms a lane iteration, ms a
+    search launch, host reads a loop iteration (at most 1.01 for every
+    rule) and the device's idle share."""
+    from repro_torch.api import MWUOptions, Solver
+
+    out = {}
+    for rule in ("newton", "binary", "std"):
+        cap = TABLE3_STD_CAP if rule == "std" else MWUOptions().max_iter
+        if rule == "std":
+            print(f"  cut: the std rule's solve is capped at {cap} iterations (MWUOptions' default cap: "
+                  f"{MWUOptions().max_iter})", flush=True)
+        opts = MWUOptions(eps=EPS, step_rule=rule, max_iter=cap)
+        t0 = time.perf_counter()
+        p = profile_run(lambda: Solver(opts).feasible(prob, bound), f"Table 3, the {rule} rule at bound {bound!r}",
+                        failures)
+        p["phase_s"] = time.perf_counter() - t0
+        p["probes_per_iter"] = p["probes"] / max(p["lane_iters"], 1)
+        p["ms_per_search_launch"] = p["search_ms"] / p["search_launches"] if p["search_launches"] else None
+        out[rule] = p
+        print(f"  Table 3 {rule}: {p['status'][0]}, {p['lane_iters']} iterations, {p['probes_per_iter']:.3f} probes an "
+              f"iteration, {p['device_ms_per_lane_iter']:.4f} device ms a lane iteration, ms a search launch "
+              f"{p['ms_per_search_launch']}, {p['host_reads_per_loop_iter']:.4f} host reads a loop iteration, idle "
+              f"share {p['device_idle_share']:.4f}; timed and profiled in {p['phase_s']:.1f} s", flush=True)
+        launches_ok = p["search_launches"] == (0 if rule == "std" else p["lane_iters"])
+        check(failures, p["host_reads_per_loop_iter"] <= 1.01 and launches_ok,
+              f"Table 3 {rule}: {p['host_reads_per_loop_iter']:.4f} host reads a loop iteration (bar 1.01); "
+              f"{p['search_launches']} search launches for {p['lane_iters']} iterations")
+    return out
+
+
+def iters_to(viol: np.ndarray, eps: float):
+    """Iterations until the violation first is at most eps
+    (benchmarks/bench_convergence.py's iters_to), None if never."""
+    idx = np.nonzero(viol <= eps)[0]
+    return int(idx[0]) if len(idx) else None
+
+
+def figure3(g, failures: list) -> dict:
+    """Figure 3 at full width: generalized matching on phase 3's graph with
+    ``benchmarks/bench_convergence.py::build_instance``'s bounds (users lb =
+    min(3, deg), ub = 5; items ub = 200), eps FIG3_EPS, float64, by MWU with
+    the Newton rule, MWU with the std rule (``solve_traced``) and MPCSolver
+    (``mpc_solve``), each cut to FIG3_CAP iterations, the std rule to
+    FIG3_STD_CAP. For each: iterations
+    to eps ("not reached by the cap" where so), the final violation, ms an
+    iteration (host clock) and host reads an iteration (counted). First
+    ``mpc_solve`` on a small instance (build_instance cut to 300 users and
+    140 items) on the card and on the CPU: the same iterations, x within
+    rel 1e-9."""
+    from repro_torch.core import MPCOptions, mpc_solve
+    from repro_torch.core.mwu import MWUOptions, solve_traced
+    from repro_torch.graphs import bipartite_ratings, generalized_matching_lp
+
+    def bounds(graph):
+        deg, s = graph.degrees(), graph.bipartite_split
+        lb, ub = np.zeros(graph.n), np.ones(graph.n)
+        lb[:s], ub[:s], ub[s:] = np.minimum(3, deg[:s]), 5, 200
+        return lb, ub
+
+    small = bipartite_ratings(300, 140, avg_ratings=18.0, seed=0)
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        sP, sC, s_mask = generalized_matching_lp(small, *bounds(small), device=dev)
+        runs[dev] = mpc_solve(sP, sC, MPCOptions(eps=FIG3_EPS, max_iter=3000), c_mask=s_mask)
+    (x_c, tr_c), (x_g, tr_g) = runs["cpu"], runs["cuda"]
+    rel = float(np.max(np.abs(x_g - x_c) / np.maximum(np.abs(x_c), 1e-300)))
+    check(failures, tr_g["iters"] == tr_c["iters"] and rel <= 1e-9,
+          f"mpc_solve on the small instance: card {tr_g['iters']} / cpu {tr_c['iters']} iterations, x within rel "
+          f"{rel:.3g} (bar 1e-9)")
+
+    lb, ub = bounds(g)
+    t0 = time.perf_counter()
+    P, C, cm = generalized_matching_lp(g, lb, ub, device="cuda")
+    # build the operators' CSR before timing (at their first card products)
+    x = torch.full((g.m,), 1e-6, dtype=torch.float64, device="cuda")
+    P.rmatvec(P.matvec(x))
+    C.rmatvec(C.matvec(x))
+    del x
+    torch.cuda.synchronize()
+    print(f"  generalized matching on {g.n} vertices, {g.m} edges: P {P.shape}, C {C.shape}, {int(cm.sum())} covering "
+          f"rows kept; built in {time.perf_counter() - t0:.1f} s. cut: Newton and MPCSolver capped at {FIG3_CAP} "
+          f"iterations, std at {FIG3_STD_CAP} (bench_convergence.py: 6000)", flush=True)
+    out = {}
+    methods = (("mwu-newton", "newton", FIG3_CAP), ("mwu-std", "std", FIG3_STD_CAP), ("mpcsolver-gd", None, FIG3_CAP))
+    for name, rule, cap in methods:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with counted_reads() as reads:
+            if rule is None:
+                x, tr = mpc_solve(P, C, MPCOptions(eps=FIG3_EPS, max_iter=cap), c_mask=cm)
+                iters = tr["iters"]
+            else:
+                res, tr = solve_traced(P, C, MWUOptions(eps=FIG3_EPS, step_rule=rule, max_iter=cap), c_mask=cm)
+                x, iters = res.x, res.iters
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        viol = tr["max_violation"]
+        reached = iters_to(viol, FIG3_EPS)
+        r = dict(iters=iters, cap=cap, iters_to_eps=reached, final_violation=float(viol[-1]), wall_s=wall,
+                 ms_per_iter=1e3 * wall / max(iters, 1), host_reads=reads[0],
+                 host_reads_per_iter=reads[0] / max(iters, 1))
+        out[name] = r
+        print(f"  Figure 3 {name}: iterations to eps {FIG3_EPS}: "
+              f"{'not reached by the cap' if reached is None else reached}; {iters} iterations, final violation "
+              f"{r['final_violation']!r}, {r['ms_per_iter']:.3f} ms an iteration, {r['host_reads_per_iter']:.4f} host "
+              f"reads an iteration", flush=True)
+        finite = bool(np.isfinite(viol).all()) and bool(torch.isfinite(torch.as_tensor(x)).all())
+        check(failures, finite and 0 < iters <= cap and len(viol) >= iters and reads[0] <= iters + 3,
+              f"Figure 3 {name}: {iters} iterations, finite violations and x, {reads[0]} host reads")
+        del x, tr
+    del P, C, cm
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n-users", type=int, default=480_189, help="users of the full-size bmatch graph")
@@ -1490,7 +1800,7 @@ def main() -> int:
     end_phase("2", failures)
 
     print("== phase 3: full-size bmatch solve", flush=True)
-    info = full_solve(args.n_users, failures)
+    info, bmatch, graph = full_solve(args.n_users, failures)
     end_phase("3", failures)
 
     print("== phase 4: small solves, card vs CPU", flush=True)
@@ -1506,11 +1816,21 @@ def main() -> int:
     print("== phase 6: graph-LP serving at card size (lpserve)", flush=True)
     serve = serve_requests(args.serve_requests, failures)
     end_phase("6", failures)
+
+    print("== phase 7: the paper's comparison studies at full width (Table 3, Figure 3)", flush=True)
+    t7 = time.perf_counter()
+    table3(bmatch, info["bound"], failures)
+    del bmatch
+    torch.cuda.empty_cache()
+    figure3(graph, failures)
+    print(f"  phase 7: {time.perf_counter() - t7:.1f} s", flush=True)
+    end_phase("7", failures)
     print(f"  total {time.perf_counter() - t_start:.1f} s", flush=True)
 
     # one entry per kernel: for the MWU kernels their float64 row at the
-    # solve's largest shape and the solve's launches (the probe kernel's from
-    # phase 4's binary-rule solves, the gather's from its six Newton solves:
+    # solve's largest shape and the solve's launches (the binary search's and
+    # the lone probe's from phase 4's binary-rule solves, where the probe
+    # runs inside the search: 0; the gather's from its six Newton solves:
     # bmatch gathers inside step_direction); for flash attention row (a) in
     # bf16 and the launches of one encoder forward
     kernels = []
@@ -1521,7 +1841,7 @@ def main() -> int:
         else:
             r = max((r for r in rows if r["name"] == name and r["dtype"] == "float64"
                      and r.get("form") in (None, MAIN_FORM.get(name))), key=lambda r: r["shape"][0])
-            launches = {"linesearch_probe": binary_launches,
+            launches = {"linesearch_probe": binary_launches, "binary_search": binary_launches,
                         "incidence_gather": small_launches}.get(name, info["launches"])[name]
         launches += serve["launches"][name]
         masked = next((m for m in rows if name in MASKED_FORM and m["name"] == name and m["dtype"] == "float64"

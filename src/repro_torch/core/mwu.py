@@ -25,13 +25,14 @@ lane still running, on that lane's rows of the lane-major state (x
 - the covering gradient's transposed product,
 - two scatter-add products (``operators``: on the card the segmented-sum
   kernel, which sums in a fixed order, so a card solve repeats),
-- one step-size search (``stepsize``): for the Newton rule one launch of
-  the search kernel, masked or not, which takes max(d) from the card and
-  leaves the step there (``newton_step_record``); for the other rules a
-  host loop (one two-sided probe launch and one read a probe),
+- the step size (``stepsize``), decided on the device by the rule's
+  record function (:func:`_record_fn`), which takes max(d) from the
+  card and leaves the step there: for the Newton and binary rules one
+  launch of their search kernel, masked or not; for the standard rule
+  (alpha = 1) a few plain tensor operations,
 - three fused updates of x, y and z in place (the axpy kernel), which
-  read the step from device memory on the Newton lanes, and whose min of
-  z is the loop condition.
+  read the step from device memory, and whose min of z is the loop
+  condition.
 
 Row masks (``p_mask``, ``c_mask``: padded rows of a served request,
 gen-match's rows with no lower bound) go into the kernels as their row
@@ -42,10 +43,9 @@ record on the device: the search's ``[alpha, probes, completes, step,
 bad]``, then the z update's min and max and the y update's min and max
 over the kept rows. The loop reads that record once a loop iteration for
 all lanes, and from it advances each lane and drops the finished ones. A
-Newton lane, masked or not, reads nothing else; a lane of another rule
-also reads max(d) and its probes. A finished lane launches
-nothing and keeps its bits, and its iteration count stops, as a lane does
-under the reference's ``vmap``. Every lane runs the same launches on its
+lane of any rule, masked or not, reads nothing else. A finished lane
+launches nothing and keeps its bits, and its iteration count stops, as a
+lane does under the reference's ``vmap``. Every lane runs the same launches on its
 own rows as a solve of that lane alone, so each lane equals its own
 :func:`solve` bit for bit. There is no backend option: CUDA tensors run
 the CUDA kernels, CPU tensors their plain versions.
@@ -65,7 +65,7 @@ import torch
 from ..kernels import axpy_reduce, step_direction
 from .operators import LinOp
 from .smoothing import smax_and_weights, smin_and_weights
-from .stepsize import STEP_RULES, newton_step_record
+from .stepsize import STEP_RULES, binary_step_record, host_rule_record, newton_step_record, standard_step_record
 
 __all__ = [
     "MWUOptions",
@@ -194,24 +194,31 @@ class _Lane:
     y: torch.Tensor
     z: torch.Tensor
     rec: torch.Tensor  # the lane's record row
-    alpha_dev: torch.Tensor | None  # alpha_prev on the device (Newton lanes), else None
+    alpha_dev: torch.Tensor  # the last step taken, on the device: the search's warm start
     min_z: float = 0.0  # masked min of z: the loop condition
     max_y: float = 0.0  # masked max of y (for the trace)
     it: int = 0
     probes: int = 0
     alpha_prev: float = 1.0
     status: int = Status.RUNNING
-    host_step: tuple = ()  # (bad, alpha, probes) of a host-rule iteration
     viol: float = 0.0  # the trace's violation at the start of the iteration
 
     def running(self, max_iter: int) -> bool:
         return self.status == Status.RUNNING and not self.min_z >= 1.0 and self.it < max_iter
 
 
-def _iteration(ln: _Lane, step_fn, ls_eps) -> None:
-    """One MWU iteration (Alg. 2 body) on lane ``ln``'s rows. A Newton lane
-    leaves its step and the search's result in its record; a lane of
-    another rule keeps them in ``ln.host_step``."""
+def _record_fn(rule: str):
+    """The record function of step rule ``rule``, which decides the
+    iteration's step on the device; a rule that ``STEP_RULES`` alone holds
+    (a host loop, such as an oracle of ``stepsize``) runs through
+    ``host_rule_record``."""
+    records = {"std": standard_step_record, "binary": binary_step_record, "newton": newton_step_record}
+    return records[rule] if rule in records else host_rule_record(STEP_RULES[rule])
+
+
+def _iteration(ln: _Lane, record_fn, ls_eps) -> None:
+    """One MWU iteration (Alg. 2 body) on lane ``ln``'s rows; the step and
+    the search's result go into the lane's record on the device."""
     P, C, pm, cm, x, y, z = ln.P, ln.C, ln.pm, ln.cm, ln.x, ln.y, ln.z
 
     # gradients of the smoothed constraint potentials (lines 5-6)
@@ -231,16 +238,8 @@ def _iteration(ln: _Lane, step_fn, ls_eps) -> None:
     dz = C.matvec(d)
 
     # step size (line 11) and the terminal test (lines 8 and 12)
-    if ln.alpha_dev is not None:
-        newton_step_record(y, z, dy, dz, ln.eta, ls_eps, d_max, ln.alpha_dev, out=ln.rec[:_MIN_Z], p_mask=pm,
-                           c_mask=cm)
-        step = ln.rec[_STEP:_BAD]
-    else:
-        infeasible_dir = d_max.item() <= 0  # line 8
-        ss = step_fn(y, z, dy, dz, ln.eta, pm, cm, ls_eps, ln.alpha_prev)
-        bad = infeasible_dir or ss.alpha < 1  # line 12
-        ln.host_step = (bad, ss.alpha, ss.probes)
-        step = 0.0 if bad else ss.alpha
+    record_fn(y, z, dy, dz, ln.eta, ls_eps, d_max, ln.alpha_dev, out=ln.rec[:_MIN_Z], p_mask=pm, c_mask=cm)
+    step = ln.rec[_STEP:_BAD]
 
     # apply (lines 14-15); a terminal iteration moves by 0. The fused
     # updates give min(z) (the next loop condition) and max(y) over the
@@ -253,10 +252,7 @@ def _iteration(ln: _Lane, step_fn, ls_eps) -> None:
 def _advance(ln: _Lane, r: list) -> tuple:
     """Advance lane ``ln`` past its iteration from its record row ``r``;
     returns the iteration's trace row."""
-    if ln.alpha_dev is not None:
-        bad, alpha, probes = r[_BAD] != 0.0, r[_ALPHA], int(r[_PROBES])
-    else:
-        bad, alpha, probes = ln.host_step
+    bad, alpha, probes = r[_BAD] != 0.0, r[_ALPHA], int(r[_PROBES])
     ln.min_z, ln.max_y = r[_MIN_Z], r[_MAX_Y]
     ln.status = Status.INFEASIBLE if bad else Status.RUNNING
     ln.it += 1
@@ -275,7 +271,7 @@ def _run(lanes: list, opts: MWUOptions, rows: list | None = None) -> tuple[list,
     P0, C0 = lanes[0][:2]
     dt = torch.promote_types(P0.colmax().dtype, C0.colmax().dtype)
     dt = dt if dt.is_floating_point else torch.float32
-    step_fn = STEP_RULES[opts.step_rule]
+    record_fn = _record_fn(opts.step_rule)
     x0 = [init_x(P, opts.eps, dt) for P, *_ in lanes]
     dev = x0[0].device
     X, Y, Z = _rows(K, P0.shape[1], dt, dev), _rows(K, P0.shape[0], dt, dev), _rows(K, C0.shape[0], dt, dev)
@@ -293,7 +289,7 @@ def _run(lanes: list, opts: MWUOptions, rows: list | None = None) -> tuple[list,
         Y[k].copy_(P.matvec(x0[k]).to(dt))
         Z[k].copy_(C.matvec(x0[k]).to(dt))
         state.append(_Lane(k=k, P=P, C=C, pm=pm, cm=cm, eta=eta, scale=scale, x=X[k], y=Y[k], z=Z[k], rec=rec[k],
-                           alpha_dev=alpha[k:k + 1] if opts.step_rule == "newton" else None))
+                           alpha_dev=alpha[k:k + 1]))
     # the starting min z and max y of every lane in one read
     start = torch.stack([torch.stack([_masked_min(ln.z, ln.cm), _masked_max(ln.y, ln.pm)]) for ln in state]).tolist()
     for ln, (min_z, max_y) in zip(state, start):
@@ -303,7 +299,7 @@ def _run(lanes: list, opts: MWUOptions, rows: list | None = None) -> tuple[list,
     while active:
         for ln in active:
             ln.viol = max(ln.max_y - 1.0, 1.0 - ln.min_z, 0.0)
-            _iteration(ln, step_fn, opts.ls_tol)
+            _iteration(ln, record_fn, opts.ls_tol)
         r = rec.tolist()  # the one host read of a loop iteration, for all lanes
         for ln in active:
             row = _advance(ln, r[ln.k])

@@ -13,26 +13,26 @@ once min(z + alpha dz) >= 1 while f(alpha) >= 1, then shrinks the step to
 the smallest completing alpha.
 
 The reference runs these searches as ``lax.while_loop``s on the device.
-Here the Newton search on the card is one launch of
-:func:`repro_torch.kernels.newton_search`, which runs the whole search
+Here the Newton and binary searches on the card are each one launch of
+:func:`repro_torch.kernels.newton_search` or
+:func:`repro_torch.kernels.binary_search`, which run the whole search
 there, over the rows that the masks keep (padded rows of a served
-request, gen-match's rows with no lower bound). :func:`newton_step` reads
-its result back once; the MWU loop calls :func:`newton_step_record`
-instead, which takes max(d) from the card, decides the iteration's step
-there and leaves it in a device record, so that the loop reads the search
-only with the rest of its lane record. Elsewhere (the binary and standard
-rules, the CPU) the searches are Python loops over host floats: each
-probe evaluates both sides in one :func:`repro_torch.kernels.linesearch_probe2`
-call (the CUDA kernel on the card, masked or not) and reads the six
-results back in one copy, which is one host sync per probe. The Newton
-search's host loop is the search kernel's plain version
-(``kernels/linesearch_probe/ref.py``); over the probe kernel on the card
-it is ``_newton_step_host``, and the search kernel gives the same alpha
-(bit for bit), probes and ``completes`` as that loop on the same state.
-The iteration caps and the probe counting are the reference's, so the
-same state gives the same alpha, ``completes`` and probe count as the
-reference, except where an ulp of difference decides one of the search's
-comparisons.
+request, gen-match's rows with no lower bound). :func:`newton_step` and
+:func:`binary_search_step` read the result back once; the MWU loop calls
+the rules' record functions instead (:func:`newton_step_record`,
+:func:`binary_step_record` and :func:`standard_step_record`), which take max(d) from the card, decide the
+iteration's step there and leave it in a device record, so that the loop
+reads the step only with the rest of its lane record. On the CPU the
+search wrappers run their plain versions (``kernels/linesearch_probe/ref.py``),
+host loops over plain two-sided probes. Over the probe kernel on the card
+(:func:`repro_torch.kernels.linesearch_probe2`, one launch and one host
+read a probe) the same loops are ``_newton_step_host`` and
+``_binary_search_step_host``: each search kernel gives the same alpha (bit
+for bit), probes and ``completes`` as its loop on the same state. Nothing
+on the main path calls those two. The iteration caps and the probe
+counting are the reference's, so the same state gives the same alpha,
+``completes`` and probe count as the reference, except where an ulp of
+difference decides one of the search's comparisons.
 """
 from __future__ import annotations
 
@@ -40,14 +40,11 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from ..kernels import linesearch_probe2, newton_search
-from ..kernels.linesearch_probe.ref import (MAX_BIN_ITERS, Probe, fmax, newton_search_loop, refine_completion,
-                                            two_sided_probe_fn)
+from ..kernels import binary_search, linesearch_probe2, newton_search
+from ..kernels.linesearch_probe.ref import Probe, binary_search_loop, newton_search_loop, two_sided_probe_fn
 
-__all__ = ["StepSizeResult", "standard_step", "binary_search_step", "newton_step", "newton_step_record",
-           "make_probe_fn", "STEP_RULES"]
-
-_MAX_EXP_ITERS = 64  # 2^64 dynamic range is enough for any float32/64 alpha
+__all__ = ["StepSizeResult", "standard_step", "binary_search_step", "newton_step", "standard_step_record",
+           "binary_step_record", "newton_step_record", "make_probe_fn", "STEP_RULES"]
 
 
 class StepSizeResult(NamedTuple):
@@ -90,55 +87,14 @@ def binary_search_step(y, z, dy, dz, eta, p_mask=None, c_mask=None, ls_eps=0.1, 
 
     Returns the largest alpha with f(alpha) >= 1 up to relative width
     ls_eps. If that alpha is < 1 the caller must declare infeasibility
-    (paper, Alg. 2 line 12).
+    (paper, Alg. 2 line 12). The search is one call of
+    :func:`repro_torch.kernels.binary_search`, masked or not (on the card
+    one launch, read once; on the CPU its plain version, the host loop over
+    plain probes).
     """
-    probe = make_probe_fn(y, z, dy, dz, eta, p_mask, c_mask)
-    a0 = 1.0 if alpha0 is None else fmax(alpha0, 1.0)
-    p0 = probe(a0)
-
-    # --- upward exponential phase: double while f >= 1 ------------------
-    # stop on bracket (f < 1) or on covering completion (Alg. 3 line 4)
-    a_up, p_up, n_up = a0, p0, 1
-    while p_up.f >= 1 and p_up.min_z < 1 and n_up < _MAX_EXP_ITERS:
-        a_up *= 2
-        p_up = probe(a_up)
-        n_up += 1
-    completed_up = p_up.f >= 1 and p_up.min_z >= 1
-
-    # --- downward exponential phase (warm start overshot): halve while f < 1
-    a_dn, p_dn, n_dn = a0, p0, 0
-    while p_dn.f < 1 and a_dn > 1e-12 and n_dn < _MAX_EXP_ITERS:
-        a_dn /= 2
-        p_dn = probe(a_dn)
-        n_dn += 1
-
-    # bracket [lb, ub] with f(lb) >= 1 > f(ub)
-    need_down = p0.f < 1
-    lb = a_dn if need_down else a_up / 2
-    ub = a_dn * 2 if need_down else a_up
-    n_exp = 1 + n_dn if need_down else n_up
-
-    # --- binary phase ----------------------------------------------------
-    n_bin, done = 0, completed_up
-    while not done and ub - lb > ls_eps * lb and n_bin < MAX_BIN_ITERS:
-        beta = 0.5 * (lb + ub)
-        p = probe(beta)
-        ok = p.f >= 1
-        done = ok and p.min_z >= 1
-        if ok:
-            lb = beta
-        else:
-            ub = beta
-        n_bin += 1
-
-    alpha = a_up if completed_up else lb
-    # If this step completes the covering constraints, shrink it to the
-    # *smallest* completing alpha so packing does not overshoot (1+eps).
-    completes = _masked_min(z + alpha * dz, c_mask).item() >= 1
-    n_ref = 0
-    if completes:
-        alpha, n_ref = refine_completion(probe, alpha, ls_eps)
-    return StepSizeResult(alpha=alpha, probes=n_exp + n_bin + n_ref, completes=completes)
+    alpha, probes, completes = binary_search(y, dy, z, dz, eta, ls_eps, alpha0, p_keep=p_mask,
+                                             c_keep=c_mask).tolist()
+    return StepSizeResult(alpha=alpha, probes=int(probes), completes=bool(completes))
 
 
 def newton_step(y, z, dy, dz, eta, p_mask=None, c_mask=None, ls_eps=0.1, alpha0=None) -> StepSizeResult:
@@ -162,12 +118,46 @@ def newton_step_record(y, z, dy, dz, eta, ls_eps, d_max, alpha_prev, out=None, p
     float64 tensor, updated when the step is taken), over the rows the
     masks keep, and ``[alpha, probes, completes, step, bad]`` as a float64
     5-vector on y's device, into ``out`` when given. ``bad`` is ``d_max <=
-    0 or alpha < 1`` (Alg. 2 lines 8 and 12) and ``step`` is 0 if bad,
-    else alpha. On the card one launch of the search kernel; on the CPU its
+    0 or alpha < 1`` (Alg. 2 lines 8 and 12) and ``step`` is 0 if bad, else
+    alpha. On the card one launch of the search kernel; on the CPU its
     plain version (``kernels/linesearch_probe/ref.py``, ``newton_step_ref``).
     alpha, probes and completes are ``newton_step``'s at the same state."""
     return newton_search(y, dy, z, dz, eta, ls_eps, alpha_prev, d_max=d_max, out=out, p_keep=p_mask,
                          c_keep=c_mask)
+
+
+def binary_step_record(y, z, dy, dz, eta, ls_eps, d_max, alpha_prev, out=None, p_mask=None,
+                       c_mask=None) -> torch.Tensor:
+    """:func:`newton_step_record` for the binary rule: one launch of the
+    binary search kernel on the card (``ref.binary_step_ref`` on the CPU);
+    alpha, probes and completes are ``binary_search_step``'s at the same
+    state, warm-started at ``alpha_prev``."""
+    return binary_search(y, dy, z, dz, eta, ls_eps, alpha_prev, d_max=d_max, out=out, p_keep=p_mask,
+                         c_keep=c_mask)
+
+
+def standard_step_record(y, z, dy, dz, eta, ls_eps, d_max, alpha_prev, out=None, p_mask=None,
+                         c_mask=None) -> torch.Tensor:
+    """:func:`newton_step_record` for the standard rule, in plain tensor
+    operations on y's device (the reference's rule has no kernel): alpha 1,
+    probes 0, ``completes = min(z + dz) >= 1`` over the rows ``c_mask``
+    keeps, ``bad = d_max <= 0``, step 0 if bad else 1; ``alpha_prev``
+    becomes 1 when the step is taken. No host read."""
+    bad = (d_max <= 0).reshape(())
+    completes = _masked_min(z + dz, c_mask) >= 1
+    one = torch.ones((), dtype=torch.float64, device=y.device)
+    rec = torch.stack([one, torch.zeros_like(one), completes.double(), (~bad).double(), bad.double()])
+    alpha_prev.copy_(torch.where(bad, alpha_prev, one))
+    return rec if out is None else out.copy_(rec)
+
+
+def _binary_search_step_host(y, z, dy, dz, eta, p_mask=None, c_mask=None, ls_eps=0.1,
+                             alpha0=None) -> StepSizeResult:
+    """``binary_search_step`` as a host loop over ``make_probe_fn``'s probes
+    (one host sync each): over the probe kernel on the card, masked or not,
+    the binary search kernel's oracle."""
+    probe = make_probe_fn(y, z, dy, dz, eta, p_mask, c_mask)
+    return StepSizeResult(*binary_search_loop(probe, ls_eps, alpha0))
 
 
 def _newton_step_host(y, z, dy, dz, eta, p_mask=None, c_mask=None, ls_eps=0.1, alpha0=None) -> StepSizeResult:
@@ -178,8 +168,28 @@ def _newton_step_host(y, z, dy, dz, eta, p_mask=None, c_mask=None, ls_eps=0.1, a
     return StepSizeResult(*newton_search_loop(probe, torch.finfo(y.dtype).tiny, ls_eps, alpha0))
 
 
+def host_rule_record(step_fn: Callable[..., StepSizeResult]) -> Callable[..., torch.Tensor]:
+    """A record function over a host rule: ``step_fn`` (a rule of
+    ``STEP_RULES``' form, such as the oracles above) is called with the
+    warm start read from ``alpha_prev``, and the iteration's decision is
+    made on the host, with max(d) read back; the record and ``alpha_prev``
+    are then written as the record functions write them. It lets a host
+    rule drive the MWU loop, to hold a record function against it."""
+    def record(y, z, dy, dz, eta, ls_eps, d_max, alpha_prev, out=None, p_mask=None, c_mask=None):
+        ss = step_fn(y, z, dy, dz, eta, p_mask, c_mask, ls_eps, alpha_prev.item())
+        bad = d_max.item() <= 0 or ss.alpha < 1
+        if not bad:
+            alpha_prev.fill_(ss.alpha)
+        rec = torch.tensor([ss.alpha, ss.probes, ss.completes, 0.0 if bad else ss.alpha, float(bad)],
+                           dtype=torch.float64, device=y.device)
+        return rec if out is None else out.copy_(rec)
+
+    return record
+
+
 STEP_RULES = {
     "std": standard_step,
     "binary": binary_search_step,
     "newton": newton_step,
 }
+

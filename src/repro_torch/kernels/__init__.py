@@ -1,7 +1,8 @@
 """Hand-written CUDA kernels, one folder per kernel: the four of the MWU
 hot path and the flash attention of the LM plane's encoder forward. The
-line-search probe's folder also holds the Newton step-size search, which
-runs the whole search over its probes in one launch (``newton_search``).
+line-search probe's folder also holds the Newton and binary step-size
+searches, each of which runs a whole search over its probes in one launch
+(``newton_search``, ``binary_search``).
 Two more carry the iteration's other work: ``incidence_scatter``, the
 deterministic segmented sum behind every scatter product on the card,
 and ``step_direction``, the step direction and its max in one launch.
@@ -19,7 +20,7 @@ from .axpy_reduce import axpy_reduce
 from .flash_attention import flash_attention
 from .incidence_gather import incidence_gather
 from .incidence_scatter import incidence_scatter
-from .linesearch_probe import linesearch_probe, linesearch_probe2, newton_search
+from .linesearch_probe import binary_search, linesearch_probe, linesearch_probe2, newton_search
 from .loader import LAUNCHES
 from .softmax_weights import softmax_weights
 from .step_direction import step_direction
@@ -27,6 +28,7 @@ from .step_direction import step_direction
 __all__ = [
     "KERNELS",
     "axpy_reduce",
+    "binary_search",
     "flash_attention",
     "incidence_gather",
     "incidence_scatter",
@@ -49,6 +51,8 @@ KERNELS = {
                          "src/repro/kernels/linesearch_probe/kernel.py:83"),
     "newton_search": ("src/repro_torch/kernels/csrc/linesearch_probe.cu",
                       "src/repro/core/stepsize.py:261"),
+    "binary_search": ("src/repro_torch/kernels/csrc/linesearch_probe.cu",
+                      "src/repro/core/stepsize.py:180"),
     "axpy_reduce": ("src/repro_torch/kernels/csrc/axpy_reduce.cu",
                     "src/repro/kernels/axpy_reduce/kernel.py:55"),
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",

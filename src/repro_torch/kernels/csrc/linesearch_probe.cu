@@ -9,22 +9,27 @@
 // kept rows (core/stepsize.py's masked make_probe_fn), and a kept row's
 // arithmetic is the unmasked sweep's.
 //
-// newton_search runs the whole warm-started Newton step-size search of
-// core/stepsize.py (newton_step: the alpha = 0 sweep, the Newton loop,
-// the back-off and the completion refinement) on the card in one launch
-// over these probes, and writes [alpha, probes, completes] in double. In
-// its step form it also takes the MWU iteration's max(d) and the lane's
-// previous step (alpha_prev, the warm start) from device memory, and
-// writes the step the iteration takes and whether it is terminal:
-// [alpha, probes, completes, step, bad], with bad = max(d) <= 0 or
-// alpha < 1 (core/mwu.py) and step = bad ? 0 : alpha; alpha_prev becomes
-// alpha when the step is taken. The host then reads nothing of the search
-// before the updates, which read the step from memory (axpy_reduce.cu).
+// newton_search and binary_search run a whole step-size search of
+// core/stepsize.py on the card in one launch over these probes: the
+// warm-started Newton search (newton_step: the alpha = 0 sweep, the Newton
+// loop, the back-off and the completion refinement; newton_control.cuh)
+// or the binary search of Alg. 3 (binary_search_step: the alpha = 0 sweep,
+// the exponential phases, the bisection, the completion test and
+// refinement; binary_control.cuh), and write [alpha, probes, completes]
+// in double. In the step form a search also takes the MWU iteration's
+// max(d) and the lane's previous step (alpha_prev, the warm start) from
+// device memory, and writes the step the iteration takes and whether it
+// is terminal: [alpha, probes, completes, step, bad], with bad = max(d) <=
+// 0 or alpha < 1 (core/mwu.py) and step = bad ? 0 : alpha; alpha_prev
+// becomes alpha when the step is taken. The host then reads nothing of the
+// search before the updates, which read the step from memory
+// (axpy_reduce.cu).
 //
 // Replaces src/repro/kernels/linesearch_probe/kernel.py:
-// linesearch_probe_pallas (body _probe_kernel), and with newton_search
-// the lax.while_loops of src/repro/core/stepsize.py:261 (newton_step)
-// over it.
+// linesearch_probe_pallas (body _probe_kernel), with newton_search the
+// lax.while_loops of src/repro/core/stepsize.py:261 (newton_step) over it,
+// and with binary_search those of :180 (binary_search_step, :205,219,243)
+// and of _refine_completion (:174).
 //
 // Bound on the H100: bytes. One read of y, dy, z and dz,
 // 2*sizeof(T)*(ny + nz) bytes (and ny + nz bytes of masks), and six values
@@ -39,21 +44,22 @@
 // each. A block folds its threads into one partial in two phases, as the
 // partials are folded: the max first (comparisons only), then every state
 // rescaled to it by one exp and the sums added up, in a fixed tree, so
-// that no chain of dependent exps sits on the critical path. The Newton
-// search and the lone probe are one kernel on a cooperative
-// (co-resident) grid: a probe is the sweep, a grid barrier and the fold
-// of each side's partials in block-index order. A lone probe is its
-// one-probe case: block 0 folds and writes out. In a search every block
-// folds, so that each holds the probe's six values, bit for bit as a lone
-// probe writes them, and runs the search's control logic (in thread 0, in
-// double, as the host loop runs it in Python floats) to the same next
-// alpha: no second barrier is needed. The partials alternate between two
-// buffers, so that no block overwrites a partial that another block still
-// folds. v is rounded as the plain version rounds it (no FMA), so min is
-// exact against it.
+// that no chain of dependent exps sits on the critical path. The searches
+// and the lone probe are one kernel, templated over the search's
+// controller, on a cooperative (co-resident) grid: a probe is the sweep, a
+// grid barrier and the fold of each side's partials in block-index order.
+// A lone probe is its one-probe case: block 0 folds and writes out. In a
+// search every block folds, so that each holds the probe's six values, bit
+// for bit as a lone probe writes them, and runs the search's control logic
+// (in thread 0, in double, as the host loop runs it in Python floats) to
+// the same next alpha: no second barrier is needed. The partials alternate
+// between two buffers, so that no block overwrites a partial that another
+// block still folds. v is rounded as the plain version rounds it (no FMA),
+// so min is exact against it.
 #include <cooperative_groups.h>
 
 #include "common.cuh"
+#include "binary_control.cuh"
 #include "newton_control.cuh"
 
 namespace cg = cooperative_groups;
@@ -217,7 +223,7 @@ __device__ void fold_probe(const ProbeState<T>* part, int gy, int gz, T (&r)[6])
   r[5] = sm.z.mn;
 }
 
-// -- the Newton search -------------------------------------------------------
+// -- the searches -------------------------------------------------------------
 
 template <typename T>
 struct SearchParams {
@@ -244,12 +250,12 @@ __device__ __forceinline__ SearchArgs search_args(const SearchParams<T>& prm) {
   return a;
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads, kCoopBlocksPerSM) newton_search_kernel(SearchParams<T> prm) {
+template <typename T, typename Control>
+__global__ void __launch_bounds__(kThreads, kCoopBlocksPerSM) search_kernel(SearchParams<T> prm) {
   cg::grid_group grid = cg::this_grid();
   __shared__ double s_alpha;
   __shared__ bool s_more;
-  NewtonControl ctl(search_args(prm));
+  Control ctl(search_args(prm));
   if (threadIdx.x == 0) s_alpha = prm.probe_out ? prm.alpha : 0.0;  // a search first sweeps at alpha = 0
   __syncthreads();
   for (int k = 0;; ++k) {
@@ -276,7 +282,7 @@ __global__ void __launch_bounds__(kThreads, kCoopBlocksPerSM) newton_search_kern
   }
   if (blockIdx.x == 0 && threadIdx.x == 0) {
     prm.out[0] = ctl.a;
-    prm.out[1] = (double)(ctl.n + ctl.n_bo + ctl.n_ref);
+    prm.out[1] = (double)ctl.probes();
     prm.out[2] = ctl.completes ? 1.0 : 0.0;
     if (prm.dmax) {  // the step form: the iteration's decision (core/mwu.py, Alg. 2 lines 8 and 12)
       const bool bad = *prm.dmax <= T(0) || ctl.a < 1.0;
@@ -313,17 +319,20 @@ inline ProbeArgs<T> probe_args(const T* y, const T* dy, const uint8_t* ky, int64
   return {y, dy, z, dz, ky, kz, ny, nz, (T)se_y, (T)se_z, s.gy, s.gz};
 }
 
-// A search and a lone probe launch the same kernel on the same grid, so
-// that a probe inside a search gives the lone probe's bits.
-template <typename T>
+// A search and a lone probe launch the same kernel body on the same grid,
+// so that a probe inside a search gives the lone probe's bits. The lone
+// probe is the Newton instantiation's one-probe case. Both instantiations
+// hold kCoopBlocksPerSM blocks an SM (__launch_bounds__), and coop_blocks,
+// whose count is kept per params type, gives them one grid.
+template <typename T, typename Control>
 int launch_search(const T* y, const T* dy, const uint8_t* ky, int64_t ny, double se_y, const T* z, const T* dz,
                   const uint8_t* kz, int64_t nz, double se_z, const SearchArgs& args, T* part, double* out,
                   T* probe_out, double alpha, const T* dmax, double* alpha_prev, cudaStream_t stream) {
   int nb_max = 0;
-  if (const cudaError_t rc = coop_blocks(newton_search_kernel<T>, nb_max)) return (int)rc;
+  if (const cudaError_t rc = coop_blocks(search_kernel<T, Control>, nb_max)) return (int)rc;
   const SearchParams<T> prm{probe_args(y, dy, ky, ny, se_y, z, dz, kz, nz, se_z, nb_max), args,
                             reinterpret_cast<ProbeState<T>*>(part), out, probe_out, alpha, dmax, alpha_prev};
-  return launch_cooperative(newton_search_kernel<T>, prm.p.gy + prm.p.gz, prm, stream);
+  return launch_cooperative(search_kernel<T, Control>, prm.p.gy + prm.p.gz, prm, stream);
 }
 
 // part: scratch of 4*kMaxPartials values; out: 6 values (3 when nz = 0);
@@ -332,25 +341,27 @@ template <typename T>
 int linesearch_probe2(const T* y, const T* dy, const uint8_t* ky, int64_t ny, double se_y, const T* z, const T* dz,
                       const uint8_t* kz, int64_t nz, double se_z, double alpha, T* part, T* out,
                       cudaStream_t stream) {
-  return launch_search(y, dy, ky, ny, se_y, z, dz, kz, nz, se_z, SearchArgs{}, part, nullptr, out, alpha,
-                       (const T*)nullptr, nullptr, stream);
+  return launch_search<T, NewtonControl>(y, dy, ky, ny, se_y, z, dz, kz, nz, se_z, SearchArgs{}, part, nullptr,
+                                        out, alpha, (const T*)nullptr, nullptr, stream);
 }
 
 // part: scratch of 8*kMaxPartials values; out: 3 doubles, or 5 in the step
 // form (dmax and alpha_prev given; alpha0 is then read from alpha_prev).
-template <typename T>
-int newton_search(const T* y, const T* dy, const uint8_t* ky, int64_t ny, const T* z, const T* dz, const uint8_t* kz,
-                  int64_t nz, double eta, double ls_eps, double alpha0, int has_alpha0, double tiny, T* part,
-                  double* out, const T* dmax, double* alpha_prev, cudaStream_t stream) {
+// Control: NewtonControl (newton_search) or BinaryControl (binary_search).
+template <typename T, typename Control>
+int run_search(const T* y, const T* dy, const uint8_t* ky, int64_t ny, const T* z, const T* dz, const uint8_t* kz,
+           int64_t nz, double eta, double ls_eps, double alpha0, int has_alpha0, double tiny, T* part, double* out,
+           const T* dmax, double* alpha_prev, cudaStream_t stream) {
   if ((dmax == nullptr) != (alpha_prev == nullptr)) return (int)cudaErrorInvalidValue;
-  return launch_search(y, dy, ky, ny, eta, z, dz, kz, nz, -eta, SearchArgs{eta, ls_eps, tiny, alpha0, has_alpha0},
-                       part, out, (T*)nullptr, 0.0, dmax, alpha_prev, stream);
+  return launch_search<T, Control>(y, dy, ky, ny, eta, z, dz, kz, nz, -eta,
+                                   SearchArgs{eta, ls_eps, tiny, alpha0, has_alpha0}, part, out, (T*)nullptr, 0.0,
+                                   dmax, alpha_prev, stream);
 }
 
 }  // namespace rt
 
-// Partials of a one-launch reduction (softmax_weights, linesearch_probe,
-// newton_search) at most: the wrappers size their scratch by it.
+// Partials of a one-launch reduction (softmax_weights, linesearch_probe and
+// the searches) at most: the wrappers size their scratch by it.
 extern "C" int rt_max_partials() { return rt::kMaxPartials; }
 
 extern "C" int rt_linesearch_probe2_f32(const float* y, const float* dy, const uint8_t* ky, int64_t ny, double se_y,
@@ -367,18 +378,16 @@ extern "C" int rt_linesearch_probe2_f64(const double* y, const double* dy, const
                                        (cudaStream_t)stream);
 }
 
-extern "C" int rt_newton_search_f32(const float* y, const float* dy, const uint8_t* ky, int64_t ny, const float* z,
-                                    const float* dz, const uint8_t* kz, int64_t nz, double eta, double ls_eps,
-                                    double alpha0, int has_alpha0, double tiny, float* part, double* out,
-                                    const float* dmax, double* alpha_prev, void* stream) {
-  return rt::newton_search<float>(y, dy, ky, ny, z, dz, kz, nz, eta, ls_eps, alpha0, has_alpha0, tiny, part, out,
-                                  dmax, alpha_prev, (cudaStream_t)stream);
-}
+#define RT_SEARCH_ENTRY(NAME, CONTROL, T, SUFFIX)                                                            \
+  extern "C" int NAME##_##SUFFIX(const T* y, const T* dy, const uint8_t* ky, int64_t ny, const T* z, const T* dz,    \
+                                 const uint8_t* kz, int64_t nz, double eta, double ls_eps, double alpha0,            \
+                                 int has_alpha0, double tiny, T* part, double* out, const T* dmax,                   \
+                                 double* alpha_prev, void* stream) {                                                 \
+    return rt::run_search<T, rt::CONTROL>(y, dy, ky, ny, z, dz, kz, nz, eta, ls_eps, alpha0, has_alpha0, tiny,       \
+                                          part, out, dmax, alpha_prev, (cudaStream_t)stream);                        \
+  }
 
-extern "C" int rt_newton_search_f64(const double* y, const double* dy, const uint8_t* ky, int64_t ny, const double* z,
-                                    const double* dz, const uint8_t* kz, int64_t nz, double eta, double ls_eps,
-                                    double alpha0, int has_alpha0, double tiny, double* part, double* out,
-                                    const double* dmax, double* alpha_prev, void* stream) {
-  return rt::newton_search<double>(y, dy, ky, ny, z, dz, kz, nz, eta, ls_eps, alpha0, has_alpha0, tiny, part, out,
-                                   dmax, alpha_prev, (cudaStream_t)stream);
-}
+RT_SEARCH_ENTRY(rt_newton_search, NewtonControl, float, f32)
+RT_SEARCH_ENTRY(rt_newton_search, NewtonControl, double, f64)
+RT_SEARCH_ENTRY(rt_binary_search, BinaryControl, float, f32)
+RT_SEARCH_ENTRY(rt_binary_search, BinaryControl, double, f64)

@@ -1,11 +1,13 @@
-// The control logic of the Newton step-size search that newton_search_kernel
+// The control logic of the Newton step-size search that search_kernel
 // (linesearch_probe.cu) runs on the card: the host loop of
 // kernels/linesearch_probe/ref.py (newton_search_loop over
 // two_sided_probe_fn, with its alpha = 0 sweep, and refine_completion),
 // operation for operation in double with explicit roundings (nothing
 // contracted into an FMA), as the host runs it in Python floats. It touches no memory and
 // no CUDA type, so tests/test_torch_newton_control.py also compiles it for
-// the host and holds it against the host loop on the CPU.
+// the host and holds it against the host loop on the CPU. SearchBase, the
+// probe's evaluation and the completion refinement, is shared with the
+// binary rule's controller (binary_control.cuh).
 #pragma once
 
 #include <math.h>
@@ -15,6 +17,7 @@ namespace rt {
 constexpr int kMaxNewtonIters = 30;  // ref.py's caps, the reference's
 constexpr int kMaxBackoffIters = 64;
 constexpr int kMaxBinIters = 64;
+constexpr int kMaxExpIters = 64;
 
 // NaN-propagating max and min, as ref.py's fmax and fmin.
 __device__ __forceinline__ double fmax_nan(double a, double b) {
@@ -29,23 +32,29 @@ struct SearchArgs {
   int has_alpha0;
 };
 
-// step() takes the six values of the probe it asked for (widened from T)
-// and returns whether it wants another, at *next; the loops are those of
-// the host, entered and resumed in order.
-struct NewtonControl {
-  enum Stage { kZero, kFirst, kNewton, kBackoff, kRefine };
+// What both controllers share: f(alpha) and its pieces from a probe's six
+// values, and the completion refinement (ref.py's refine_completion). A
+// controller's step() takes the six values of the probe it asked for
+// (widened from T) and returns whether it wants another, at *next; the
+// loops are those of the host, entered and resumed in order. Its result
+// is a (alpha), probes() and completes.
+struct SearchBase {
   struct Probe {
     double f, phi, psi, dphi, dpsi, min_z;
   };
 
   SearchArgs c;
-  Stage stage = kZero;
-  double lse_y0 = 0, lse_z0 = 0, a = 0, a2 = 0, lo = 0, h = 0, mid = 0;
-  Probe p = {};
-  int n = 0, n_bo = 0, n_ref = 0;
-  bool done = false, completes = false;
+  double lse_y0 = 0, lse_z0 = 0, a = 0, lo = 0, h = 0, mid = 0;
+  int n_ref = 0;
+  bool completes = false;
 
-  __device__ explicit NewtonControl(const SearchArgs& args) : c(args) {}
+  __device__ explicit SearchBase(const SearchArgs& args) : c(args) {}
+
+  // the alpha = 0 sweep: the sides' lse at the current point
+  __device__ void zero(const double (&r)[6]) {
+    lse_y0 = r[0];
+    lse_z0 = r[3];
+  }
 
   // two_sided_probe_fn's probe
   __device__ Probe eval(const double (&r)[6]) const {
@@ -58,6 +67,46 @@ struct NewtonControl {
     q.min_z = r[5];
     return q;
   }
+
+  // refine_completion from hi: bisect (0, hi] for the smallest completing alpha
+  __device__ bool refine_start(double hi, double* next) {
+    lo = 0.0;
+    h = hi;
+    return refine_next(next);
+  }
+
+  __device__ bool refine_next(double* next) {
+    if (__dsub_rn(h, lo) > __dmul_rn(c.ls_eps, h) && n_ref < kMaxBinIters) {
+      mid = __dmul_rn(0.5, __dadd_rn(lo, h));
+      *next = mid;
+      return true;
+    }
+    a = fmax_nan(h, 1.0);
+    return false;
+  }
+
+  __device__ bool refine_take(double min_z, double* next) {
+    if (min_z >= 1)
+      h = mid;
+    else
+      lo = mid;
+    n_ref += 1;
+    return refine_next(next);
+  }
+};
+
+struct NewtonControl : SearchBase {
+  enum Stage { kZero, kFirst, kNewton, kBackoff, kRefine };
+
+  Stage stage = kZero;
+  double a2 = 0;
+  Probe p = {};
+  int n = 0, n_bo = 0;
+  bool done = false;
+
+  __device__ explicit NewtonControl(const SearchArgs& args) : SearchBase(args) {}
+
+  __device__ int probes() const { return n + n_bo + n_ref; }
 
   __device__ bool newton_loop(double* next) {
     if (!done && n < kMaxNewtonIters) {
@@ -84,27 +133,14 @@ struct NewtonControl {
     completes = p.min_z >= 1 && p.f >= 1;
     n_ref = 0;
     if (!completes) return false;
-    lo = 0.0;
-    h = a;
-    return refine_loop(next);
-  }
-
-  __device__ bool refine_loop(double* next) {
-    if (__dsub_rn(h, lo) > __dmul_rn(c.ls_eps, h) && n_ref < kMaxBinIters) {
-      mid = __dmul_rn(0.5, __dadd_rn(lo, h));
-      *next = mid;
-      stage = kRefine;
-      return true;
-    }
-    a = fmax_nan(h, 1.0);
-    return false;
+    stage = kRefine;
+    return refine_start(a, next);
   }
 
   __device__ bool step(const double (&r)[6], double* next) {
     switch (stage) {
       case kZero:
-        lse_y0 = r[0];
-        lse_z0 = r[3];
+        zero(r);
         a = c.has_alpha0 ? fmax_nan(c.alpha0, 1e-6) : 1.0;
         *next = a;
         stage = kFirst;
@@ -127,12 +163,7 @@ struct NewtonControl {
         n_bo += 1;
         return backoff_loop(next);
       case kRefine:
-        if (r[5] >= 1)
-          h = mid;
-        else
-          lo = mid;
-        n_ref += 1;
-        return refine_loop(next);
+        return refine_take(r[5], next);
     }
     return false;
   }

@@ -1,16 +1,17 @@
-"""Fused line-search probe, and the Newton step-size search over it.
+"""Fused line-search probe, and the step-size searches over it.
 
 Port of ``repro.kernels.linesearch_probe``. With ``v = y + alpha*dy`` and
 ``a = sign*eta*v`` a probe returns ``[logsumexp(a), <softmax(a), dy>,
 min(v)]``: the smoothed-max piece of Psi/Phi, its Newton slope and the
 completion test, from one read of each vector. :func:`linesearch_probe2`
 evaluates both sides of a step-size probe (packing side y with sign +1,
-covering side z with sign -1) in one launch; :func:`newton_search` runs
-the whole Newton search of ``core.stepsize.newton_step`` over such probes
-in one launch, and in its step form also decides the MWU iteration's
-step there. CUDA tensors launch the hand-written kernel of
-``csrc/linesearch_probe.cu`` (a lone probe is the search kernel's
-one-probe case); CPU tensors take the plain versions in ``ref.py``.
+covering side z with sign -1) in one launch; :func:`newton_search` and
+:func:`binary_search` run the whole search of ``core.stepsize.newton_step``
+and ``core.stepsize.binary_search_step`` over such probes in one launch,
+and in their step form also decide the MWU iteration's step there. CUDA
+tensors launch the hand-written kernel of ``csrc/linesearch_probe.cu``
+(a lone probe is the search kernel's one-probe case); CPU tensors take
+the plain versions in ``ref.py``.
 
 Each side may carry a row mask (``p_keep`` for (y, dy), ``c_keep`` for
 (z, dz); bool or uint8, one byte a row): the rows it does not keep count
@@ -21,7 +22,8 @@ kernel's, so an all-true mask gives the unmasked bits.
 import torch
 
 from .. import loader
-from .ref import linesearch_probe2_ref, linesearch_probe_ref, newton_search_ref, newton_step_ref
+from .ref import (binary_search_ref, binary_step_ref, linesearch_probe2_ref, linesearch_probe_ref,
+                  newton_search_ref, newton_step_ref)
 
 
 def _launch(name, y, dy, ky, z, dz, kz, nz, se_y, se_z, alpha, out):
@@ -90,6 +92,36 @@ def linesearch_probe2(y: torch.Tensor, dy: torch.Tensor, z: torch.Tensor, dz: to
     return _launch("linesearch_probe2", y, dy, ky, z, dz, kz, z.shape[0], float(eta), -float(eta), alpha, out)
 
 
+def _search(name: str, y, dy, z, dz, eta, ls_eps, alpha0, d_max, out, p_keep, c_keep) -> torch.Tensor:
+    """One launch of the search kernel of rule ``name`` ("newton_search" or
+    "binary_search"), checked as both wrappers take their arguments."""
+    step = d_max is not None
+    dtype = loader.check_vectors(name, y, dy, z, dz)
+    _check(name, y, dy)
+    _check(name, z, dz)
+    ky, kz = loader.check_keep(name, y, p_keep), loader.check_keep(name, z, c_keep)
+    dev = y.device
+    size = 5 if step else 3
+    if step:
+        if d_max.dtype != dtype or d_max.device != dev or d_max.numel() != 1:
+            raise ValueError(f"{name}: d_max must be one {dtype} value on {dev}")
+        loader.check_slot(name, y, alpha0, 1, "alpha0 (the step form's alpha_prev)")
+    if out is None:
+        out = torch.empty(size, dtype=torch.float64, device=dev)
+    loader.check_slot(name, y, out, size, "out")
+    with torch.cuda.device(dev):
+        part = loader.scratch(name, y, 8)
+        rc = loader.kernel_fn("rt_" + name, dtype)(
+            y.data_ptr(), dy.data_ptr(), ky, y.shape[0], z.data_ptr(), dz.data_ptr(), kz, z.shape[0], float(eta),
+            float(ls_eps), 0.0 if step or alpha0 is None else float(alpha0), not step and alpha0 is not None,
+            torch.finfo(dtype).tiny, part.data_ptr(), out.data_ptr(), d_max.data_ptr() if step else None,
+            alpha0.data_ptr() if step else None, loader.stream_handle(y),
+        )
+    loader.check_status(rc, name)
+    loader.LAUNCHES[name] += 1
+    return out
+
+
 def newton_search(y: torch.Tensor, dy: torch.Tensor, z: torch.Tensor, dz: torch.Tensor, eta: float, ls_eps: float,
                   alpha0=None, *, d_max: torch.Tensor | None = None, out: torch.Tensor | None = None,
                   p_keep: torch.Tensor | None = None, c_keep: torch.Tensor | None = None) -> torch.Tensor:
@@ -109,32 +141,26 @@ def newton_search(y: torch.Tensor, dy: torch.Tensor, z: torch.Tensor, dz: torch.
     step, bad]`` (``ref.newton_step_ref``), into ``out`` (a contiguous
     float64 5-vector) when given.
     """
-    step = d_max is not None
     if y.device.type == "cpu":
-        r = newton_step_ref(y, dy, z, dz, eta, ls_eps, d_max, alpha0, p_keep, c_keep) if step else \
+        r = newton_step_ref(y, dy, z, dz, eta, ls_eps, d_max, alpha0, p_keep, c_keep) if d_max is not None else \
             newton_search_ref(y, dy, z, dz, eta, ls_eps, alpha0, p_keep, c_keep)
         return r if out is None else out.copy_(r)
-    dtype = loader.check_vectors("newton_search", y, dy, z, dz)
-    _check("newton_search", y, dy)
-    _check("newton_search", z, dz)
-    ky, kz = loader.check_keep("newton_search", y, p_keep), loader.check_keep("newton_search", z, c_keep)
-    dev = y.device
-    size = 5 if step else 3
-    if step:
-        if d_max.dtype != dtype or d_max.device != dev or d_max.numel() != 1:
-            raise ValueError(f"newton_search: d_max must be one {dtype} value on {dev}")
-        loader.check_slot("newton_search", y, alpha0, 1, "alpha0 (the step form's alpha_prev)")
-    if out is None:
-        out = torch.empty(size, dtype=torch.float64, device=dev)
-    loader.check_slot("newton_search", y, out, size, "out")
-    with torch.cuda.device(dev):
-        part = loader.scratch("newton_search", y, 8)
-        rc = loader.kernel_fn("rt_newton_search", dtype)(
-            y.data_ptr(), dy.data_ptr(), ky, y.shape[0], z.data_ptr(), dz.data_ptr(), kz, z.shape[0], float(eta),
-            float(ls_eps), 0.0 if step or alpha0 is None else float(alpha0), not step and alpha0 is not None,
-            torch.finfo(dtype).tiny, part.data_ptr(), out.data_ptr(), d_max.data_ptr() if step else None,
-            alpha0.data_ptr() if step else None, loader.stream_handle(y),
-        )
-    loader.check_status(rc, "newton_search")
-    loader.LAUNCHES["newton_search"] += 1
-    return out
+    return _search("newton_search", y, dy, z, dz, eta, ls_eps, alpha0, d_max, out, p_keep, c_keep)
+
+
+def binary_search(y: torch.Tensor, dy: torch.Tensor, z: torch.Tensor, dz: torch.Tensor, eta: float, ls_eps: float,
+                  alpha0=None, *, d_max: torch.Tensor | None = None, out: torch.Tensor | None = None,
+                  p_keep: torch.Tensor | None = None, c_keep: torch.Tensor | None = None) -> torch.Tensor:
+    """The binary step-size search of ``core.stepsize.binary_search_step``
+    (Alg. 3: exponential bracket, bisection, completion test and
+    refinement), over the rows the masks keep, in one launch. Arguments,
+    forms and results are :func:`newton_search`'s: on the card the same
+    alpha (bit for bit), probes and completes as the host loop over
+    :func:`linesearch_probe2`; on the CPU that loop over the plain probe
+    (``ref.binary_search_ref``, ``ref.binary_step_ref`` in the step form).
+    """
+    if y.device.type == "cpu":
+        r = binary_step_ref(y, dy, z, dz, eta, ls_eps, d_max, alpha0, p_keep, c_keep) if d_max is not None else \
+            binary_search_ref(y, dy, z, dz, eta, ls_eps, alpha0, p_keep, c_keep)
+        return r if out is None else out.copy_(r)
+    return _search("binary_search", y, dy, z, dz, eta, ls_eps, alpha0, d_max, out, p_keep, c_keep)

@@ -1,10 +1,11 @@
 """Plain versions of the line-search probe (PyTorch, dtype-preserving) and
-of the Newton step-size search over it.
+of the step-size searches over it.
 
-The search is ``core.stepsize``'s Newton rule as a host loop over probes,
-one host read a probe. :func:`newton_search_loop` takes any probe
-function: ``core.stepsize`` runs it over the probe kernel on the card,
-where it is the search kernel's oracle. Every function takes optional row
+The searches are ``core.stepsize``'s Newton and binary rules as host loops
+over probes, one host read a probe. :func:`newton_search_loop` and
+:func:`binary_search_loop` take any probe function: ``core.stepsize`` runs
+them over the probe kernel on the card, where they are the search kernel's
+oracles. Every function takes optional row
 masks (``keep``; ``p_keep`` for the packing side, ``c_keep`` for the
 covering side): a row that is not kept counts as a = -inf and is left out
 of min v, as ``core.stepsize``'s masked ``make_probe_fn`` leaves it out.
@@ -19,6 +20,7 @@ import torch
 MAX_NEWTON_ITERS = 30  # the reference's caps
 MAX_BACKOFF_ITERS = 64
 MAX_BIN_ITERS = 64
+MAX_EXP_ITERS = 64  # 2^64 dynamic range is enough for any float32/64 alpha
 
 
 def linesearch_probe_ref(y: torch.Tensor, dy: torch.Tensor, alpha: float, eta: float, sign: float = 1.0,
@@ -147,14 +149,92 @@ def newton_search_loop(probe: Callable[[float], Probe], tiny: float, ls_eps: flo
     return a, n + n_bo + n_ref, completes
 
 
+def binary_search_loop(probe: Callable[[float], Probe], ls_eps: float, alpha0: float | None) -> tuple[float, int, bool]:
+    """Algorithm 3: exponential bracket + binary search, warm-startable:
+    ``(alpha, probes, completes)``.
+
+    Returns the largest alpha with f(alpha) >= 1 up to relative width
+    ls_eps; a step that completes the covering constraints (min(z + alpha
+    dz) >= 1, read from one more sweep at alpha that is not counted as a
+    probe) is then shrunk to the smallest completing alpha.
+    """
+    a0 = 1.0 if alpha0 is None else fmax(alpha0, 1.0)
+    p0 = probe(a0)
+
+    # upward exponential phase: double while f >= 1; stop on bracket (f < 1)
+    # or on covering completion (Alg. 3 line 4)
+    a_up, p_up, n_up = a0, p0, 1
+    while p_up.f >= 1 and p_up.min_z < 1 and n_up < MAX_EXP_ITERS:
+        a_up *= 2
+        p_up = probe(a_up)
+        n_up += 1
+    completed_up = p_up.f >= 1 and p_up.min_z >= 1
+
+    # downward exponential phase (warm start overshot): halve while f < 1
+    a_dn, p_dn, n_dn = a0, p0, 0
+    while p_dn.f < 1 and a_dn > 1e-12 and n_dn < MAX_EXP_ITERS:
+        a_dn /= 2
+        p_dn = probe(a_dn)
+        n_dn += 1
+
+    # bracket [lb, ub] with f(lb) >= 1 > f(ub)
+    need_down = p0.f < 1
+    lb = a_dn if need_down else a_up / 2
+    ub = a_dn * 2 if need_down else a_up
+    n_exp = 1 + n_dn if need_down else n_up
+
+    # binary phase
+    n_bin, done = 0, completed_up
+    while not done and ub - lb > ls_eps * lb and n_bin < MAX_BIN_ITERS:
+        beta = 0.5 * (lb + ub)
+        p = probe(beta)
+        ok = p.f >= 1
+        done = ok and p.min_z >= 1
+        if ok:
+            lb = beta
+        else:
+            ub = beta
+        n_bin += 1
+
+    alpha = a_up if completed_up else lb
+    # a completing step shrinks to the smallest completing alpha, so that
+    # packing does not overshoot (1+eps)
+    completes = probe(alpha).min_z >= 1
+    n_ref = 0
+    if completes:
+        alpha, n_ref = refine_completion(probe, alpha, ls_eps)
+    return alpha, n_exp + n_bin + n_ref, completes
+
+
+def _plain_probe(y, dy, z, dz, eta: float, p_keep, c_keep) -> Callable[[float], Probe]:
+    return two_sided_probe_fn(lambda a: linesearch_probe2_ref(y, dy, z, dz, a, eta, p_keep, c_keep).tolist(), eta,
+                              torch.finfo(y.dtype).tiny)
+
+
 def newton_search_ref(y, dy, z, dz, eta: float, ls_eps: float, alpha0: float | None = None, p_keep=None,
                       c_keep=None) -> torch.Tensor:
     """The Newton search over plain two-sided probes: ``[alpha, probes,
     completes]`` as a float64 3-vector on y's device."""
-    tiny = torch.finfo(y.dtype).tiny
-    probe = two_sided_probe_fn(lambda a: linesearch_probe2_ref(y, dy, z, dz, a, eta, p_keep, c_keep).tolist(), eta,
-                               tiny)
-    return torch.tensor(newton_search_loop(probe, tiny, ls_eps, alpha0), dtype=torch.float64, device=y.device)
+    probe = _plain_probe(y, dy, z, dz, eta, p_keep, c_keep)
+    return torch.tensor(newton_search_loop(probe, torch.finfo(y.dtype).tiny, ls_eps, alpha0), dtype=torch.float64,
+                        device=y.device)
+
+
+def binary_search_ref(y, dy, z, dz, eta: float, ls_eps: float, alpha0: float | None = None, p_keep=None,
+                      c_keep=None) -> torch.Tensor:
+    """The binary search over plain two-sided probes: ``[alpha, probes,
+    completes]`` as a float64 3-vector on y's device."""
+    probe = _plain_probe(y, dy, z, dz, eta, p_keep, c_keep)
+    return torch.tensor(binary_search_loop(probe, ls_eps, alpha0), dtype=torch.float64, device=y.device)
+
+
+def _step_ref(search, y, dy, z, dz, eta, ls_eps, d_max, alpha_prev, p_keep, c_keep) -> torch.Tensor:
+    alpha, probes, completes = search(y, dy, z, dz, eta, ls_eps, float(alpha_prev), p_keep, c_keep).tolist()
+    bad = float(d_max) <= 0 or alpha < 1
+    if not bad:
+        alpha_prev.fill_(alpha)
+    return torch.tensor([alpha, probes, completes, 0.0 if bad else alpha, float(bad)], dtype=torch.float64,
+                        device=y.device)
 
 
 def newton_step_ref(y, dy, z, dz, eta: float, ls_eps: float, d_max: torch.Tensor, alpha_prev: torch.Tensor,
@@ -165,10 +245,10 @@ def newton_step_ref(y, dy, z, dz, eta: float, ls_eps: float, d_max: torch.Tensor
     step, bad]`` as a float64 5-vector with ``bad = max(d) <= 0 or alpha <
     1`` and ``step = 0 if bad else alpha``; ``alpha_prev`` becomes alpha
     when the step is taken."""
-    alpha, probes, completes = newton_search_ref(y, dy, z, dz, eta, ls_eps, float(alpha_prev), p_keep,
-                                                 c_keep).tolist()
-    bad = float(d_max) <= 0 or alpha < 1
-    if not bad:
-        alpha_prev.fill_(alpha)
-    return torch.tensor([alpha, probes, completes, 0.0 if bad else alpha, float(bad)], dtype=torch.float64,
-                        device=y.device)
+    return _step_ref(newton_search_ref, y, dy, z, dz, eta, ls_eps, d_max, alpha_prev, p_keep, c_keep)
+
+
+def binary_step_ref(y, dy, z, dz, eta: float, ls_eps: float, d_max: torch.Tensor, alpha_prev: torch.Tensor,
+                    p_keep=None, c_keep=None) -> torch.Tensor:
+    """``newton_step_ref`` with the binary search in place of the Newton one."""
+    return _step_ref(binary_search_ref, y, dy, z, dz, eta, ls_eps, d_max, alpha_prev, p_keep, c_keep)

@@ -72,6 +72,7 @@ _F64 = ctypes.c_double
 # C signature of each entry point, and the dtypes it is built for (one
 # symbol each: name + _f32 / _f64 / _bf16)
 _FLOAT = (torch.float32, torch.float64)
+_SEARCH_ARGS = [_PTR, _PTR, _PTR, _I64, _PTR, _PTR, _PTR, _I64, _F64, _F64, _F64, _INT, _F64] + [_PTR] * 5
 _ENTRY_POINTS = {
     "rt_incidence_gather": ([_PTR, _PTR, _PTR, _PTR, _I64, _PTR], _FLOAT),
     # v, keep, se, n, part, stats, w, stream
@@ -80,8 +81,8 @@ _ENTRY_POINTS = {
     "rt_linesearch_probe2": ([_PTR, _PTR, _PTR, _I64, _F64, _PTR, _PTR, _PTR, _I64, _F64, _F64, _PTR, _PTR, _PTR],
                              _FLOAT),
     # y, dy, ky, ny, z, dz, kz, nz, eta, ls_eps, alpha0, has_alpha0, tiny, part, out, dmax, alpha_prev, stream
-    "rt_newton_search": ([_PTR, _PTR, _PTR, _I64, _PTR, _PTR, _PTR, _I64, _F64, _F64, _F64, _INT, _F64] + [_PTR] * 5,
-                         _FLOAT),
+    "rt_newton_search": (_SEARCH_ARGS, _FLOAT),
+    "rt_binary_search": (_SEARCH_ARGS, _FLOAT),
     # y, dy, keep, alpha, alpha_dev, n, nb, out, part, red, stream
     "rt_axpy_reduce": ([_PTR, _PTR, _PTR, _F64, _PTR, _I64, _INT, _PTR, _PTR, _PTR, _PTR], _FLOAT),
     # x, base, out, n; (offsets, splits, src, wt, nnz, lo, span, slabs) of side A, then of side B; order,

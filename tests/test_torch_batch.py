@@ -28,6 +28,7 @@ from repro_torch import kernels as K
 from repro_torch.api import MWUOptions, Problem, Solver, stack_problems
 from repro_torch.core import Dense, mwu
 from repro_torch.core import stepsize as T
+from repro_torch.kernels.linesearch_probe import ops as probe_ops
 from repro_torch.graphs import bipartite_ratings, build, erdos, generalized_matching_problem, grid2d, rgg
 from test_torch_solver import port_problem
 from test_torch_stepsize import CASES, LS_EPS, _state
@@ -164,14 +165,46 @@ def test_probe_rounds_go_through_solve_batch(monkeypatch):
 
 @pytest.mark.parametrize("rule", ["binary", "std"])
 def test_host_rule_lanes_equal_feasible(rule):
-    """Lanes of the host rules (their step read back each iteration) equal
-    their own solves too."""
+    """Lanes of the binary and standard rules (their step decided on the
+    device, as the Newton lanes' is) equal their own solves too."""
     prob = build("match", grid2d(5), device="cpu")
     solver = Solver(MWUOptions(eps=EPS, step_rule=rule, max_iter=3000))
     bounds = np.geomspace(prob.lo, prob.hi, 3)
     batch = solver.solve_batch(prob, bounds)
     for j, b in enumerate(bounds):
         _assert_lane_equals(batch, j, solver.feasible(prob, float(b)))
+
+
+@pytest.mark.parametrize("rule", ["binary", "std"])
+def test_rule_lanes_read_once_a_loop_iteration(rule, monkeypatch):
+    """A binary and a standard solve of three lanes call the rule's record
+    function once a lane iteration and read the host once a loop iteration
+    for all lanes (the record), plus once to start and once to finish. The
+    binary search's plain version, which stands for one launch, is not
+    counted."""
+    prob = build("match", grid2d(5), device="cpu")
+    lanes = [prob.instantiate(b) for b in np.geomspace(prob.lo, prob.hi, 3)]
+    fn = {"binary": "binary_step_record", "std": "standard_step_record"}[rule]
+    calls, reads = [], []
+    record = getattr(mwu, fn)
+    monkeypatch.setattr(mwu, fn, lambda *a, **k: calls.append(fn) or record(*a, **k))
+    for method_name in ("item", "tolist"):
+        method = getattr(torch.Tensor, method_name)
+        monkeypatch.setattr(torch.Tensor, method_name, lambda t, _m=method, _n=method_name: reads.append(_n) or _m(t))
+    plain = probe_ops.binary_step_ref
+
+    def uncounted(*a, **k):
+        n = len(reads)
+        out = plain(*a, **k)
+        del reads[n:]
+        return out
+
+    monkeypatch.setattr(probe_ops, "binary_step_ref", uncounted)
+    res = mwu.solve_lanes(lanes, MWUOptions(eps=EPS, step_rule=rule, max_iter=3000))
+    monkeypatch.undo()
+    assert calls == [fn] * int(res.iters.sum()) and int(res.iters.min()) > 0
+    assert len(reads) == int(res.iters.max()) + 2 and set(reads) == {"tolist"}
+    assert K.launch_counts() == {name: 0 for name in K.KERNELS}
 
 
 # ------------------------------------------------------- stack_problems --

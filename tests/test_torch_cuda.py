@@ -18,7 +18,9 @@ from dataclasses import replace
 from repro_torch import kernels as K
 from repro_torch.api import MWUOptions, Solver, Status, stack_problems
 from repro_torch.configs import get
-from repro_torch.graphs import bipartite_ratings, build, erdos, generalized_matching_problem, rgg
+from repro_torch.core import MPCOptions, mpc_solve
+from repro_torch.graphs import (bipartite_ratings, build, erdos, generalized_matching_lp, generalized_matching_problem,
+                                rgg)
 from repro_torch.kernels.axpy_reduce.ref import axpy_reduce_ref
 from repro_torch.kernels.flash_attention.ref import flash_attention_plain
 from repro_torch.core import operators as ops
@@ -27,7 +29,8 @@ from repro_torch.kernels.incidence_scatter import segments
 from repro_torch.kernels.incidence_scatter.ref import incidence_scatter_ref
 from repro_torch.kernels.step_direction.ref import step_direction_ref
 from repro_torch.core import stepsize
-from repro_torch.kernels.linesearch_probe.ref import linesearch_probe2_ref, linesearch_probe_ref, newton_search_ref
+from repro_torch.kernels.linesearch_probe.ref import (binary_search_ref, linesearch_probe2_ref, linesearch_probe_ref,
+                                                     newton_search_ref)
 from repro_torch.kernels.softmax_weights.ref import softmax_weights_ref
 from repro_torch.lpserve import BucketSpec, LPEngine, LPServeConfig, pad_problem
 from repro_torch.models import Model
@@ -80,7 +83,7 @@ def test_kernels_match_plain_on_card(cuda, n, dtype):
     assert torch.equal(g.cpu(), incidence_gather_ref(idx, jdx, y))
     torch.cuda.synchronize()
     assert K.launch_counts() == {"incidence_gather": 1, "softmax_weights": 1, "linesearch_probe": 3,
-                                 "newton_search": 0, "axpy_reduce": 1, "flash_attention": 0,
+                                 "newton_search": 0, "binary_search": 0, "axpy_reduce": 1, "flash_attention": 0,
                                  "incidence_scatter": 0, "step_direction": 0}
 
 
@@ -204,6 +207,67 @@ def test_newton_search_matches_host_loop_on_card(cuda, dtype, n, m, kind, alpha0
         assert bool(bad) == want_bad and _bits(step) == _bits(0.0 if want_bad else host.alpha)
         assert _bits(float(alpha_prev)) == _bits(start if want_bad else host.alpha)
         assert out[0].item() == out[6].item() == -1.0  # nothing written outside the record
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("alpha0", [None, 1.0, 37.0])
+@pytest.mark.parametrize("kind", ["far", "near", "done", "below"])
+@pytest.mark.parametrize("m", ["1", "n"])
+@pytest.mark.parametrize("n", [1, 12, 300, 9999, 497_959])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_binary_search_matches_host_loop_on_card(cuda, dtype, n, m, kind, alpha0):
+    """The binary search kernel (one launch, one host read) against the host
+    loop over the two-sided probe kernel on the same state
+    (stepsize._binary_search_step_host): the same alpha bit for bit, the
+    same probes and completes; within ls_eps of its plain version (the same
+    loop over plain PyTorch probes) where alpha >= 1. Its step
+    form gives the same three, and the step, bad flag and alpha_prev as the
+    MWU iteration decides them, at max(d) > 0 and max(d) = 0."""
+    y, z, dy, dz = _search_state(n, 1 if m == "1" else n, kind, n, dtype, cuda)
+    eta = float(10 * np.log(n + z.shape[0]) / 0.1) if n > 12 else 50.0
+    host = stepsize._binary_search_step_host(y, z, dy, dz, eta, ls_eps=0.1, alpha0=alpha0)
+    K.reset_launch_counts()
+    got = stepsize.binary_search_step(y, z, dy, dz, eta, ls_eps=0.1, alpha0=alpha0)
+    counts = K.launch_counts()
+    assert (counts["binary_search"], counts["linesearch_probe"], counts["newton_search"]) == (1, 0, 0)
+    assert (_bits(got.alpha), got.probes, got.completes) == (_bits(host.alpha), host.probes, host.completes)
+    if kind == "below":
+        assert host.alpha < 1
+    if host.alpha >= 1:  # a step the loop takes; far below 1 the f32 probes are rounding noise
+        alpha, _, completes = binary_search_ref(y, dy, z, dz, eta, 0.1, alpha0).tolist()
+        assert got.completes == bool(completes) and abs(got.alpha - alpha) <= 0.1 * max(got.alpha, alpha)
+    start = 1.0 if alpha0 is None else alpha0
+    host = stepsize._binary_search_step_host(y, z, dy, dz, eta, ls_eps=0.1, alpha0=start)
+    for d_max in (1e-3, 0.0):
+        alpha_prev = torch.tensor([start], dtype=torch.float64, device=cuda)
+        out = torch.full((7,), -1.0, dtype=torch.float64, device=cuda)
+        rec = stepsize.binary_step_record(y, z, dy, dz, eta, 0.1, torch.tensor(d_max, dtype=dtype, device=cuda),
+                                          alpha_prev, out=out[1:6])
+        alpha, probes, completes, step, bad = rec.tolist()
+        assert (_bits(alpha), int(probes), bool(completes)) == (_bits(host.alpha), host.probes, host.completes)
+        want_bad = d_max <= 0 or host.alpha < 1
+        assert bool(bad) == want_bad and _bits(step) == _bits(0.0 if want_bad else host.alpha)
+        assert _bits(float(alpha_prev)) == _bits(start if want_bad else host.alpha)
+        assert out[0].item() == out[6].item() == -1.0  # nothing written outside the record
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masked", [False, True], ids=["plain", "masked"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_standard_step_record_on_card(cuda, dtype, masked):
+    """The standard rule's record on the card (plain tensor operations, no
+    kernel of its own): alpha 1, probes 0, completes as standard_step, the
+    iteration's decision on max(d), nothing read back."""
+    for kind in ("far", "near", "done"):
+        y, z, dy, dz = _search_state(300, 300, kind, 300, dtype, cuda)
+        cm = _keep(300, 7, cuda) if masked else None
+        want = stepsize.standard_step(y, z, dy, dz, 50.0, None, cm)
+        for d_max in (1e-3, 0.0):
+            ap = torch.tensor([5.0], dtype=torch.float64, device=cuda)
+            rec = stepsize.standard_step_record(y, z, dy, dz, 50.0, 0.1, torch.tensor(d_max, dtype=dtype, device=cuda),
+                                                ap, c_mask=cm).tolist()
+            assert rec == [1.0, 0.0, float(want.completes), float(d_max > 0), float(d_max <= 0)]
+            assert float(ap) == (1.0 if d_max > 0 else 5.0)
 
 
 @pytest.mark.cuda
@@ -557,8 +621,8 @@ def test_card_solve_batch_reads_once_an_iteration(cuda, monkeypatch):
 @pytest.mark.cuda
 @pytest.mark.parametrize("family", ["match", "bmatch", "vcover"])
 def test_card_binary_solve_matches_cpu(cuda, family):
-    """The binary step rule on the card: a host loop over the two-sided
-    probe kernel, one launch a probe; bars as above."""
+    """The binary step rule on the card: one launch of the binary search
+    kernel a lane iteration (its step form), no lone probe; bars as above."""
     opts = MWUOptions(eps=EPS, step_rule="binary")
     cpu = Solver(opts).solve(_problem(family, "cpu"))
     K.reset_launch_counts()
@@ -567,7 +631,47 @@ def test_card_binary_solve_matches_cpu(cuda, family):
     assert card.bound == pytest.approx(cpu.bound, rel=1e-5)
     assert card.objective == pytest.approx(cpu.objective, rel=2 * EPS)
     counts = K.launch_counts()
-    assert counts["linesearch_probe"] > 0 and counts["newton_search"] == 0
+    assert counts["binary_search"] == card.mwu_iters_total
+    assert counts["linesearch_probe"] == 0 and counts["newton_search"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rule", ["binary", "std"])
+def test_card_rule_solve_reads_once_an_iteration(cuda, rule, monkeypatch):
+    """Binary and standard lanes read the host once a loop iteration for all
+    lanes (the record), plus once to start and once to finish."""
+    prob = build("match", erdos(300, 1500, seed=3), device=cuda)
+    prob.P.csr  # built at the operator's first card product, once
+    reads = []
+    for name in ("item", "tolist"):
+        method = getattr(torch.Tensor, name)
+        monkeypatch.setattr(torch.Tensor, name, lambda t, _m=method, _n=name: reads.append(_n) or _m(t))
+    batch = Solver(MWUOptions(eps=EPS, step_rule=rule, max_iter=3000)).solve_batch(prob, [prob.lo, prob.hi])
+    monkeypatch.undo()
+    assert len(reads) == int(batch.iters.max()) + 2 and set(reads) == {"tolist"}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masked", [True, False], ids=["c_mask", "no_mask"])
+def test_card_mpc_solve_matches_cpu(cuda, masked):
+    """mpc_solve on the card (the scatter and gather kernels for its
+    products) against the CPU: the same iterations, the violation trace and
+    x within rel 1e-9."""
+    g = bipartite_ratings(300, 140, avg_ratings=18.0, seed=0)
+    deg, s = g.degrees(), g.bipartite_split
+    lb, ub = np.zeros(g.n), np.ones(g.n)
+    lb[:s], ub[:s], ub[s:] = np.minimum(3, deg[:s]), 5, 200
+    runs = {}
+    for device in ("cpu", cuda):
+        P, C, mask = generalized_matching_lp(g, lb, ub, device=device)
+        K.reset_launch_counts()
+        runs[str(device)] = mpc_solve(P, C, MPCOptions(eps=0.05, max_iter=3000), c_mask=mask if masked else None)
+        counts = K.launch_counts()
+    (x_cpu, tr_cpu), (x, tr) = runs["cpu"], runs[str(cuda)]
+    assert tr["iters"] == tr_cpu["iters"]
+    np.testing.assert_allclose(tr["max_violation"], tr_cpu["max_violation"], rtol=1e-9, atol=0)
+    np.testing.assert_allclose(x, x_cpu, rtol=1e-9, atol=0)
+    assert counts["incidence_scatter"] > 0 and counts["incidence_gather"] > 0
 
 
 FLASH_TOLS = {torch.float32: 3e-5, torch.bfloat16: 2e-2}  # tests/test_kernels.py
@@ -804,6 +908,40 @@ def test_masked_newton_search_matches_host_loop_on_card(cuda, dtype, n, kind, al
     for d_max in (1e-3, 0.0):
         alpha_prev = torch.tensor([start], dtype=torch.float64, device=cuda)
         rec = stepsize.newton_step_record(y, z, dy, dz, eta, 0.1, torch.tensor(d_max, dtype=dtype, device=cuda),
+                                          alpha_prev, p_mask=pm, c_mask=cm).tolist()
+        assert (_bits(rec[0]), int(rec[1]), bool(rec[2])) == (_bits(host.alpha), host.probes, host.completes)
+        bad = d_max <= 0 or host.alpha < 1
+        assert bool(rec[4]) == bad and _bits(rec[3]) == _bits(0.0 if bad else host.alpha)
+        assert _bits(float(alpha_prev)) == _bits(start if bad else host.alpha)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("alpha0", [None, 1.0, 37.0])
+@pytest.mark.parametrize("kind", ["far", "near", "done", "below"])
+@pytest.mark.parametrize("n", [12, 9999, 1_048_576])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_masked_binary_search_matches_host_loop_on_card(cuda, dtype, n, kind, alpha0):
+    """The masked binary search kernel in both forms against the host loop
+    over the masked probe kernel (stepsize._binary_search_step_host with
+    the masks): alpha bit for bit, probes and completes equal, step and bad
+    as Alg. 2 decides them; and within ls_eps of its plain version (the
+    masked host loop over plain probes) where alpha >= 1."""
+    y, z, dy, dz = _search_state(n, n, kind, n, dtype, cuda)
+    pm, cm = _keep(n, 5, cuda), _keep(n, 6, cuda)
+    eta = float(10 * np.log(2 * n) / 0.1) if n > 12 else 50.0
+    host = stepsize._binary_search_step_host(y, z, dy, dz, eta, pm, cm, ls_eps=0.1, alpha0=alpha0)
+    K.reset_launch_counts()
+    got = stepsize.binary_search_step(y, z, dy, dz, eta, pm, cm, ls_eps=0.1, alpha0=alpha0)
+    assert K.launch_counts()["binary_search"] == 1 and K.launch_counts()["linesearch_probe"] == 0
+    assert (_bits(got.alpha), got.probes, got.completes) == (_bits(host.alpha), host.probes, host.completes)
+    if host.alpha >= 1:
+        alpha, _, completes = binary_search_ref(y, dy, z, dz, eta, 0.1, alpha0, pm, cm).tolist()
+        assert got.completes == bool(completes) and abs(got.alpha - alpha) <= 0.1 * max(got.alpha, alpha)
+    start = 1.0 if alpha0 is None else alpha0
+    host = stepsize._binary_search_step_host(y, z, dy, dz, eta, pm, cm, ls_eps=0.1, alpha0=start)
+    for d_max in (1e-3, 0.0):
+        alpha_prev = torch.tensor([start], dtype=torch.float64, device=cuda)
+        rec = stepsize.binary_step_record(y, z, dy, dz, eta, 0.1, torch.tensor(d_max, dtype=dtype, device=cuda),
                                           alpha_prev, p_mask=pm, c_mask=cm).tolist()
         assert (_bits(rec[0]), int(rec[1]), bool(rec[2])) == (_bits(host.alpha), host.probes, host.completes)
         bad = d_max <= 0 or host.alpha < 1

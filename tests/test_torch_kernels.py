@@ -123,6 +123,7 @@ def test_cpu_calls_launch_nothing():
     K.linesearch_probe(x, x, 0.5, 3.0)
     K.linesearch_probe2(x, x, x[:3], x[:3], 0.5, 3.0)
     K.newton_search(x, x * 1e-3, x[:3], x[:3] * 1e-3, 3.0, 0.1)
+    K.binary_search(x, x * 1e-3, x[:3], x[:3] * 1e-3, 3.0, 0.1)
     K.incidence_gather(torch.zeros(4, dtype=torch.int32), torch.ones(4, dtype=torch.int32), x)
     assert K.launch_counts() == {name: 0 for name in K.KERNELS}
 

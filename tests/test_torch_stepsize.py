@@ -133,3 +133,51 @@ def test_f_monotone_decreasing():
         fs = fs[np.isfinite(fs)]
         assert (np.diff(fs) <= 1e-9).all(), fs
 
+
+
+@pytest.mark.parametrize("d_max", [1e-3, 0.0], ids=["step", "no_direction"])
+@pytest.mark.parametrize("alpha0", [1.0, 50.0], ids=["cold", "warm"])
+@pytest.mark.parametrize("masked", [False, True], ids=["plain", "masked"])
+@pytest.mark.parametrize("rule", ["binary", "std"])
+def test_step_record_parity(rule, masked, alpha0, d_max):
+    """The binary and standard rules' record functions (the MWU loop's form:
+    the step decided on the device, warm-started at alpha_prev) against the
+    reference's rules at the bars above, and the iteration's decision (Alg.
+    2 lines 8 and 12): bad = max(d) <= 0 or alpha < 1, step 0 if bad else
+    alpha, alpha_prev updated only when the step is taken."""
+    ref_rule, record = {"binary": ("binary_search_step", T.binary_step_record),
+                        "std": ("standard_step", T.standard_step_record)}[rule]
+    for seed, kind in CASES:
+        ref, _ = _run(ref_rule, seed, kind, masked, alpha0)
+        y, z, dy, dz = map(torch.from_numpy, _state(seed, kind))
+        pm, cm = (torch.from_numpy(m) for m in _masks(seed)) if masked else (None, None)
+        ap = torch.tensor([alpha0], dtype=torch.float64)
+        out = torch.full((7,), -1.0, dtype=torch.float64)
+        rec = record(y, z, dy, dz, 50.0, LS_EPS, torch.tensor(d_max, dtype=torch.float64), ap, out=out[1:6],
+                     p_mask=pm, c_mask=cm)
+        alpha, probes, completes, step, bad = rec.tolist()
+        assert rec.data_ptr() == out[1:6].data_ptr() and out[0] == out[6] == -1.0
+        assert bool(completes) == bool(ref.completes) and int(probes) == int(ref.probes), (seed, kind)
+        assert abs(alpha - float(ref.alpha)) <= LS_EPS * float(ref.alpha), (seed, kind, alpha)
+        want_bad = d_max <= 0 or alpha < 1
+        assert bool(bad) == want_bad and step == (0.0 if want_bad else alpha)
+        assert float(ap) == (alpha0 if want_bad else alpha)
+
+
+@pytest.mark.parametrize("alpha0", [None, 1.0, 37.0])
+@pytest.mark.parametrize("masked", [False, True], ids=["plain", "masked"])
+def test_binary_step_is_one_search_call(monkeypatch, masked, alpha0):
+    """On CPU tensors binary_search_step is one call of the search wrapper,
+    whose CPU path is its plain version; it gives _binary_search_step_host's
+    result (the loop over make_probe_fn's probes), and launches nothing."""
+    calls = []
+    plain = probe_ops.binary_search_ref
+    monkeypatch.setattr(probe_ops, "binary_search_ref", lambda *a, **k: calls.append("plain") or plain(*a, **k))
+    K.reset_launch_counts()
+    for seed, kind in CASES:
+        args = [torch.from_numpy(t) for t in _state(seed, kind)]
+        pm, cm = (torch.from_numpy(m) for m in _masks(seed)) if masked else (None, None)
+        got = T.binary_search_step(*args, 50.0, pm, cm, ls_eps=LS_EPS, alpha0=alpha0)
+        assert got == T._binary_search_step_host(*args, 50.0, pm, cm, ls_eps=LS_EPS, alpha0=alpha0)
+    assert calls == ["plain"] * len(CASES)
+    assert K.launch_counts() == {name: 0 for name in K.KERNELS}
