@@ -4,11 +4,12 @@
     python3 chip_smoke.py [--n-users N] [--serve-requests N]
 
 Builds the CUDA kernels of ``src/repro_torch/kernels/csrc`` with nvcc for
-sm_90a and drives the port's three paths, the MWU graph-LP solve, the
-hubert-xlarge encoder forward and graph-LP serving (``repro_torch.lpserve``),
-and the paper's two comparison studies (Table 3's step rules, Figure 3's
-MPCSolver baseline), in seven phases; any failed phase exits non-zero
-before the result lines are printed.
+sm_90a and drives the port's paths, the MWU graph-LP solve, the
+hubert-xlarge encoder forward, recurrentgemma-9b's forward (RG-LRU blocks
+and MQA local attention at head dim 256), graph-LP serving
+(``repro_torch.lpserve``), and the paper's two comparison studies (Table
+3's step rules, Figure 3's MPCSolver baseline), in seven phases; any
+failed phase exits non-zero before the result lines are printed.
 
 1. Card: its name and power limit (nvidia-smi) and the kernels' build time.
 2. Kernels vs their plain PyTorch versions on the card, at the main path's
@@ -21,11 +22,14 @@ before the result lines are printed.
    Flash attention gets rows at published widths: (a) hubert-xlarge's
    attention (B 16, S 1500, 16 heads, d 80, bidirectional) and (b)
    minitron-4b's (B 1, S 4096, 24 over 8 heads, d 128, causal) in bf16 and
-   f32, and (c) mixtral-8x22b's (B 1, S 6144, 48 over 8 heads, d 128,
-   causal, window 4096) in bf16. Within bar means |kernel - plain| <= bar * (1 + |plain|)
+   f32, (c) mixtral-8x22b's (B 1, S 6144, 48 over 8 heads, d 128,
+   causal, window 4096) in bf16, and (d) recurrentgemma-9b's at phase 5
+   (b)'s shape (B 2, S 8192, 16 over 1 heads, d 256, causal, window 2048)
+   in bf16 and f32, with the
+   card's name and power limit. Within bar means |kernel - plain| <= bar * (1 + |plain|)
    elementwise (tests/test_kernels.py's atol = rtol). At these sizes every
    call is bound by the device, so the plain version is timed eagerly (its
-   f32 scores take up to 7 GB, too much to capture twice in a CUDA graph);
+   f32 scores take up to 8.6 GB, too much to capture twice in a CUDA graph);
    the library time is ``scaled_dot_product_attention`` with the same mask,
    a yardstick the port never calls. Each flash row also prints its
    achieved TFLOP/s (4 d flops per scored pair over the device time) and,
@@ -34,8 +38,9 @@ before the result lines are printed.
    bound by 3x their flops over the TF32 tensor-core peak (the kernel's
    3xTF32 products), and also print the bound of the same flops once at f32
    FMA, SDPA's time in f32, and the card's name and power limit. Both
-   bodies' ptxas lines (registers, spills) are printed per head dim, and a
-   spill at d 80 or 128 in either fails the phase. The Newton search runs on three seeded
+   bodies' ptxas lines (registers, spills) are printed per head dim; a
+   spill at d 80 or 128 in either, or at d 256 in the bf16 body, fails the
+   phase (the f32 body's d 256 line is printed, its spills written down). The Newton search runs on three seeded
    states a dtype: equal bit for bit to the host loop over the probe
    kernel, and within ls_eps * alpha of its plain version (the same loop
    over plain PyTorch probes), whose time is the row's plain time. Its
@@ -124,7 +129,30 @@ before the result lines are printed.
    of 5e-2 (bf16 rounds at other places in the two paths, through 48
    residual layers). Time per forward, frames/s, peak memory, and a
    torch.profiler breakdown (flash, matmuls, the rest) with the device's
-   idle share.
+   idle share. (b) recurrentgemma-9b's forward at full width and depth:
+   38 layers (12 x (rglru, rglru, attn), then (rglru, rglru)), d_model
+   4096, 16 query heads over 1 kv head of d 256 in a 2,048-key window,
+   rnn_width 4096, swiglu d_ff 12288, vocab 256,000, ``attn_impl="pallas"``,
+   bf16 compute over f32 params from a seeded random init on the card
+   (~9.57B params, ~38 GB), on 2 x 8192 tokens from a seeded generator
+   (S is 4x the window: the band skip runs); ``forward`` under
+   ``torch.inference_mode``, then ``logits`` of the last position only.
+   One forward must launch flash attention 12 times, once an attn layer,
+   each the d 256 body (the profile's kernel names); hidden states and
+   logits finite, and within relative L2 5e-2 of the same module's forward
+   with ``attn_impl="chunked"`` (no second copy of the weights). Prints
+   time per forward (median of 5), tokens/s, init time, peak memory, and a
+   profile split (flash, matmuls, the rglru scan, weight casts, the rest)
+   with the idle share; the scan's share is timed by CUDA events around
+   each of its 26 calls in one unprofiled forward. Then the
+   scan itself: at the forward's shape (B 2, S 8192, w 4096, f32), with a
+   drawn from U(0.9, 0.999) so that every doubling step counts, ``_scan``
+   must equal a sequential f64 loop within 1e-5 (relative L2, and
+   elementwise of 1 + |h|); and at full width (B 2, S 256, f32),
+   ``rglru_apply`` must equal a loop of ``rglru_decode`` steps from an
+   empty state within 1e-4 (atol and rtol): the reference's
+   tests/test_layers.py identity (at the init's a of ~0.007 it checks the
+   block's wiring, not the carry).
 6. Graph-LP serving at card size: 12 requests (``--serve-requests``),
    match and vcover alternating, request i on ``erdos(n, m, seed=i)`` of
    tier i % 3 of (600k, 2.2M), (800k, 3M), (1.5M, 4M) vertices and edges,
@@ -164,7 +192,8 @@ before the result lines are printed.
 
 The line before the last is ``{"kernels": [...]}``, one entry per kernel;
 the last is ``{"ok": true, "device": {...}}``. The flash entry takes row
-(a) in bf16 and its launches from phase 5; the axpy and the searches take
+(a) in bf16 and the launches of both phase 5 forwards, and row (d) in bf16
+with phase 5 (b)'s launches under ``recurrentgemma``; the axpy and the searches take
 the row of the form the main path launches (device step, step form), and
 each MWU kernel's masked row goes into its entry's ``masked`` field. Every
 entry's launches add phase 6's (``serving_launches``). The script exits non-zero
@@ -191,7 +220,9 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 # the TF32 tensor cores, three times a product (3xTF32): its bound is 3x its
 # flops over the "tf32" rate.
 PEAK_OPS_PER_S = {torch.float32: 67e12, torch.float64: 34e12, torch.bfloat16: 989e12, "tf32": 495e12}
-LOGITS_REL_L2_BAR = 5e-2  # pallas vs dense forward of phase 5, bf16 through 48 layers
+LOGITS_REL_L2_BAR = 5e-2  # pallas vs dense (a) / chunked (b) forward of phase 5, bf16 through 48 / 38 layers
+SCAN_BAR = 1e-4  # phase 5 (b): rglru_apply vs its decode loop at f32 (tests/test_layers.py: 2e-4)
+SCAN_LOOP_BAR = 1e-5  # phase 5 (b): _scan vs a sequential f64 loop, a in (0.9, 0.999), S 8192 (~1e-7 on the CPU)
 # bf16 flash rows, whole tensor: ||kernel - plain|| / ||plain||. The two
 # differ by where p is rounded to bf16 (unnormalised in the kernel, after
 # the division in the plain version): ~3e-3 at every bf16 row. The bar is
@@ -855,13 +886,16 @@ FLASH_CASES = [  # tag, B, S, Hq, Hkv, d, causal, window, dtype
     ("b", 1, 4096, 24, 8, 128, True, None, torch.bfloat16),  # minitron-4b at train_4k
     ("b", 1, 4096, 24, 8, 128, True, None, torch.float32),
     ("c", 1, 6144, 48, 8, 128, True, 4096, torch.bfloat16),  # mixtral-8x22b, sliding window
+    ("d", 2, 8192, 16, 1, 256, True, 2048, torch.bfloat16),  # recurrentgemma-9b at phase 5 (b)'s batch
+    ("d", 2, 8192, 16, 1, 256, True, 2048, torch.float32),
 ]
 
 
 def flash_ptxas(failures: list) -> None:
     """The flash kernels' ptxas lines (registers, spills, shared memory) from
     the loaded build's compiler log, one block per body and head dim; no
-    spills at the models' head dims, 80 and 128, in either body."""
+    spills at the models' head dims, 80 and 128, in either body, nor at 256
+    in the bf16 body (the f32 body's d 256 is printed and may spill)."""
     import re
 
     from repro_torch.kernels import loader
@@ -877,8 +911,8 @@ def flash_ptxas(failures: list) -> None:
             blocks[current].append(line.strip())
     for name in sorted(blocks):
         print(f"  ptxas, {name}: " + " | ".join(blocks[name]), flush=True)
-    for body in ("bf16", "f32"):
-        for d in (80, 128):
+    for body, dims in (("bf16", (80, 128, 256)), ("f32", (80, 128))):
+        for d in dims:
             name = f"flash_{body}_kernel<{d}>"
             spills = [int(n) for line in blocks.get(name, []) for n in re.findall(r"(\d+) bytes spill", line)]
             check(failures, bool(spills) and not any(spills),
@@ -977,6 +1011,11 @@ def flash_rows(K, card: str, failures: list) -> list[dict]:
                   f"{r['library_ms']:.4f} ms; bound {b_ms:.4f} ms at 3xTF32 (3 x {flops:.4g} flops over "
                   f"{PEAK_OPS_PER_S['tf32'] / 1e12:.0f} TFLOP/s, {b_ms / r['ms']:.0%} of it), {fma_ms:.4f} ms at "
                   f"f32 FMA ({PEAK_OPS_PER_S[dtype] / 1e12:.0f} TFLOP/s, {fma_ms / r['ms']:.0%})", flush=True)
+        elif tag == "d":
+            print(f"  bf16 ({tag}) on {card}: kernel {r['ms']:.4f} ms ({r['tflops']:.1f} TFLOP/s), SDPA "
+                  f"{r['library_ms']:.4f} ms; bound {b_ms:.4f} ms ({flops:.4g} flops over "
+                  f"{PEAK_OPS_PER_S[dtype] / 1e12:.0f} TFLOP/s, {b_ms / r['ms']:.0%} of it); tiles {config}",
+                  flush=True)
         rows.append(r)
         del q, k, v, mask
         torch.cuda.empty_cache()
@@ -1371,6 +1410,43 @@ def _device_kernels(prof) -> list[tuple[float, int, str]]:
                    if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0), reverse=True)
 
 
+def _scan_event_ms(rg, run) -> list[float]:
+    """Device ms of each ``rg._scan`` call in one ``run()`` of the model, from
+    CUDA events recorded around it on the stream: the scans of the real
+    forward, unprofiled. (The profiler attributes kernels to the operators
+    of a ``record_function`` range around the scan, but it listed more of
+    them under each range than one scan launches.)"""
+    spans, scan = [], rg._scan
+
+    def timed(a, b):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        h = scan(a, b)
+        end.record()
+        spans.append((start, end))
+        return h
+
+    rg._scan = timed
+    try:
+        run()
+    finally:
+        rg._scan = scan
+    torch.cuda.synchronize()
+    return [start.elapsed_time(end) for start, end in spans]
+
+
+def _weight_cast_ms(prof, model) -> float:
+    """Device ms of the dtype casts of ``model``'s parameters: the
+    ``aten::_to_copy`` calls on a tensor of a parameter's shape (no
+    activation of the forward has one: they are (B, S, ...))."""
+    from torch.autograd import DeviceType
+
+    shapes = {repr(list(p.shape)) for p in model.parameters()}
+    return sum(e.device_time_total for e in prof.events()
+               if e.name == "aten::_to_copy" and e.device_type == DeviceType.CPU and e.input_shapes
+               and repr(list(e.input_shapes[0])) in shapes) / 1e3
+
+
 def encoder_forward(K, failures: list) -> dict:
     """hubert-xlarge's encode forward at full width (phase 5)."""
     from dataclasses import replace
@@ -1451,6 +1527,165 @@ def encoder_forward(K, failures: list) -> dict:
           f"logits {list(logits.shape)} finite over the vocab ({finite}), pad slots -1e30 ({pad_ok})")
     check(failures, rel <= LOGITS_REL_L2_BAR,
           f"logits vs the dense-attention forward: relative L2 {rel:.4g} (bar {LOGITS_REL_L2_BAR})")
+    return info
+
+
+def scan_checks(failures: list) -> dict:
+    """Phase 5 (b)'s last checks, at recurrentgemma-9b's full width (d_model
+    and rnn_width 4096), f32. (1) ``_scan`` at the forward's shape (B 2,
+    S 8192) against a sequential f64 loop, with a in U(0.9, 0.999): the
+    carry lives for hundreds of steps, so a wrong doubling step or product of
+    a shows. (2) ``rglru_apply`` at B 2, S 256 against a loop of
+    ``rglru_decode`` steps from an empty state (tests/test_layers.py's
+    identity; the init's a is ~0.007, so it holds the block's wiring and
+    the decode path, not the carry)."""
+    from repro_torch.configs import get
+    from repro_torch.models.layers import rglru as rg
+
+    cfg = get("recurrentgemma-9b")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    a = 0.9 + 0.099 * torch.rand(2, 8192, cfg.rnn_width, generator=gen, device=dev)
+    b = torch.randn(2, 8192, cfg.rnn_width, generator=gen, device=dev)
+    with torch.inference_mode():
+        h = rg._scan(a, b).double()
+        ad, ref, hd = a.double(), torch.empty_like(h), torch.zeros_like(h[:, 0])
+        for t in range(a.shape[1]):
+            hd = torch.addcmul(b[:, t].double(), ad[:, t], hd)
+            ref[:, t] = hd
+    diff = (h - ref).abs()
+    loop = dict(shape=list(a.shape), max_abs_err=diff.max().item(), rel_l2=((h - ref).norm() / ref.norm()).item(),
+                max_abs_h=ref.abs().max().item())
+    loop["within_bar"] = loop["rel_l2"] <= SCAN_LOOP_BAR and bool((diff <= SCAN_LOOP_BAR * (1 + ref.abs())).all())
+    check(failures, loop["within_bar"],
+          f"_scan vs a sequential f64 loop at B 2, S 8192, w {cfg.rnn_width}, a in (0.9, 0.999): relative L2 "
+          f"{loop['rel_l2']:.3g}, max_abs_err {loop['max_abs_err']:.3g} at max |h| {loop['max_abs_h']:.3g} "
+          f"(bar {SCAN_LOOP_BAR}, relative L2 and elementwise of 1 + |h|)")
+    del a, b, h, ad, ref, hd, diff
+    torch.cuda.empty_cache()
+
+    p = rg.rglru_init(torch.Generator(device=dev).manual_seed(2), cfg, torch.float32, dev)
+    x = torch.randn(2, 256, cfg.d_model, generator=torch.Generator(device=dev).manual_seed(3), device=dev) * 0.3
+    with torch.inference_mode():
+        out, _ = rg.rglru_apply(p, x, cfg)
+        state, outs = rg.init_rglru_state(cfg, 2, device=dev), []
+        for t in range(x.shape[1]):
+            o, state = rg.rglru_decode(p, x[:, t:t + 1], cfg, state)
+            outs.append(o)
+        ref = torch.cat(outs, dim=1)
+    diff = (out - ref).abs()
+    decode = dict(shape=[2, 256, cfg.rnn_width], max_abs_err=diff.max().item(),
+                  rel_l2=((out - ref).norm() / ref.norm()).item(),
+                  within_bar=bool((diff <= SCAN_BAR * (1 + ref.abs())).all()))
+    check(failures, decode["within_bar"] and bool(torch.isfinite(out).all()),
+          f"rglru_apply vs {x.shape[1]} rglru_decode steps at B 2, S 256, w {cfg.rnn_width}, f32: max_abs_err "
+          f"{decode['max_abs_err']:.3g}, relative L2 {decode['rel_l2']:.3g} (bar {SCAN_BAR} abs and rel)")
+    return dict(scan_vs_loop=loop, apply_vs_decode=decode)
+
+
+def hybrid_forward(K, card: str, failures: list) -> dict:
+    """recurrentgemma-9b's forward at full width and depth (phase 5 (b));
+    ``card`` is nvidia-smi's name and power limit."""
+    from dataclasses import replace
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get
+    from repro_torch.models import Model
+    from repro_torch.models.layers import rglru as rg
+
+    cfg = replace(get("recurrentgemma-9b"), attn_impl="pallas")
+    n_attn = cfg.pattern().count("attn")
+    B, S = 2, 8192
+    t0 = time.perf_counter()
+    model = Model(cfg, device="cuda", seed=0)
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=torch.Generator(device="cuda").manual_seed(1),
+                           device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"  {cfg.name}: {cfg.n_layers} layers ({cfg.n_layers - n_attn} rglru, {n_attn} attn), d_model "
+          f"{cfg.d_model}, {cfg.n_heads} heads over {cfg.n_kv_heads} of d {cfg.d_head}, window "
+          f"{cfg.sliding_window}, rnn_width {cfg.rnn_width}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}; "
+          f"{n_params / 1e9:.3f}B f32 params ({torch.cuda.memory_allocated() / 1e9:.1f} GB on the card), "
+          f"init {init_s:.1f} s; tokens {B} x {S}", flush=True)
+
+    def run():
+        h = model({"tokens": tokens})
+        return h, model.logits(h[:, -1:])
+
+    with torch.inference_mode():
+        run()  # warm-up: cuBLAS handles and heuristics
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        h, logits = run()
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        launches = K.launch_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        walls = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        wall_s = float(np.median(walls))
+
+        V = cfg.vocab_size
+        finite = bool(torch.isfinite(h).all()) and bool(torch.isfinite(logits[..., :V]).all())
+        # the same module with the chunked attention: no second copy of 38 GB of weights
+        model.cfg = replace(cfg, attn_impl="chunked")
+        h_ref, logits_ref = run()
+        model.cfg = cfg
+        rel_h = ((h.float() - h_ref.float()).norm() / h_ref.float().norm()).item()
+        rel_logits = ((logits[..., :V] - logits_ref[..., :V]).norm() / logits_ref[..., :V].norm()).item()
+        del h_ref, logits_ref
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], record_shapes=True) as prof:
+            run()
+            torch.cuda.synchronize()
+        scan_spans = _scan_event_ms(rg, run)
+    kernels = _device_kernels(prof)
+    busy = sum(k[0] for k in kernels)
+    flash = [k for k in kernels if "rt::flash" in k[2]]
+    flash_ms = sum(k[0] for k in flash)
+    flash_256 = sum(k[1] for k in flash if "flash_bf16_kernel<256>" in k[2])
+    mm_ms = sum(k[0] for k in kernels if any(w in k[2].lower() for w in ("gemm", "nvjet", "xmma", "cutlass")))
+    scan_ms = sum(scan_spans)
+    cast_ms = _weight_cast_ms(prof, model)
+    n_rglru = cfg.n_layers - n_attn
+    info = dict(config=cfg.name, batch=B, tokens=S, layers=cfg.n_layers, params=n_params, init_s=init_s,
+                first_forward_s=first_s, wall_ms=1e3 * wall_s, wall_ms_runs=[1e3 * w for w in walls],
+                tokens_per_s=B * S / wall_s, max_memory_gb=peak_gb, launches=launches,
+                flash_d256_launches_profiled=flash_256, hidden_finite=finite, logits_shape=list(logits.shape),
+                rel_l2_hidden_vs_chunked=rel_h, rel_l2_logits_vs_chunked=rel_logits,
+                scan_calls=len(scan_spans), scan_ms_per_layer=scan_ms / n_rglru,
+                profile=dict(device_busy_ms=busy, flash_ms=flash_ms, matmul_ms=mm_ms, rglru_scan_ms=scan_ms,
+                             weight_cast_ms=cast_ms, other_ms=busy - flash_ms - mm_ms - scan_ms - cast_ms,
+                             device_idle_share=1.0 - busy / (1e3 * wall_s)))
+    print(f"  on {card}: " + json.dumps(info), flush=True)
+    for ms, count, key in kernels[:14]:
+        print(f"    {ms:10.2f} ms {count:7d} x  {key[:110]}", flush=True)
+    check(failures, launches["flash_attention"] == n_attn and flash_256 == n_attn,
+          f"flash_attention launched {launches['flash_attention']} times in one forward ({n_attn} attn layers); "
+          f"the profiled forward ran flash_bf16_kernel<256> {flash_256} times")
+    check(failures, all(n == 0 for name, n in launches.items() if name != "flash_attention"),
+          f"no MWU kernel launched in the forward ({launches})")
+    check(failures, len(scan_spans) == n_rglru,
+          f"the timed forward ran the scan {len(scan_spans)} times ({n_rglru} rglru layers): {scan_ms:.2f} ms, "
+          f"{scan_ms / (1e3 * wall_s):.1%} of the forward")
+    check(failures, finite and list(h.shape) == [B, S, cfg.d_model] and list(logits.shape) == [B, 1, cfg.padded_vocab],
+          f"hidden states {list(h.shape)} and last-position logits {list(logits.shape)} finite ({finite})")
+    check(failures, rel_h <= LOGITS_REL_L2_BAR and rel_logits <= LOGITS_REL_L2_BAR,
+          f"vs the chunked-attention forward: relative L2 hidden {rel_h:.4g}, logits {rel_logits:.4g} "
+          f"(bar {LOGITS_REL_L2_BAR})")
+    del model, h, logits
+    torch.cuda.empty_cache()
+    info["scan"] = scan_checks(failures)
     return info
 
 
@@ -1809,8 +2044,11 @@ def main() -> int:
     binary_launches = binary_solves(failures)
     end_phase("4", failures)
 
-    print("== phase 5: hubert-xlarge encoder forward at full width", flush=True)
+    print("== phase 5: (a) hubert-xlarge encoder forward at full width", flush=True)
     enc = encoder_forward(K, failures)
+    torch.cuda.empty_cache()
+    print("== phase 5: (b) recurrentgemma-9b forward at full width and depth", flush=True)
+    hybrid = hybrid_forward(K, smi, failures)
     end_phase("5", failures)
 
     print("== phase 6: graph-LP serving at card size (lpserve)", flush=True)
@@ -1832,12 +2070,13 @@ def main() -> int:
     # the lone probe's from phase 4's binary-rule solves, where the probe
     # runs inside the search: 0; the gather's from its six Newton solves:
     # bmatch gathers inside step_direction); for flash attention row (a) in
-    # bf16 and the launches of one encoder forward
+    # bf16 and the launches of one forward of each of phase 5's models, and
+    # row (d) with recurrentgemma's launches
     kernels = []
     for name, (source, replaces) in K.KERNELS.items():
         if name == "flash_attention":
             r = next(r for r in rows if r["name"] == name and r["case"] == "a" and r["dtype"] == "bfloat16")
-            launches = enc["launches"][name]
+            launches = enc["launches"][name] + hybrid["launches"][name]
         else:
             r = max((r for r in rows if r["name"] == name and r["dtype"] == "float64"
                      and r.get("form") in (None, MAIN_FORM.get(name))), key=lambda r: r["shape"][0])
@@ -1854,6 +2093,11 @@ def main() -> int:
                             masked=None if masked is None else {k: masked.get(k) for k in (
                                 "form", "shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                 "library_ms")}))
+        if name == "flash_attention":
+            d = next(r for r in rows if r["name"] == name and r["case"] == "d" and r["dtype"] == "bfloat16")
+            kernels[-1]["recurrentgemma"] = dict(launches=hybrid["launches"][name], **{k: d.get(k) for k in (
+                "shape", "dtype", "max_abs_err", "rel_l2", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "config")})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

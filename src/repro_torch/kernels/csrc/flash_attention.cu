@@ -30,7 +30,9 @@
 // 0.07 ms for reading q, k, v and writing o. The f32 body does each product
 // three times on the TF32 tensor cores (below): 3 * 4*D flops a pair over
 // 495 TFLOP/s, 1.117 ms at that shape in f32 (against 2.751 ms for the same
-// flops once over the 67 TFLOP/s of f32 FMA).
+// flops once over the 67 TFLOP/s of f32 FMA). At recurrentgemma-9b's shape
+// (B 1, S 8192, 16 query heads over 1 kv head, D 256, causal, window 2048)
+// the band's 241 GFLOP take 0.24 ms in bf16, against 0.04 ms of bytes.
 //
 // Design:
 //  * bf16, for Hopper (sm_90a), after FlashAttention-3 (arXiv:2407.08608):
@@ -105,7 +107,8 @@ __device__ __forceinline__ float quad_sum(float x) {
 // ---------------------------------------------------------------- bf16 ----
 //
 // A persistent grid, one block an SM. A work tile is BQ = 128 query rows of
-// one (batch, head) and their key tiles of BK = 128 keys; the blocks deal
+// one (batch, head) and their key tiles of BK = 128 keys (64 at D 256, where
+// PV is one wgmma of N 256 a k step); the blocks deal
 // the work tiles among themselves (round_tile, work_tile). Three
 // warpgroups: warpgroup 0 is the producer (one thread issues the TMA loads,
 // the others leave), warpgroups 1 and 2 are consumers of 64 query rows
@@ -148,7 +151,11 @@ struct Bf16Tile {
   static constexpr int SW = D >= 64 ? 128 : D >= 32 ? 64 : 32;  // swizzle bytes = bytes of a box row
   static constexpr int W = SW / 2;                                // head-dim columns of a box
   static constexpr int NB = (D + W - 1) / W;                      // boxes a tile
-  static constexpr int BK = 128;                                  // keys of a key tile
+  // keys of a key tile. At D 256 the output accumulator takes 128 of a
+  // consumer thread's 240 registers, and Q 64 KB of shared memory: 64 keys
+  // keep the scores (32 registers) and P (16) beside it, and two K/V stages
+  // (128 KB) beside Q. FlashAttention-3 takes 80 keys at this head dim.
+  static constexpr int BK = D > 128 ? 64 : 128;
   // a tile row holds NB * W >= D columns; those past D are zero-filled by the TMA and never read
   static constexpr int Q_BYTES = BQ * NB * W * 2, KV_BYTES = BK * NB * W * 2;
   static constexpr int STAGES = (220 * 1024 - Q_BYTES) / (2 * KV_BYTES) >= 4   ? 4
@@ -247,6 +254,17 @@ __device__ __forceinline__ void wgmma_ss<128>(float (&d)[64], uint64_t a, uint64
       : "l"(a), "l"(b), "r"(accumulate));
 }
 
+template <>
+__device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t a, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : RT_F8(d, 0), RT_F8(d, 8), RT_F8(d, 16), RT_F8(d, 24)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
 // d[64 x N] += A[64 x 16] * B[16 x N], A from registers, B MN-major (transposed) in shared memory.
 template <int N>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t b);
@@ -304,6 +322,27 @@ __device__ __forceinline__ void wgmma_rs<128>(float (&d)[64], const uint32_t (&a
       "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
       : RT_F8(d, 0), RT_F8(d, 8), RT_F8(d, 16), RT_F8(d, 24), RT_F8(d, 32), RT_F8(d, 40), RT_F8(d, 48), RT_F8(d, 56)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// N 256, the instruction's widest: the head dim's four 64-column boxes in one product.
+template <>
+__device__ __forceinline__ void wgmma_rs<256>(float (&d)[128], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : RT_F8(d, 0), RT_F8(d, 8), RT_F8(d, 16), RT_F8(d, 24), RT_F8(d, 32), RT_F8(d, 40), RT_F8(d, 48), RT_F8(d, 56),
+        RT_F8(d, 64), RT_F8(d, 72), RT_F8(d, 80), RT_F8(d, 88), RT_F8(d, 96), RT_F8(d, 104), RT_F8(d, 112),
+        RT_F8(d, 120)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
@@ -650,7 +689,7 @@ __global__ void __launch_bounds__(Bf16Tile<D>::THREADS, 1)
 // indices may map to keys and head-dim columns in any order, as long as
 // both operands (and, for n, the output) agree; the orders below make every
 // fragment a contiguous load.
-//   * QK^T: A = Q, split once per block: in registers up to D 80; at D 128
+//   * QK^T: A = Q, split once per block: in registers up to D 80; from D 128
 //     (64 registers more for O) in shared memory in fragment order, each
 //     thread reading back its own float4s. Head-dim order: k step 2u + h
 //     takes columns 16u + 4t + 2h (k index t) and 16u + 4t + 2h + 1 (t + 4),
@@ -674,8 +713,8 @@ struct F32Tile {
   static constexpr int BQ = 64;                 // query rows of a block, 16 a warp
   static constexpr bool Q_IN_REGS = D <= 80;    // else Q's split fragments sit in shared memory
   // keys of a tile: 32 up to D 80 (64 leave too few registers at D 80 with
-  // Q's fragments in them, and spill); 16 at D 128, where Q's fragments take
-  // 64 KB of shared memory and two blocks must still fit an SM's 228 KB
+  // Q's fragments in them, and spill); 16 from D 128, where Q's fragments
+  // take D / 2 KB of shared memory
   static constexpr int BK = D <= 80 ? 32 : 16;
   static constexpr int STAGES = 2;
   static constexpr int LDK = D + (48 - D % 32) % 32;  // K's row pitch in floats: 16 mod 32
@@ -683,10 +722,13 @@ struct F32Tile {
   static constexpr int K_FLOATS = BK * LDK, V_FLOATS = BK * LDV;  // one stage
   static constexpr int QF_FLOAT4S = Q_IN_REGS ? 0 : 2 * (D / 8) * kBlockThreads;  // big and small, k step, thread
   static constexpr int SMEM = 4 * (STAGES * (K_FLOATS + V_FLOATS) + 4 * QF_FLOAT4S);
-  static constexpr int MIN_BLOCKS = 2;          // blocks an SM, for __launch_bounds__
+  // blocks an SM, for __launch_bounds__: two up to D 128; at D 256 Q's
+  // fragments take 128 KB and one block fits, with up to 255 registers a
+  // thread for its 128-register accumulator
+  static constexpr int MIN_BLOCKS = D <= 128 ? 2 : 1;
   static_assert(D % 16 == 0, "head dim must be a multiple of 16 (two m16n8k8 k steps)");
   static_assert(BK * D / 4 % kBlockThreads == 0, "a K or V tile is a whole number of 16-byte copies a thread");
-  static_assert(MIN_BLOCKS * (SMEM + 1024) <= 228 * 1024, "two blocks must fit an SM's shared memory");
+  static_assert(MIN_BLOCKS * (SMEM + 1024) <= 228 * 1024, "MIN_BLOCKS blocks must fit an SM's shared memory");
 };
 
 // x rounded to TF32 (10 mantissa bits, ties away from zero), as the 32-bit
@@ -772,7 +814,7 @@ __global__ void __launch_bounds__(kBlockThreads, F32Tile<D>::MIN_BLOCKS) flash_f
   extern __shared__ float4 f32_smem[];
   float* ks = reinterpret_cast<float*>(f32_smem);  // stage s at ks + s * K_FLOATS
   float* vs = ks + STAGES * T::K_FLOATS;           // stage s at vs + s * V_FLOATS
-  float4* qf = reinterpret_cast<float4*>(vs + STAGES * T::V_FLOATS);  // D 128: [k step][big, small][thread]
+  float4* qf = reinterpret_cast<float4*>(vs + STAGES * T::V_FLOATS);  // from D 128: [k step][big, small][thread]
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int n_qt = (p.S + BQ - 1) / BQ;
@@ -1042,6 +1084,7 @@ int flash_attention(const Params& p, int D, bool bf16, cudaStream_t stream) {
     case 64: return launch<64>(p, bf16, stream);
     case 80: return launch<80>(p, bf16, stream);
     case 128: return launch<128>(p, bf16, stream);
+    case 256: return launch<256>(p, bf16, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -1062,6 +1105,7 @@ int bf16_config(int D, int* out) {
     case 64: return fill(Bf16Tile<64>{});
     case 80: return fill(Bf16Tile<80>{});
     case 128: return fill(Bf16Tile<128>{});
+    case 256: return fill(Bf16Tile<256>{});
     default: return (int)cudaErrorInvalidValue;
   }
 }

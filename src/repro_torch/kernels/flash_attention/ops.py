@@ -18,7 +18,7 @@ import torch
 from .. import loader
 from .ref import flash_attention_plain
 
-HEAD_DIMS = (16, 32, 64, 80, 128)
+HEAD_DIMS = (16, 32, 64, 80, 128, 256)
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window) -> None:

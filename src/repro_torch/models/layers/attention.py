@@ -2,7 +2,9 @@
 
 Port of ``repro.models.layers.attention`` without the KV cache. Covers the
 attention variants of the pool: GQA, MQA and MHA, QKV bias (qwen1.5),
-RoPE, bidirectional (hubert) and sliding-window (mixtral) masks.
+RoPE, bidirectional (hubert) and sliding-window masks (mixtral; the MQA
+local attention of recurrentgemma, 16 query heads over one kv head of d 256
+in a 2,048-key window).
 
 Implementations, chosen by ``impl`` (default ``cfg.attn_impl``) as in the
 reference:

@@ -1,9 +1,11 @@
 """Model assembly: embeddings -> block stack -> final norm -> logits.
 
-Port of ``repro.models.model.Model`` for the full-sequence forward of the
-``attn`` block kind (dense, encoder and GQA decoders):
+Port of ``repro.models.model.Model`` for the full-sequence forward of two
+block kinds, the layer's kind coming from ``cfg.pattern()``:
 
-  "attn" - norm -> attention -> residual, norm -> mlp -> residual.
+  "attn"  - norm -> attention -> residual, norm -> mlp -> residual
+            (dense, encoder and GQA decoders; recurrentgemma's MQA local attention);
+  "rglru" - norm -> rglru -> residual, norm -> mlp -> residual (recurrentgemma).
 
 The layers are the reference's in its order: ``reps`` repetitions of the
 pattern unit, then the tail. The model holds one block module per layer; a
@@ -11,9 +13,9 @@ Python loop replaces ``lax.scan``, and there is no rematerialization (the
 forward runs under ``torch.inference_mode``). ``audio_frames`` consumes
 precomputed (B, S, d_model) frames, as in the reference.
 
-Not ported yet (ROADMAP queue 1 item 15): the ``ssm`` and ``rglru`` block
-kinds, MoE, the ``vision_text`` modality, and ``decode_step``, ``prefill``
-and ``init_caches``; each raises ``NotImplementedError``.
+Not ported yet (ROADMAP queue 1 item 15): the ``ssm`` block kind, MoE, the
+``vision_text`` modality, and ``decode_step``, ``prefill`` and
+``init_caches``; each raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -25,10 +27,14 @@ from .common import Dtypes, dense_init
 from .layers import attention as att
 from .layers import mlp as mlpmod
 from .layers import norms
+from .layers import rglru as rg
 
 __all__ = ["Model", "load_jax_params"]
 
 _LATER = "ROADMAP queue 1 item 15"
+# each block kind's parameter groups, in the reference's names; the second is the mixer
+_GROUPS = {"attn": ("ln1", "attn", "ln2", "mlp"), "rglru": ("ln1", "rglru", "ln2", "mlp")}
+_MIXER_INIT = {"attn": att.attention_init, "rglru": rg.rglru_init}
 
 
 def _params(d: dict) -> nn.ParameterDict:
@@ -36,12 +42,14 @@ def _params(d: dict) -> nn.ParameterDict:
 
 
 class Block(nn.Module):
-    """One ``attn`` layer: ln1, attn, ln2, mlp (each a dict of parameters)."""
+    """One layer of kind ``kind``: the groups of ``_GROUPS[kind]`` (ln1, the
+    mixer ``attn`` or ``rglru``, ln2, mlp), each a dict of parameters."""
 
-    def __init__(self, cfg, gen: torch.Generator, dtype, device):
+    def __init__(self, kind: str, cfg, gen: torch.Generator, dtype, device):
         super().__init__()
+        self.kind = kind
         self.ln1 = _params(norms.norm_init(cfg.d_model, cfg.norm_type, dtype, device))
-        self.attn = _params(att.attention_init(gen, cfg, dtype, device))
+        setattr(self, kind, _params(_MIXER_INIT[kind](gen, cfg, dtype, device)))
         self.ln2 = _params(norms.norm_init(cfg.d_model, cfg.norm_type, dtype, device))
         self.mlp = _params(mlpmod.mlp_init(gen, cfg, dtype, device))
 
@@ -53,8 +61,8 @@ class Model(nn.Module):
     def __init__(self, cfg, device="cuda", seed: int = 0):
         super().__init__()
         pattern = cfg.pattern()
-        if set(pattern) != {"attn"}:
-            raise NotImplementedError(f"{cfg.name}: block kinds {sorted(set(pattern) - {'attn'})} are not "
+        if set(pattern) - set(_GROUPS):
+            raise NotImplementedError(f"{cfg.name}: block kinds {sorted(set(pattern) - set(_GROUPS))} are not "
                                       f"ported yet ({_LATER})")
         if cfg.moe is not None:
             raise NotImplementedError(f"{cfg.name}: MoE is not ported yet ({_LATER})")
@@ -73,7 +81,7 @@ class Model(nn.Module):
             self.frame_proj = nn.Parameter(dense_init(gen, (d, d), dtp, device), requires_grad=False)
         self.embedding = nn.Parameter(dense_init(gen, (V, d), dtp, device, scale=float(np.sqrt(d))),
                                       requires_grad=False)
-        self.blocks = nn.ModuleList(Block(cfg, gen, dtp, device) for _ in range(cfg.n_layers))
+        self.blocks = nn.ModuleList(Block(kind, cfg, gen, dtp, device) for kind in pattern)
         self.final_norm = _params(norms.norm_init(d, cfg.norm_type, dtp, device))
         if not cfg.tie_embeddings:
             self.lm_head = nn.Parameter(dense_init(gen, (d, V), dtp, device), requires_grad=False)
@@ -83,7 +91,10 @@ class Model(nn.Module):
     def _apply_block(self, blk: Block, x, positions):
         cfg = self.cfg
         h = norms.apply_norm(blk.ln1, x, cfg.norm_type, cfg.norm_eps)
-        a, _ = att.attention_apply(blk.attn, h, cfg, positions=positions)
+        if blk.kind == "attn":
+            a, _ = att.attention_apply(blk.attn, h, cfg, positions=positions)
+        else:
+            a, _ = rg.rglru_apply(blk.rglru, h, cfg)
         x = x + a
         h = norms.apply_norm(blk.ln2, x, cfg.norm_type, cfg.norm_eps)
         return x + mlpmod.mlp_apply(blk.mlp, h, cfg)
@@ -154,9 +165,10 @@ def load_jax_params(model: Model, params: dict) -> Model:
             layer = {grp: {n: a[r] for n, a in leaves.items()} for grp, leaves in params["blocks"][f"b{j}"].items()}
         else:
             layer = params["tail"][f"t{i - model.reps * k}"]
-        if set(layer) != {"ln1", "attn", "ln2", "mlp"}:
-            raise ValueError(f"layer {i}: groups {sorted(layer)} are not those of an attn block")
-        for grp in ("ln1", "attn", "ln2", "mlp"):
+        groups = _GROUPS[blk.kind]
+        if set(layer) != set(groups):
+            raise ValueError(f"layer {i}: groups {sorted(layer)} are not those of an {blk.kind} block")
+        for grp in groups:
             _fill(getattr(blk, grp), layer[grp], f"layer {i}.{grp}")
     # the reference's top-level key -> the model's attribute
     top = {"embed": "embedding", "final_norm": "final_norm"}

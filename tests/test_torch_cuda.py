@@ -34,6 +34,7 @@ from repro_torch.kernels.linesearch_probe.ref import (binary_search_ref, linesea
 from repro_torch.kernels.softmax_weights.ref import softmax_weights_ref
 from repro_torch.lpserve import BucketSpec, LPEngine, LPServeConfig, pad_problem
 from repro_torch.models import Model
+from repro_torch.models.layers import rglru as rg
 
 EPS = 0.1
 
@@ -699,11 +700,11 @@ def _check_flash(q, k, v, causal, window):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal,window", [(True, None), (True, 24), (True, 200), (False, None)])
 @pytest.mark.parametrize("S", [1, 16, 63, 64, 127, 128, 129, 130])
-@pytest.mark.parametrize("dh", [16, 32, 64, 80, 128])
+@pytest.mark.parametrize("dh", [16, 32, 64, 80, 128, 256])
 def test_flash_attention_matches_plain_on_card(cuda, dh, S, causal, window, dtype):
     """The sweep of tests/test_kernels.py (GQA 4 over 2 heads) at every head dim, with S on both sides of the
-    64-row warpgroup (bf16) and block (f32) edges and the 128-row tile edge (bf16), and windows inside one tile
-    (24) and across two or more (200)."""
+    64-row warpgroup (bf16) and block (f32) edges and the 128-row tile edge (bf16; also two 64-key tiles at
+    d 256), and windows inside one tile (24) and across two or more (200)."""
     q, k, v = _qkv((2, S, 4, dh), (2, S, 2, dh), dtype, cuda, S + dh)
     _check_flash(q, k, v, causal, window)
 
@@ -711,21 +712,25 @@ def test_flash_attention_matches_plain_on_card(cuda, dh, S, causal, window, dtyp
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal,window", [(False, None), (True, 200), (False, 100)])
-@pytest.mark.parametrize("dh,hq,hkv", [(16, 8, 2), (32, 6, 2), (64, 6, 1), (80, 16, 16), (128, 8, 1)])
-def test_flash_attention_long_rows_on_card(cuda, dh, hq, hkv, causal, window, dtype):
-    """Many key tiles and a ragged tail (S 1500: 11.7 bf16 tiles of 128 keys; 46.9 f32 tiles of 32 up to
-    d 80, 93.75 of 16 at d 128), GQA groups 1, 3, 4, 6 and 8; bidirectional, causal-windowed and
-    bidirectional-windowed."""
-    q, k, v = _qkv((1, 1500, hq, dh), (1, 1500, hkv, dh), dtype, cuda, dh)
+@pytest.mark.parametrize("dh,hq,hkv,S", [(16, 8, 2, 1500), (32, 6, 2, 1500), (64, 6, 1, 1500), (80, 16, 16, 1500),
+                                         (128, 8, 1, 1500), (256, 16, 1, 1500), (256, 4, 1, 40),
+                                         (256, 16, 1, 2500)])
+def test_flash_attention_long_rows_on_card(cuda, dh, hq, hkv, S, causal, window, dtype):
+    """Many key tiles and a ragged tail (S 1500: 11.7 bf16 tiles of 128 keys, 23.4 of 64 at d 256; 46.9 f32
+    tiles of 32 up to d 80, 93.75 of 16 from d 128), GQA groups 1, 3, 4, 6, 8 and 16 (recurrentgemma's MQA);
+    bidirectional, causal-windowed and bidirectional-windowed. At d 256 also tests/test_torch_flash_attention.py's
+    MQA case (4 over 1 heads, S 40) and recurrentgemma's row in small (16 over 1 heads, S 2,500)."""
+    q, k, v = _qkv((1, S, hq, dh), (1, S, hkv, dh), dtype, cuda, dh + S % 1500)
     _check_flash(q, k, v, causal, window)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("dh", [80, 128])
+@pytest.mark.parametrize("dh", [80, 128, 256])
 def test_flash_attention_ring_wraps_on_card(cuda, dh, dtype):
     """S 4096 causal at 2 heads: the key tiles pass the stage ring many times (bf16: 32 tiles through 4
-    stages at d 80, 2 at 128; f32: 128 tiles at d 80 and 256 at d 128 through 2 stages)."""
+    stages at d 80, 2 at 128, 64 tiles through 2 at 256; f32: 128 tiles at d 80 and 256 from d 128 through 2
+    stages)."""
     q, k, v = _qkv((1, 4096, 2, dh), (1, 4096, 2, dh), dtype, cuda, 7)
     _check_flash(q, k, v, True, None)
 
@@ -771,17 +776,24 @@ def test_flash_attention_rejects_bad_inputs(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("arch", ["hubert-cut", "hubert-xlarge", "minitron-4b", "starcoder2-15b"])
+@pytest.mark.parametrize("arch", ["hubert-cut", "hubert-xlarge", "minitron-4b", "starcoder2-15b", "rg-cut",
+                                  "recurrentgemma-9b"])
 def test_model_forward_card_matches_cpu(cuda, arch):
     """Model.forward + logits at S 40 > attn_chunk 16, attn_impl pallas, f32:
     the card (flash kernel, cuBLAS) vs the CPU (plain versions), the same
     weights. "hubert-cut" is hubert at its real d_head 80 and MHA, 2 layers
-    of width 160; the others are the configs' reduced(). Bar 1e-4 of the
-    largest logit: f32 on both sides, sums in other orders."""
+    of width 160; "rg-cut" recurrentgemma at its real d_head 256 and MQA, 5
+    layers (rglru, rglru, attn, rglru, rglru) of width 128; the others are
+    the configs' reduced(). Bar 1e-4 of the largest logit: f32 on both
+    sides, sums in other orders."""
     torch.backends.cuda.matmul.allow_tf32 = False
     if arch == "hubert-cut":
         cfg = replace(get("hubert-xlarge"), n_layers=2, d_model=160, n_heads=2, n_kv_heads=2, d_head=80, d_ff=640,
                       attn_chunk=16, dtype="float32", param_dtype="float32", attn_impl="pallas")
+    elif arch == "rg-cut":
+        cfg = replace(get("recurrentgemma-9b"), n_layers=5, d_model=128, n_heads=2, n_kv_heads=1, d_head=256,
+                      d_ff=256, vocab_size=256, rnn_width=128, sliding_window=16, attn_chunk=16, dtype="float32",
+                      param_dtype="float32", attn_impl="pallas")
     else:
         cfg = replace(get(arch).reduced(), attn_impl="pallas")
     cpu = Model(cfg, device="cpu", seed=1)
@@ -796,7 +808,7 @@ def test_model_forward_card_matches_cpu(cuda, arch):
     with torch.inference_mode():
         ref = cpu.logits(cpu(batch))
         got = card.logits(card({k: t.to(cuda) for k, t in batch.items()})).cpu()
-    assert K.launch_counts()["flash_attention"] == cfg.n_layers
+    assert K.launch_counts()["flash_attention"] == cfg.pattern().count("attn")
     V = cfg.vocab_size
     assert torch.equal(got[..., V:], ref[..., V:])
     scale = ref[..., :V].abs().max()
@@ -1036,3 +1048,38 @@ def test_card_padded_solve_is_masked_on_card(cuda):
     assert abs(got.objective - plain.objective) <= EPS * plain.objective
     assert np.ptp(got.x[prob.n_vars:]) == 0.0
     assert counts["newton_search"] == got.mwu_iters_total and counts["linesearch_probe"] == 0
+
+
+@pytest.mark.cuda
+def test_rglru_scan_matches_decode_loop_on_card(cuda):
+    """The reference's identity (tests/test_layers.py) on the card at f32: the full-sequence scan equals a
+    loop of decode steps from an empty state, at recurrentgemma's reduced widths and S 300 (9 doubling steps)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get("recurrentgemma-9b").reduced()
+    p = rg.rglru_init(torch.Generator(device=cuda).manual_seed(0), cfg, torch.float32, cuda)
+    x = torch.randn(2, 300, cfg.d_model, generator=torch.Generator(device=cuda).manual_seed(1), device=cuda) * 0.3
+    with torch.inference_mode():
+        out, _ = rg.rglru_apply(p, x, cfg)
+        state, outs = rg.init_rglru_state(cfg, 2, device=cuda), []
+        for t in range(x.shape[1]):
+            o, state = rg.rglru_decode(p, x[:, t:t + 1], cfg, state)
+            outs.append(o)
+    torch.testing.assert_close(out, torch.cat(outs, dim=1), atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_rglru_scan_matches_sequential_loop_on_card(cuda):
+    """The doubling scan at recurrentgemma-9b's forward shape (B 2, S 8192, w 4096, f32) against a sequential
+    f64 loop, with a in (0.9, 0.999) so that the carry lives for hundreds of steps and every doubling step and
+    product of a counts (at the init's a of ~0.007 the decode identity above cannot see them). Bar 1e-5,
+    relative L2 and elementwise of 1 + |h| (~1e-7 on the CPU)."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    a = 0.9 + 0.099 * torch.rand(2, 8192, 4096, generator=gen, device=cuda)
+    b = torch.randn(2, 8192, 4096, generator=gen, device=cuda)
+    h = rg._scan(a, b).double()
+    ref, hd = torch.empty_like(h), torch.zeros_like(h[:, 0])
+    for t in range(a.shape[1]):
+        hd = torch.addcmul(b[:, t].double(), a[:, t].double(), hd)
+        ref[:, t] = hd
+    assert ((h - ref).norm() / ref.norm()).item() <= 1e-5
+    assert bool(((h - ref).abs() <= 1e-5 * (1 + ref.abs())).all())

@@ -52,15 +52,22 @@ def test_flash_attention_sweep(S, causal, window, dtype):
     np.testing.assert_allclose(got.float().numpy(), np.asarray(ref, np.float32), atol=tol, rtol=tol)
 
 
-@pytest.mark.parametrize("dh", [16, 80])
-def test_flash_attention_gqa_groups(dh):
-    """GQA group folding: each q head attends its own kv head; d 80 is hubert's."""
-    rng = np.random.default_rng(0)
-    B, S, Hq, Hkv = 1, 32, 8, 2
-    (q, k, v), (tq, tk, tv) = _inputs(rng, (B, S, Hq, dh), (B, S, Hkv, dh), "float32")
-    ref = ref_flash(q, k, v, causal=True, block_q=16, block_k=16, impl="pallas")
-    got = flash_attention(tq, tk, tv, causal=True, block_q=16, block_k=16)
-    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=3e-5)
+@pytest.mark.parametrize("dh,B,S,Hq,Hkv,causal,window,dtype", [
+    pytest.param(16, 1, 32, 8, 2, True, None, "float32", id="16"),
+    pytest.param(80, 1, 32, 8, 2, True, None, "float32", id="80"),
+    # recurrentgemma-9b's attention in small: MQA, a 16-key window or none; S 40 is no multiple of 16
+    *(pytest.param(256, 2, 40, 4, 1, causal, window, dtype, id=f"256-mqa-{mask}-{dtype}")
+      for causal, window, mask in ((True, 16, "window16"), (False, None, "bidirectional"))
+      for dtype in ("float32", "bfloat16")),
+])
+def test_flash_attention_gqa_groups(dh, B, S, Hq, Hkv, causal, window, dtype):
+    """GQA group folding: each q head attends its own kv head; d 80 is hubert's, d 256 recurrentgemma's."""
+    rng = np.random.default_rng(256 if dh == 256 else 0)
+    (q, k, v), (tq, tk, tv) = _inputs(rng, (B, S, Hq, dh), (B, S, Hkv, dh), dtype)
+    ref = ref_flash(q, k, v, causal=causal, window=window, block_q=16, block_k=16, impl="pallas")
+    got = flash_attention(tq, tk, tv, causal=causal, window=window, block_q=16, block_k=16)
+    assert got.dtype == getattr(torch, dtype) and got.shape == (B, S, Hq, dh)
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(ref, np.float32), atol=TOLS[dtype])
 
 
 @pytest.mark.parametrize("causal,window", [(True, None), (True, 5), (False, 7)])

@@ -34,7 +34,7 @@ from repro_torch.models.layers import attention, mlp, norms, rope
 
 TOL = 1e-5
 S = 40  # > attn_chunk 16 of the reduced configs: the pallas / chunked paths run
-ARCHS = ["hubert-xlarge", "minitron-4b", "starcoder2-15b", "qwen1.5-32b"]
+ARCHS = ["hubert-xlarge", "minitron-4b", "starcoder2-15b", "qwen1.5-32b", "recurrentgemma-9b"]
 
 
 def _hubert_cut(get_fn):
@@ -44,10 +44,23 @@ def _hubert_cut(get_fn):
                    remat="none", attn_impl="pallas")
 
 
+def _rg_cut(get_fn):
+    """recurrentgemma-9b at its real d_head 256 and MQA (2 query heads over 1 kv head), cut to 5 layers of
+    width 128: one repetition of (rglru, rglru, attn) and the (rglru, rglru) tail, the 38-layer layout in
+    small."""
+    return replace(get_fn("recurrentgemma-9b"), name="rg-cut", n_layers=5, d_model=128, n_heads=2, n_kv_heads=1,
+                   d_head=256, d_ff=256, vocab_size=256, rnn_width=128, sliding_window=16, attn_chunk=16,
+                   dtype="float32", param_dtype="float32", remat="none", attn_impl="pallas")
+
+
+_CUTS = {"hubert-cut": _hubert_cut, "rg-cut": _rg_cut}
+
+
 def _cfgs(name, impl="pallas"):
     """(reference config, port config) of one test case."""
-    if name == "hubert-cut":
-        return replace(_hubert_cut(ref_get), attn_impl=impl), replace(_hubert_cut(get), attn_impl=impl)
+    if name in _CUTS:
+        cut = _CUTS[name]
+        return replace(cut(ref_get), attn_impl=impl), replace(cut(get), attn_impl=impl)
     return replace(ref_get(name).reduced(), attn_impl=impl), replace(get(name).reduced(), attn_impl=impl)
 
 
@@ -108,7 +121,7 @@ def test_mlp(arch):
 
 
 @pytest.mark.parametrize("impl", ["dense", "chunked", "pallas"])
-@pytest.mark.parametrize("arch", ARCHS + ["hubert-cut"])
+@pytest.mark.parametrize("arch", ARCHS + ["hubert-cut", "rg-cut"])
 def test_attention_apply(arch, impl):
     rcfg, cfg = _cfgs(arch, impl)
     params = _np_tree(ref_att.attention_init(jax.random.PRNGKey(1), rcfg, jnp.float32))
@@ -137,7 +150,7 @@ def _batch(cfg, B=2):
     return {"tokens": rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)}
 
 
-@pytest.mark.parametrize("arch", ARCHS + ["hubert-cut"])
+@pytest.mark.parametrize("arch", ARCHS + ["hubert-cut", "rg-cut"])
 def test_model_forward_logits(arch):
     """Model.forward + logits with the reference's parameters, attn_impl pallas."""
     rcfg, cfg = _cfgs(arch)
@@ -170,7 +183,45 @@ def test_load_jax_params_unstacks_layers_in_order():
         load_jax_params(model, params)
 
 
-@pytest.mark.parametrize("arch", ["mamba2-1.3b", "recurrentgemma-9b", "mixtral-8x22b", "internvl2-26b"])
+def test_load_jax_params_rglru_layers():
+    """rg-cut's layers by kind: 0, 1, 3 and 4 (the tail) are rglru blocks, 2 the attn block; each holds the
+    reference's leaves, the stacked ones at their repetition and the tail's as they are."""
+    rcfg, cfg = _cfgs("rg-cut")
+    params = _np_tree(RefModel(rcfg, fsdp=False).init(jax.random.PRNGKey(6)))
+    model = load_jax_params(Model(cfg, device="cpu"), params)
+    assert [blk.kind for blk in model.blocks] == ["rglru", "rglru", "attn", "rglru", "rglru"]
+    layers = [params["blocks"]["b0"], params["blocks"]["b1"], params["blocks"]["b2"],
+              params["tail"]["t0"], params["tail"]["t1"]]
+    for i, (blk, layer) in enumerate(zip(model.blocks, layers)):
+        groups = ("ln1", blk.kind, "ln2", "mlp")
+        assert set(layer) == set(groups)
+        for grp in groups:
+            for name, leaf in layer[grp].items():
+                ref = leaf[0] if i < 3 else leaf  # one repetition of the stacked pattern unit
+                np.testing.assert_array_equal(getattr(blk, grp)[name].numpy(), ref, err_msg=f"layer {i} {grp}.{name}")
+    # attn groups where the model has an rglru block
+    params["tail"]["t1"] = jax.tree.map(lambda a: a[0], params["blocks"]["b2"])
+    with pytest.raises(ValueError, match="layer 4"):
+        load_jax_params(model, params)
+
+
+def test_rglru_block_forward():
+    """One rglru layer of the model (ln1, rglru, residual, ln2, mlp, residual) against the reference's
+    Model._apply_block, rg-cut's widths."""
+    from repro.models.model import Model as RefModelCls
+
+    rcfg, cfg = _cfgs("rg-cut")
+    params = _np_tree(RefModel(rcfg, fsdp=False).init(jax.random.PRNGKey(7)))
+    layer = params["tail"]["t0"]
+    x = np.random.default_rng(8).standard_normal((2, S, cfg.d_model)).astype(np.float32)
+    ref, _ = RefModelCls(rcfg, fsdp=False)._apply_block("rglru", jax.tree.map(jnp.asarray, layer), jnp.asarray(x),
+                                                        jnp.arange(S))
+    model = load_jax_params(Model(cfg, device="cpu"), params)
+    got = model._apply_block(model.blocks[3], _t(x), torch.arange(S))
+    _close(got, ref)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "mixtral-8x22b", "internvl2-26b"])
 def test_model_unported_kinds_raise(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Model(get(arch).reduced(), device="cpu")
