@@ -7,9 +7,10 @@ Builds the CUDA kernels of ``src/repro_torch/kernels/csrc`` with nvcc for
 sm_90a and drives the port's paths, the MWU graph-LP solve, the
 hubert-xlarge encoder forward, recurrentgemma-9b's forward (RG-LRU blocks
 and MQA local attention at head dim 256), graph-LP serving
-(``repro_torch.lpserve``), and the paper's two comparison studies (Table
-3's step rules, Figure 3's MPCSolver baseline), in seven phases; any
-failed phase exits non-zero before the result lines are printed.
+(``repro_torch.lpserve``), the paper's two comparison studies (Table
+3's step rules, Figure 3's MPCSolver baseline) and the distributed solve
+(``repro_torch.dist``), in eight phases; any failed phase exits non-zero
+before the result lines are printed.
 
 1. Card: its name and power limit (nvidia-smi) and the kernels' build time.
 2. Kernels vs their plain PyTorch versions on the card, at the main path's
@@ -189,6 +190,26 @@ failed phase exits non-zero before the result lines are printed.
    reached by the cap"), the final violation, ms an iteration and host reads an
    iteration; first ``mpc_solve`` on a small instance on the card against
    the CPU (the same iterations, x within rel 1e-9).
+8. The distributed solve (``repro_torch.dist``) on phase 3's problem. (a)
+   ``DistSolver(plan=MeshPlan(), batch_width=4).solve`` must equal phase
+   3's ``Solver(batch_width=4).solve``: x by sha256, objective, bound,
+   rounds and lane iterations. (b) Two ranks share the card: the script
+   starts itself twice (``--dist-rank``, hidden), a ``file://`` init and
+   gloo (NCCL refuses two ranks on one device), under a time limit; the
+   parent hands them the edges and the search bounds through a temporary
+   directory. Each solves with ``DistSolver(plan=MeshPlan(pod=2),
+   batch_width=4)`` over its edge slab (98,609,647 edges, odd: one padded,
+   masked edge, so the slab's gather runs alone). Fails unless the
+   Solution is FEASIBLE within 1.5*eps of the exact maximum, max Mx <=
+   1 + 1e-9 on the host, both ranks return the same x (sha256), status,
+   bound and iterations, and each rank launched the search, the step
+   direction and the gather once a lane iteration and the axpy three
+   times. Prints each rank's time to solution, rounds, lane iterations,
+   peak memory, and, from one more feasibility solve at the certified
+   bound, its device ms a lane iteration (its own kernels), the
+   all_reduce's ms a lane iteration (host clock, the device drained
+   first) and its host reads a loop iteration. The two ranks share one
+   card, so none of it is a speed-up figure.
 
 The line before the last is ``{"kernels": [...]}``, one entry per kernel;
 the last is ``{"ok": true, "device": {...}}``. The flash entry takes row
@@ -196,7 +217,8 @@ the last is ``{"ok": true, "device": {...}}``. The flash entry takes row
 with phase 5 (b)'s launches under ``recurrentgemma``; the axpy and the searches take
 the row of the form the main path launches (device step, step form), and
 each MWU kernel's masked row goes into its entry's ``masked`` field. Every
-entry's launches add phase 6's (``serving_launches``). The script exits non-zero
+entry's launches add phase 6's (``serving_launches``) and phase 8's, (a)'s
+and both ranks' of (b) (``dist_launches``). The script exits non-zero
 without a result when no CUDA device is present or when it is run outside
 the repository.
 """
@@ -1023,14 +1045,15 @@ def flash_rows(K, card: str, failures: list) -> list[dict]:
 
 
 # -- phase 3 -----------------------------------------------------------------
-def round_solver(opts, batch_width: int = 4):
-    """A Solver that keeps, for each search round, its bounds, its lanes'
-    iterations and its wall time, and the first batched round's result."""
+def round_solver(opts, batch_width: int = 4, base=None, **kwargs):
+    """A Solver (or a subclass ``base`` of it, built with ``kwargs``) that
+    keeps, for each search round, its bounds, its lanes' iterations and its
+    wall time, and the first batched round's result."""
     from repro_torch.api import Solver
 
-    class RoundSolver(Solver):
+    class RoundSolver(Solver if base is None else base):
         def __init__(self):
-            super().__init__(opts, batch_width=batch_width)
+            super().__init__(opts, batch_width=batch_width, **kwargs)
             self.rounds, self.first_batch = [], None
 
         def solve_batch(self, problem, bounds, **kw):
@@ -1139,7 +1162,7 @@ def full_solve(n_users: int, failures: list) -> tuple:
                 round_wall_s=[r["wall_s"] for r in rounds], loop_iters=loop_iters,
                 ms_per_loop_iter=1e3 * wall / max(loop_iters, 1),
                 max_memory_gb=peak_gb, memory_before_gb=base_gb, reckoned_lane_state_gb=lane_gb,
-                max_Mx=float(loads.max()),
+                max_Mx=float(loads.max()), x_sha256=sha256(sol.x) if sol.found else None,
                 launches=launches, setup_s=dict(graph=t_graph, exact=t_exact, build=t_build, csr=t_csr),
                 csr_mb=sum(s.nbytes for s in sides) / 1e6, certify_s=t_cert,
                 rounds_wall_s=sum(r["wall_s"] or 0.0 for r in rounds), second_wall_s=wall2,
@@ -1877,6 +1900,7 @@ def table3(prob, bound: float, failures: list) -> dict:
     iterations, probes an iteration, device ms a lane iteration, ms a
     search launch, host reads a loop iteration (at most 1.01 for every
     rule) and the device's idle share."""
+    from repro_torch import kernels as K
     from repro_torch.api import MWUOptions, Solver
 
     out = {}
@@ -1887,8 +1911,13 @@ def table3(prob, bound: float, failures: list) -> dict:
                   f"{MWUOptions().max_iter})", flush=True)
         opts = MWUOptions(eps=EPS, step_rule=rule, max_iter=cap)
         t0 = time.perf_counter()
+        K.reset_launch_counts()
         p = profile_run(lambda: Solver(opts).feasible(prob, bound), f"Table 3, the {rule} rule at bound {bound!r}",
                         failures)
+        # the searches' launches as their wrappers count them, over profile_run's two solves (timed, then
+        # profiled); the profiler's own count can miss an event of a long trace
+        counted = K.launch_counts()
+        launches = counted["newton_search"] + counted["binary_search"]
         p["phase_s"] = time.perf_counter() - t0
         p["probes_per_iter"] = p["probes"] / max(p["lane_iters"], 1)
         p["ms_per_search_launch"] = p["search_ms"] / p["search_launches"] if p["search_launches"] else None
@@ -1897,10 +1926,11 @@ def table3(prob, bound: float, failures: list) -> dict:
               f"iteration, {p['device_ms_per_lane_iter']:.4f} device ms a lane iteration, ms a search launch "
               f"{p['ms_per_search_launch']}, {p['host_reads_per_loop_iter']:.4f} host reads a loop iteration, idle "
               f"share {p['device_idle_share']:.4f}; timed and profiled in {p['phase_s']:.1f} s", flush=True)
-        launches_ok = p["search_launches"] == (0 if rule == "std" else p["lane_iters"])
+        launches_ok = launches == (0 if rule == "std" else 2 * p["lane_iters"])
         check(failures, p["host_reads_per_loop_iter"] <= 1.01 and launches_ok,
               f"Table 3 {rule}: {p['host_reads_per_loop_iter']:.4f} host reads a loop iteration (bar 1.01); "
-              f"{p['search_launches']} search launches for {p['lane_iters']} iterations")
+              f"{launches} search launches for 2 x {p['lane_iters']} iterations (the profile's: "
+              f"{p['search_launches']})")
     return out
 
 
@@ -1989,15 +2019,244 @@ def figure3(g, failures: list) -> dict:
     return out
 
 
+# -- phase 8 -----------------------------------------------------------------
+DIST_RANKS = 2  # phase 8 (b): ranks sharing the one card over gloo
+DIST_TIMEOUT_S = 600  # phase 8 (b): the ranks' time limit; their process group's timeout is half of it
+DIST_REPORT = "DIST_RANK_REPORT "  # a rank's report line, read by the parent (never its own last line)
+
+
+def bmatch_problem(u: np.ndarray, v: np.ndarray, n: int, lo: float, hi: float):
+    """Phase 3's bmatch Problem on the card from its edges and search bounds:
+    what ``graphs.build("bmatch", g)`` builds, without its greedy matching's
+    host loop over the edges (the bounds come with the edges)."""
+    from repro_torch.api import Problem
+    from repro_torch.core.operators import Incidence
+
+    P = Incidence(u=torch.as_tensor(u, device="cuda"), v=torch.as_tensor(v, device="cuda"), n_vertices=int(n))
+    return Problem(name="bmatch", kind="packing", sense="max", bound_mode="objective_covering", P=P,
+                   c=torch.ones(len(u), dtype=torch.float64, device="cuda"), lo=float(lo), hi=float(hi),
+                   n_vars=len(u), nnz=P.nnz, device="cuda", dtype=torch.float64)
+
+
+def identity_plan_solve(g, lo: float, hi: float, phase3: dict, failures: list) -> dict:
+    """Phase 8 (a): ``DistSolver(plan=MeshPlan(), batch_width=4).solve`` of
+    phase 3's bmatch problem equals phase 3's ``Solver(batch_width=4).solve``:
+    x by sha256, objective, bound, rounds and lane iterations."""
+    from repro_torch import kernels as K
+    from repro_torch.api import MWUOptions
+    from repro_torch.dist import DistSolver, MeshPlan
+
+    prob = bmatch_problem(g.u, g.v, g.n, lo, hi)
+    solver = round_solver(MWUOptions(eps=EPS, step_rule="newton"), base=DistSolver, plan=MeshPlan())
+    K.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sol = solver.solve(prob)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = K.launch_counts()
+    got = dict(x_sha256=sha256(sol.x), objective=sol.objective, bound=sol.bound, rounds=len(solver.rounds),
+               iters=sol.mwu_iters_total)
+    want = {k: phase3[k] for k in got}
+    print(f"  (a) identity plan: {json.dumps(got)}; {wall:.2f} s (CSR built inside)", flush=True)
+    check(failures, got == want, f"(a) DistSolver(plan=MeshPlan()) equals phase 3's Solver: {got} | {want}")
+    del prob, solver, sol
+    torch.cuda.empty_cache()
+    return dict(launches=launches, wall_s=wall, **got)
+
+
+def timed_collectives(*names: str):
+    """Wrap the ``torch.distributed`` collectives ``names`` to time each call
+    on the host clock, the device drained first, so only the collective
+    counts (gloo stages a CUDA tensor through the host); returns
+    ({name: {"calls", "ms"}}, restore)."""
+    import torch.distributed as tdist
+
+    stats, inner = {}, {name: getattr(tdist, name) for name in names}
+
+    def timed(name):
+        def call(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = inner[name](*a, **k)
+            torch.cuda.synchronize()
+            stats[name]["ms"] += 1e3 * (time.perf_counter() - t0)
+            stats[name]["calls"] += 1
+            return out
+        return call
+
+    for name in names:
+        stats[name] = {"calls": 0, "ms": 0.0}
+        setattr(tdist, name, timed(name))
+    return stats, lambda: [setattr(tdist, name, f) for name, f in inner.items()]
+
+
+def dist_rank(rank: int, folder: Path) -> int:
+    """Phase 8 (b), one rank: phase 3's bmatch over ``MeshPlan(pod=2)`` edge
+    slabs with the other rank on the same card, over gloo. Prints its report
+    as one line after ``DIST_REPORT``; the parent checks and prints it."""
+    import datetime
+
+    import torch.distributed as tdist
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import kernels as K
+    from repro_torch.api import MWUOptions, Status
+    from repro_torch.dist import DistSolver, MeshPlan
+
+    tdist.init_process_group("gloo", init_method=f"file://{folder / 'init'}", rank=rank, world_size=DIST_RANKS,
+                             timeout=datetime.timedelta(seconds=DIST_TIMEOUT_S / 2))
+    try:
+        meta = json.loads((folder / "meta.json").read_text())
+        t0 = time.perf_counter()
+        prob = bmatch_problem(np.load(folder / "u.npy"), np.load(folder / "v.npy"), meta["n"], meta["lo"], meta["hi"])
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+        opts = MWUOptions(eps=EPS, step_rule="newton")
+        solver = round_solver(opts, base=DistSolver, plan=MeshPlan(pod=DIST_RANKS))
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launch_counts()
+        # the results' gathers, once a round, timed (their drains cost nothing: a gather waits for the round)
+        gathers, restore = timed_collectives("all_gather")
+        try:
+            tdist.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sol = solver.solve(prob)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            restore()
+        launches = K.launch_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        x = sol.x
+        report = dict(rank=rank, status=Status.NAMES[sol.status], objective=sol.objective, bound=sol.bound,
+                      calls=sol.feasibility_calls, iters=sol.mwu_iters_total,
+                      rounds=[dict(lanes=len(r["bounds"]), iters=r["iters"], wall_s=r["wall_s"]) for r in solver.rounds],
+                      loop_iters=sum(max(r["iters"]) for r in solver.rounds), wall_s=wall, load_s=t_load,
+                      peak_gb=peak_gb, launches=launches, dist_stats=solver.dist_stats,
+                      all_gather=gathers["all_gather"],
+                      x_sha256=sha256(x) if x is not None else None)
+        if rank == 0 and x is not None:  # the ranks' x are compared by sha256
+            report["max_Mx"] = float((np.bincount(np.load(folder / "u.npy"), x, meta["n"])
+                                      + np.bincount(np.load(folder / "v.npy"), x, meta["n"])).max())
+        # one feasibility solve at the certified bound, instrumented: device
+        # time (profiler, this process's kernels), the collectives' time, the
+        # program's host reads
+        stats, restore = timed_collectives("all_reduce")
+        try:
+            tdist.barrier()
+            with counted_reads() as reads, profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                res = DistSolver(opts, plan=MeshPlan(pod=DIST_RANKS)).feasible(prob, sol.bound)
+                torch.cuda.synchronize()
+                f_wall = time.perf_counter() - t0
+        finally:
+            restore()
+        busy = sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0) / 1e3
+        it = max(int(res.iters), 1)
+        report["at_bound"] = dict(status=Status.NAMES[int(res.status)], iters=int(res.iters), wall_s=f_wall,
+                                  device_ms=busy, device_ms_per_lane_iter=busy / it,
+                                  all_reduce_calls=stats["all_reduce"]["calls"], all_reduce_ms=stats["all_reduce"]["ms"],
+                                  all_reduce_ms_per_lane_iter=stats["all_reduce"]["ms"] / it, host_reads=reads[0],
+                                  host_reads_per_loop_iter=reads[0] / it)
+        print(DIST_REPORT + json.dumps(report), flush=True)
+    finally:
+        tdist.destroy_process_group()
+    return 0
+
+
+def dist_solve(g, lo: float, hi: float, exact: int, failures: list) -> dict:
+    """Phase 8 (b): two ranks on the one card, each a ``chip_smoke.py
+    --dist-rank`` process, solve phase 3's bmatch over ``MeshPlan(pod=2)``
+    edge slabs (98,609,647 edges: one padded, masked edge). The parent hands
+    them the edges and the search bounds through a temporary directory;
+    checks that the Solution is FEASIBLE within 1.5*eps of the exact
+    maximum, that max Mx <= 1 + 1e-9 on the host, that both ranks return
+    the same x, status, bound and iterations, and that every lane iteration
+    ran the search, the step direction, the standalone gather (a masked
+    slab has no fused gather) and three axpys."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        folder = Path(tmp)
+        np.save(folder / "u.npy", g.u)
+        np.save(folder / "v.npy", g.v)
+        (folder / "meta.json").write_text(json.dumps(dict(n=g.n, lo=lo, hi=hi)))
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--dist-rank", str(r),
+                                   "--dist-dir", tmp], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                 for r in range(DIST_RANKS)]
+        outs = []
+        try:
+            for p in procs:
+                outs.append(p.communicate(timeout=DIST_TIMEOUT_S))
+        except subprocess.TimeoutExpired:
+            for p in procs:
+                p.kill()
+                p.communicate()
+            check(failures, False, f"(b) the ranks finished within {DIST_TIMEOUT_S} s")
+            return {}
+        wall = time.perf_counter() - t0
+    reports = []
+    for r, (p, (out, err)) in enumerate(zip(procs, outs)):
+        lines = [ln for ln in out.splitlines() if ln.startswith(DIST_REPORT)]
+        check(failures, p.returncode == 0 and len(lines) == 1,
+              f"(b) rank {r} exited {p.returncode} with its report" + ("" if p.returncode == 0 else f": {err[-2000:]}"))
+        if lines:
+            reports.append(json.loads(lines[0][len(DIST_REPORT):]))
+    if len(reports) != DIST_RANKS:
+        return {}
+    a = reports[0]
+    print(f"  (b) {DIST_RANKS} ranks on one card over gloo, MeshPlan(pod={DIST_RANKS}) edge slabs, both processes in "
+          f"{wall:.1f} s (start, load, solve, profile). Not a speed-up figure: the ranks share one card.", flush=True)
+    for rep in reports:
+        ab = rep["at_bound"]
+        print(f"  (b) rank {rep['rank']}: {rep['status']}, objective {rep['objective']!r}, bound {rep['bound']!r}, "
+              f"{rep['calls']} calls, {rep['iters']} lane iterations in {rep['loop_iters']} loop iterations; time to "
+              f"solution {rep['wall_s']:.2f} s (slab cut and CSR inside; edges loaded in {rep['load_s']:.1f} s); "
+              f"rounds {[(x['lanes'], x['iters'], round(x['wall_s'] or 0.0, 2)) for x in rep['rounds']]}, of which "
+              f"gathering the results {rep['all_gather']['ms'] / 1e3:.2f} s ({rep['all_gather']['calls']} all_gather "
+              f"calls); peak {rep['peak_gb']:.2f} GB", flush=True)
+        print(f"  (b) rank {rep['rank']} at the certified bound: {ab['status']}, {ab['iters']} iterations, "
+              f"{ab['device_ms_per_lane_iter']:.4f} device ms a lane iteration (this rank's kernels), all_reduce "
+              f"{ab['all_reduce_ms_per_lane_iter']:.4f} ms a lane iteration ({ab['all_reduce_calls']} calls, "
+              f"{ab['all_reduce_ms']:.1f} ms), {ab['host_reads_per_loop_iter']:.4f} host reads a loop iteration, "
+              f"{ab['wall_s']:.2f} s", flush=True)
+        print(f"  (b) rank {rep['rank']} launches: {json.dumps(rep['launches'])}; dist_stats "
+              f"{json.dumps(rep['dist_stats'])}", flush=True)
+    keys = ("x_sha256", "status", "bound", "iters", "objective", "calls")
+    same = all({k: rep[k] for k in keys} == {k: a[k] for k in keys} for rep in reports)
+    check(failures, same, f"(b) every rank returns the same x (sha256 {a['x_sha256']}), status, bound and iterations")
+    rel = abs(a["objective"] - exact) / exact
+    check(failures, a["status"] == "FEASIBLE" and rel <= 1.5 * EPS,
+          f"(b) {a['status']}, objective {a['objective']!r} within 1.5*eps of exact {exact} (rel {rel:.4f})")
+    check(failures, a.get("max_Mx", np.inf) <= 1 + 1e-9, f"(b) host-recomputed max(Mx) = {a.get('max_Mx')!r} <= 1 + 1e-9")
+    for rep in reports:
+        n, L = rep["iters"], rep["launches"]
+        ok = (L["newton_search"] == L["step_direction"] == L["incidence_gather"] == n and L["axpy_reduce"] == 3 * n
+              and L["incidence_scatter"] > 0 and L["softmax_weights"] > 0 and L["flash_attention"] == 0)
+        check(failures, ok, f"(b) rank {rep['rank']}: search, step direction and the masked slab's gather once a lane "
+                            f"iteration ({n}), the axpy three times: {json.dumps(L)}")
+    launches = {name: sum(rep["launches"][name] for rep in reports) for name in a["launches"]}
+    return dict(wall_s=wall, reports=reports, launches=launches)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n-users", type=int, default=480_189, help="users of the full-size bmatch graph")
     ap.add_argument("--serve-requests", type=int, default=12, help="requests of phase 6's serving run")
+    ap.add_argument("--dist-rank", type=int, default=None, help=argparse.SUPPRESS)  # phase 8 (b)'s ranks
+    ap.add_argument("--dist-dir", type=Path, default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         return 1
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    if args.dist_rank is not None:
+        return dist_rank(args.dist_rank, args.dist_dir)
     from repro_torch import kernels as K
     from repro_torch.kernels import loader
     from repro_torch.kernels.axpy_reduce.ref import axpy_reduce_ref
@@ -2058,11 +2317,20 @@ def main() -> int:
     print("== phase 7: the paper's comparison studies at full width (Table 3, Figure 3)", flush=True)
     t7 = time.perf_counter()
     table3(bmatch, info["bound"], failures)
+    lo, hi = bmatch.lo, bmatch.hi
     del bmatch
     torch.cuda.empty_cache()
     figure3(graph, failures)
     print(f"  phase 7: {time.perf_counter() - t7:.1f} s", flush=True)
     end_phase("7", failures)
+
+    print("== phase 8: the distributed solve (repro_torch.dist) on the card", flush=True)
+    t8 = time.perf_counter()
+    ident = identity_plan_solve(graph, lo, hi, info, failures)
+    end_phase("8 (a)", failures)
+    dist8 = dist_solve(graph, lo, hi, info["exact"], failures)
+    print(f"  phase 8: {time.perf_counter() - t8:.1f} s", flush=True)
+    end_phase("8", failures)
     print(f"  total {time.perf_counter() - t_start:.1f} s", flush=True)
 
     # one entry per kernel: for the MWU kernels their float64 row at the
@@ -2082,11 +2350,12 @@ def main() -> int:
                      and r.get("form") in (None, MAIN_FORM.get(name))), key=lambda r: r["shape"][0])
             launches = {"linesearch_probe": binary_launches, "binary_search": binary_launches,
                         "incidence_gather": small_launches}.get(name, info["launches"])[name]
-        launches += serve["launches"][name]
+        launches += serve["launches"][name] + ident["launches"][name] + dist8["launches"][name]
         masked = next((m for m in rows if name in MASKED_FORM and m["name"] == name and m["dtype"] == "float64"
                        and m.get("form") == MASKED_FORM[name]), None)
         kernels.append(dict(name=name, route="cuda", source=source, replaces=replaces, launches=launches,
                             serving_launches=serve["launches"][name],
+                            dist_launches=dict(identity=ident["launches"][name], ranks=dist8["launches"][name]),
                             **{k: r.get(k) for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                                      "library_ms", "call_ms", "plain_call_ms", "shape", "dtype", "bar",
                                                      "within_bar", "form")},

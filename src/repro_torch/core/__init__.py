@@ -3,8 +3,9 @@
 Also the MPCSolver baseline of the Figure-3 study (``gradient_descent``:
 ``MPCOptions``, ``mpc_solve``) and the deprecated binary-search shims of
 ``feasibility`` (``maximize_packing``, ``minimize_covering``,
-``densest_subgraph_search``, ``BinarySearchResult``), which the package
-resolves lazily (PEP 562): the first use of one warns once, and importing
+``densest_subgraph_search``, ``BinarySearchResult``) and ``mwu_dist`` (the
+distributed shims over ``repro_torch.dist``), which the package resolves
+lazily (PEP 562): the first use of one warns once, and importing
 ``repro_torch.core`` itself stays silent.
 """
 from .gradient_descent import MPCOptions, mpc_solve
@@ -58,6 +59,10 @@ _DEPRECATED["BinarySearchResult"] = ("repro_torch.core.feasibility", "repro_torc
 
 
 def __getattr__(name):
+    if name == "mwu_dist":  # the deprecated distributed shims; the module warns once on import
+        import importlib
+
+        return importlib.import_module(".mwu_dist", __name__)
     entry = _DEPRECATED.get(name)
     if entry is None:
         raise AttributeError(f"module 'repro_torch.core' has no attribute {name!r}")

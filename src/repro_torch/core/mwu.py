@@ -53,6 +53,15 @@ the CUDA kernels, CPU tensors their plain versions.
 State kept across iterations (paper Alg. 2 lines 3, 10, 15): x and the
 constraint images y = Px, z = Cx, so each iteration performs exactly two
 pairs of products — never recomputing Px from scratch.
+
+Distributed runs (:mod:`repro_torch.dist`) slab the variable space across
+the ranks of a ``torch.distributed`` process group: the operators complete
+their constraint rows with an ``all_reduce`` (``dist.shard``), so y, z and
+the step images stay replicated, and the loop itself has only two
+variable-space reductions to complete, as the reference's ``_run(axis=...)``
+has: ``init_x``'s fallback min and the step direction's max. ``group``
+names that group, ``init_cols`` the global column count; without a group
+the loop runs no collective and its bits are the single-device ones.
 """
 from __future__ import annotations
 
@@ -61,6 +70,7 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..kernels import axpy_reduce, step_direction
 from .operators import LinOp
@@ -76,6 +86,7 @@ __all__ = [
     "solve_traced",
     "init_x",
     "make_eta",
+    "all_reduce",
 ]
 
 
@@ -145,19 +156,33 @@ def _in_dtype(value: float, dtype: torch.dtype) -> float:
     return float(torch.tensor(value, dtype=dtype))
 
 
-def init_x(P: LinOp, eps: float, dtype: torch.dtype) -> torch.Tensor:
+def all_reduce(t: torch.Tensor, op, group) -> torch.Tensor:
+    """``t`` reduced in place by ``op`` (a ``torch.distributed.ReduceOp``)
+    over the ranks of ``group``, with the group's own backend; with no group,
+    ``t`` untouched. Returns ``t``."""
+    if group is not None:
+        dist.all_reduce(t, op=op, group=group)
+    return t
+
+
+def init_x(P: LinOp, eps: float, dtype: torch.dtype, n_cols: int | None = None, group=None) -> torch.Tensor:
     """x_i = eps / (n * ||P_{:,i}||_inf)  (paper Alg. 1 line 3).
 
     Guarantees every packing row starts at most eps. Columns absent from P
     (colmax = 0) would start unbounded; they are clamped to the max of the
     present columns' scale (only well-posed LPs reach us in practice).
+
+    ``n_cols`` overrides the column count when ``P`` is a rank's slab of a
+    wider operator (``repro_torch.dist``), so the init scale matches the
+    single-device solve; ``group`` names the ranks the fallback min must
+    reduce over in that case.
     """
-    n = P.shape[1]
+    n = P.shape[1] if n_cols is None else n_cols
     cm = P.colmax().to(dtype)
     inf = torch.full((), torch.inf, dtype=dtype, device=cm.device)
     safe = torch.where(cm > 0, cm, inf)
     x = eps / (n * safe)
-    fallback = torch.where(cm > 0, x, inf).min()
+    fallback = all_reduce(torch.where(cm > 0, x, inf).min(), dist.ReduceOp.MIN, group)
     fallback = torch.where(torch.isfinite(fallback), fallback, torch.full_like(fallback, eps / n))
     return torch.where(cm > 0, x, fallback).to(dtype)
 
@@ -195,6 +220,7 @@ class _Lane:
     z: torch.Tensor
     rec: torch.Tensor  # the lane's record row
     alpha_dev: torch.Tensor  # the last step taken, on the device: the search's warm start
+    group: Any = None  # the ranks sharing the lane's variable space (repro_torch.dist), or None
     min_z: float = 0.0  # masked min of z: the loop condition
     max_y: float = 0.0  # masked max of y (for the trace)
     it: int = 0
@@ -230,8 +256,10 @@ def _iteration(ln: _Lane, record_fn, ls_eps) -> None:
     g = None if gather is not None else P.rmatvec(wp)
     h = C.rmatvec(wc)  # covering gradient C^T grad smin(Cx)
 
-    # step direction (line 7): d_i = scale * max(0, 1 - g_i/h_i) * x_i
+    # step direction (line 7): d_i = scale * max(0, 1 - g_i/h_i) * x_i;
+    # its max over every rank's slab decides line 8
     d, d_max = step_direction(h, x, ln.scale, g=g, gather=gather)
+    all_reduce(d_max, dist.ReduceOp.MAX, ln.group)
 
     # step images (line 10) — the second product pair
     dy = P.matvec(d)
@@ -262,17 +290,22 @@ def _advance(ln: _Lane, r: list) -> tuple:
     return (ln.it - 1, ln.viol, ln.alpha_prev, probes)
 
 
-def _run(lanes: list, opts: MWUOptions, rows: list | None = None) -> tuple[list, torch.Tensor]:
+def _run(lanes: list, opts: MWUOptions, rows: list | None = None, group=None,
+         init_cols: int | None = None) -> tuple[list, torch.Tensor]:
     """The MWU loop over ``lanes``, a list of ``(P, C, p_mask, c_mask)``
     of one shape; returns the finished lanes and the ``[K, n]`` x. With
     ``rows`` a list of K lists, each lane's iterations append their
-    (iteration, violation at its start, alpha after it, probes) rows."""
+    (iteration, violation at its start, alpha after it, probes) rows.
+    ``group`` and ``init_cols``: a distributed run's (module docstring).
+    Every rank of ``group`` reads the same record, bit for bit, since it is
+    built from replicated vectors only, so the ranks leave the loop
+    together."""
     K = len(lanes)
     P0, C0 = lanes[0][:2]
     dt = torch.promote_types(P0.colmax().dtype, C0.colmax().dtype)
     dt = dt if dt.is_floating_point else torch.float32
     record_fn = _record_fn(opts.step_rule)
-    x0 = [init_x(P, opts.eps, dt) for P, *_ in lanes]
+    x0 = [init_x(P, opts.eps, dt, n_cols=init_cols, group=group) for P, *_ in lanes]
     dev = x0[0].device
     X, Y, Z = _rows(K, P0.shape[1], dt, dev), _rows(K, P0.shape[0], dt, dev), _rows(K, C0.shape[0], dt, dev)
     rec = torch.zeros(K, _FIELDS, dtype=torch.float64, device=dev)
@@ -289,7 +322,7 @@ def _run(lanes: list, opts: MWUOptions, rows: list | None = None) -> tuple[list,
         Y[k].copy_(P.matvec(x0[k]).to(dt))
         Z[k].copy_(C.matvec(x0[k]).to(dt))
         state.append(_Lane(k=k, P=P, C=C, pm=pm, cm=cm, eta=eta, scale=scale, x=X[k], y=Y[k], z=Z[k], rec=rec[k],
-                           alpha_dev=alpha[k:k + 1]))
+                           alpha_dev=alpha[k:k + 1], group=group))
     # the starting min z and max y of every lane in one read
     start = torch.stack([torch.stack([_masked_min(ln.z, ln.cm), _masked_max(ln.y, ln.pm)]) for ln in state]).tolist()
     for ln, (min_z, max_y) in zip(state, start):
@@ -325,13 +358,16 @@ def _finalize(opts: MWUOptions, state: list, X: torch.Tensor) -> MWUResult:
                      min_cx=np.asarray([ln.min_z for ln in state]))
 
 
-def solve_lanes(lanes: list, opts: MWUOptions = MWUOptions()) -> MWUResult:
+def solve_lanes(lanes: list, opts: MWUOptions = MWUOptions(), *, group=None,
+                init_cols: int | None = None) -> MWUResult:
     """Solve K feasibility LPs of one shape at once: ``lanes`` is a list of
     ``(P, C, p_mask, c_mask)``. Returns an ``MWUResult`` whose every field
-    has leading dim K; lane j equals ``solve`` of lanes[j] bit for bit."""
+    has leading dim K; lane j equals ``solve`` of lanes[j] bit for bit.
+    ``group``/``init_cols``: a distributed run's (``repro_torch.dist``), whose
+    operators are rank slabs; x is then this rank's slab."""
     if not lanes:
         raise ValueError("solve_lanes: no lanes")
-    return _finalize(opts, *_run(list(lanes), opts))
+    return _finalize(opts, *_run(list(lanes), opts, group=group, init_cols=init_cols))
 
 
 def solve(P: LinOp, C: LinOp, opts: MWUOptions = MWUOptions(), p_mask=None, c_mask=None) -> MWUResult:

@@ -24,6 +24,12 @@ interleave many searches:
    requests certify into per-request :class:`~repro_torch.api.Solution`s
    and free their lane.
 
+With a ``mesh`` (a :class:`~repro_torch.dist.MeshPlan`) the rounds run on
+:class:`~repro_torch.dist.DistSolver`: lane slots split over the plan's
+``data`` groups and each lane's variables over its ``pod`` ranks. Every
+rank runs the same engine on the same requests (a rank's engine is one of
+the plan's ``torch.distributed`` processes) and gets every answer.
+
 Every launch under a dispatch key has identical shapes (slot count is
 static; unused lanes re-run a duplicate). The port has no jit cache: its
 kernels are built once for every shape, so ``compiles`` and
@@ -37,13 +43,13 @@ import dataclasses
 import time
 from collections import deque
 from dataclasses import dataclass, field
-from typing import Any
 
 import numpy as np
 
 from ..api.problem import Problem
 from ..api.solver import Solution, Solver, certify_solution, feasibility_solution, not_found_solution, stack_problems
 from ..core.mwu import MWUOptions, MWUResult, Status
+from ..dist import DistSolver, MeshPlan
 from .bucketing import BucketPolicy, BucketSpec, pad_problem, problem_dims
 from .stats import BucketStats, aggregate
 
@@ -54,9 +60,10 @@ __all__ = ["LPServeConfig", "LPEngine", "BoundSearch"]
 class LPServeConfig:
     """Engine knobs (frozen so a config can key caches/logs).
 
-    ``mesh`` shards each dispatch across a device mesh in the reference;
-    the port has no distributed solver yet, so :class:`LPEngine` refuses a
-    config whose ``mesh`` is not None.
+    ``mesh`` (a :class:`repro_torch.dist.MeshPlan`, optional) splits each
+    dispatch across the plan's ranks: lane slots fan out over the ``data``
+    axis and each lane's variable space slabs over ``pod``. ``None`` keeps
+    the single-device ``Solver`` path bit for bit.
     """
 
     opts: MWUOptions = field(default_factory=MWUOptions)
@@ -65,11 +72,16 @@ class LPServeConfig:
     rel_tol: float | None = None  # bound-search granularity (default eps/2)
     max_calls: int = 64  # per-request feasibility budget
     pad_lanes: bool = True  # always launch the full slot count (shape-static)
-    mesh: Any = None  # shard lane slots across this mesh (not ported)
+    mesh: MeshPlan | None = None  # split lane slots across this plan's ranks
 
     def __post_init__(self):
         if self.lanes < 1:
             raise ValueError("lanes must be >= 1")
+        if self.mesh is not None and self.lanes % self.mesh.data != 0:
+            raise ValueError(
+                f"lanes ({self.lanes}) must be a multiple of the mesh data "
+                f"axis ({self.mesh.data}) so lane slots shard evenly"
+            )
 
 
 class BoundSearch:
@@ -208,11 +220,10 @@ class LPEngine:
     def __init__(self, config: LPServeConfig | None = None):
         self.cfg = config if config is not None else LPServeConfig()
         if self.cfg.mesh is not None:
-            raise NotImplementedError(
-                "LPEngine: mesh serving runs on repro_torch.dist, which is not ported yet (ROADMAP.md queue 1 "
-                "item 13); pass mesh=None to serve on one device"
-            )
-        self.solver = Solver(self.cfg.opts, batch_width=1, max_calls=self.cfg.max_calls)
+            self.solver: Solver = DistSolver(self.cfg.opts, plan=self.cfg.mesh, batch_width=1,
+                                             max_calls=self.cfg.max_calls)
+        else:
+            self.solver = Solver(self.cfg.opts, batch_width=1, max_calls=self.cfg.max_calls)
         self.rel_tol = self.cfg.rel_tol if self.cfg.rel_tol is not None else self.cfg.opts.eps / 2
         self._buckets: dict[tuple, _BucketState] = {}
         self._done: dict[int, Solution] = {}
@@ -358,5 +369,25 @@ class LPEngine:
         return self._done.get(rid)
 
     def stats(self) -> dict:
-        """Aggregated serving counters (see :mod:`repro_torch.lpserve.stats`)."""
-        return aggregate(s.stats for s in self._buckets.values())
+        """Aggregated serving counters (see :mod:`repro_torch.lpserve.stats`).
+
+        With a mesh the dict gains a ``"mesh"`` section: the plan shape,
+        per-rank lane occupancy (lane rounds divided across the ``data``
+        axis), and the distributed solver's launch / all_reduce-round
+        counters (the reference's key: ``psum_rounds``).
+        """
+        out = aggregate(s.stats for s in self._buckets.values())
+        plan = self.cfg.mesh
+        if plan is not None:
+            lane_rounds = sum(s.stats.lane_rounds for s in self._buckets.values())
+            ds = self.solver.dist_stats
+            out["mesh"] = {
+                "pod": plan.pod,
+                "data": plan.data,
+                "devices": plan.n_devices,
+                "lanes_per_device": self.cfg.lanes // plan.data,
+                "lane_rounds_per_device": lane_rounds // plan.data,
+                "dist_launches": ds["launches"],
+                "psum_rounds": ds["psum_rounds"],
+            }
+        return out

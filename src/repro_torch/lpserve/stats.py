@@ -16,6 +16,10 @@ The numbers that matter operationally:
   ``compiles`` counts the first dispatch of each (family, bucket, lanes)
   shape, as the reference counts it where it cannot read its jit cache;
 * ``latency_p50_s`` / ``latency_p99_s`` — submit-to-solution wall time.
+
+An engine with a mesh (``LPServeConfig(mesh=MeshPlan(...))``) adds its
+``"mesh"`` section to these in ``LPEngine.stats()``: the reference's seven
+keys, from the plan and the distributed solver's ``dist_stats``.
 """
 from __future__ import annotations
 

@@ -1083,3 +1083,98 @@ def test_rglru_scan_matches_sequential_loop_on_card(cuda):
         ref[:, t] = hd
     assert ((h - ref).norm() / ref.norm()).item() <= 1e-5
     assert bool(((h - ref).abs() <= 1e-5 * (1 + ref.abs())).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["match", "bmatch", "vcover", "dom-set"])
+def test_card_identity_plan_equals_solver(cuda, family):
+    """MeshPlan() on the card: DistSolver's search and batch equal Solver's bit for bit."""
+    from repro_torch.dist import DistSolver, MeshPlan
+
+    g = bipartite_ratings(400, 90, avg_ratings=9.0, seed=2) if family == "bmatch" else erdos(600, 2400, seed=3)
+    prob = build(family, g, device=cuda)
+    opts = MWUOptions(eps=EPS)
+    ref, got = Solver(opts).solve(prob), DistSolver(opts, plan=MeshPlan()).solve(prob)
+    assert (got.status, got.objective, got.bound, got.feasibility_calls, got.mwu_iters_total) == (
+        ref.status, ref.objective, ref.bound, ref.feasibility_calls, ref.mwu_iters_total)
+    assert np.array_equal(got.x, ref.x)
+    bounds = [prob.lo, (prob.lo * prob.hi) ** 0.5, prob.hi]
+    a, b = Solver(opts).solve_batch(prob, bounds), DistSolver(opts, plan=MeshPlan()).solve_batch(prob, bounds)
+    assert torch.equal(a.x, b.x) and np.array_equal(a.iters, b.iters) and np.array_equal(a.max_px, b.max_px)
+
+
+DIST_CARD_CODE = """
+import hashlib
+import numpy as np
+from repro_torch import kernels as K
+from repro_torch.api import MWUOptions, Solver
+from repro_torch.dist import DistSolver, MeshPlan
+from repro_torch.graphs import bipartite_ratings, build, erdos
+
+report = {"rank": RANK}
+for family, g in [("bmatch", bipartite_ratings(3000, 400, avg_ratings=12.0, seed=4)), ("vcover", erdos(900, 3500, seed=5))]:
+    prob = build(family, g, device="cuda")
+    K.reset_launch_counts()
+    sol = DistSolver(MWUOptions(eps=0.1), plan=MeshPlan(pod=2)).solve(prob)
+    launches = K.launch_counts()
+    one = Solver(MWUOptions(eps=0.1)).solve(prob)
+    x = sol.x
+    if family == "bmatch":  # max Mx on the host
+        cert = float((np.bincount(g.u, x, g.n) + np.bincount(g.v, x, g.n)).max())
+    else:  # min over edges of x[u] + x[v]
+        cert = float((x[g.u] + x[g.v]).min())
+    report[family] = {"status": int(sol.status), "objective": sol.objective, "bound": sol.bound,
+                      "iters": sol.mwu_iters_total, "x": hashlib.sha256(x.tobytes()).hexdigest(), "cert": cert,
+                      "single_objective": one.objective, "launches": launches, "device": str(sol.last_result.x.device)}
+print(json.dumps(report))
+"""
+
+
+@pytest.mark.cuda
+def test_card_two_ranks_share_the_card(cuda):
+    """Two gloo ranks on cuda:0 with MeshPlan(pod=2): edge slabs (bmatch) and
+    column slabs (vcover) through the CUDA kernels; both ranks return the same
+    result, which passes its certificate on the host and lies within 2*eps of
+    the single-device solve's objective."""
+    from test_torch_ranks import run_ranks
+
+    ranks = run_ranks(DIST_CARD_CODE, world=2, timeout=600.0)
+    assert ranks[0]["bmatch"] == ranks[1]["bmatch"] and ranks[0]["vcover"] == ranks[1]["vcover"]
+    b, v = ranks[0]["bmatch"], ranks[0]["vcover"]
+    assert b["status"] == v["status"] == Status.FEASIBLE
+    assert b["cert"] <= 1 + 1e-9 and v["cert"] >= 1 - 1e-9
+    for d in (b, v):
+        assert d["objective"] == pytest.approx(d["single_objective"], rel=2 * EPS)
+        assert d["device"].startswith("cuda")
+    # the slab runs went through the kernels: the step direction once a lane
+    # iteration on each rank, the scatter and the search too
+    for d in (b, v):
+        assert d["launches"]["step_direction"] == d["iters"] and d["launches"]["newton_search"] == d["iters"]
+        assert d["launches"]["incidence_scatter"] > 0 and d["launches"]["axpy_reduce"] == 3 * d["iters"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_card_slab_scatter_zero_rows_and_repeats(cuda, dtype):
+    """An edge slab's operator (repro_torch.dist.pod_slab) keeps the global
+    vertex rows with only its own edges, one of them padded and masked: its
+    card product equals the plain version on the CPU (the rows of no slab
+    edge exactly 0) and repeats bit for bit."""
+    from repro_torch.dist import pod_slab
+
+    g = bipartite_ratings(5000, 700, avg_ratings=11.0, seed=6)
+    prob = build("bmatch", g, device="cpu", dtype=dtype)
+    tol = 1e-4 if dtype == torch.float32 else 1e-10
+    pod = next(p for p in (2, 3, 4, 5, 6, 7) if g.m % p)  # an edge count that pads
+    for k in range(pod):
+        P = pod_slab(prob, pod, k).P
+        assert P.edge_mask is not None and bool(P.edge_mask.all()) == (k < pod - 1)
+        x = torch.rand(P.u.shape[0], generator=torch.Generator().manual_seed(k), dtype=dtype)
+        want = P.matvec(x)
+        card = ops.Incidence(u=P.u.to(cuda), v=P.v.to(cuda), n_vertices=P.n_vertices,
+                             edge_mask=P.edge_mask.to(cuda))
+        got = card.matvec(x.to(cuda))
+        assert torch.equal(got, card.matvec(x.to(cuda)))
+        empty = want == 0
+        assert bool(empty.any()) and bool((got.cpu()[empty] == 0).all())
+        assert float(((got.cpu() - want).abs() / want.abs().clamp(min=1.0)).max()) <= tol

@@ -123,6 +123,8 @@ def test_import_without_jax():
         "import repro_torch, repro_torch.api, repro_torch.graphs, repro_torch.kernels\n"
         "import repro_torch.configs, repro_torch.models, repro_torch.kernels.flash_attention\n"
         "import repro_torch.core.feasibility, repro_torch.core.gradient_descent, repro_torch.utils.deprecation\n"
+        "import repro_torch.dist, repro_torch.sparsela, repro_torch.sparsela.distributed, repro_torch.core.mwu_dist\n"
+        "import repro_torch.lpserve\n"
         "from repro_torch.api import MWUOptions, Solver\n"
         "from repro_torch.graphs import build, grid2d\n"
         "sol = Solver(MWUOptions(eps=0.1), batch_width=2).solve(build('match', grid2d(3), device='cpu'))\n"

@@ -14,7 +14,9 @@ both pad, solve and serve the very same LP. The bars:
 - the engine against the reference's engine: the same found and feasible
   per request, objectives within rel 2*eps, the same stats keys; and each
   lane of an engine round equal to ``feasible()`` of its padded request at
-  its bound, bit for bit.
+  its bound, bit for bit;
+- the engine on a (2, 2) ``MeshPlan`` over four gloo ranks against the
+  reference's sequential engine (tests/test_dist_solver.py's mesh case).
 """
 import dataclasses
 import struct
@@ -36,12 +38,15 @@ from repro.lpserve import BucketSpec as RefSpec
 from repro.lpserve import LPEngine as RefEngine
 from repro.lpserve import LPServeConfig as RefConfig
 from repro.lpserve import pad_problem as ref_pad
+from repro.dist import MeshPlan as RefMeshPlan
 from repro.lpserve import problem_dims as ref_dims
 from repro_torch.api import MWUOptions, Solver, stack_problems
+from repro_torch.dist import MeshPlan
 from repro_torch.graphs import build, erdos
 from repro_torch.lpserve import (BoundSearch, BucketPolicy, BucketSpec, LPEngine, LPServeConfig, pad_problem,
                                  pad_problems, padding_waste, problem_dims)
 from repro_torch.lpserve.__main__ import main as serve_main
+from test_torch_ranks import run_ranks
 from test_torch_solver import port_problem
 
 EPS = 0.1
@@ -366,8 +371,55 @@ def test_engine_rejects_bad_config():
     with pytest.raises(ValueError) as ref_err:
         RefConfig(lanes=0)
     assert str(err.value) == str(ref_err.value)
-    with pytest.raises(NotImplementedError, match="queue 1 item 13"):
-        LPEngine(LPServeConfig(mesh=object()))
+    # lane slots must split evenly over the mesh's data axis
+    with pytest.raises(ValueError, match="data axis") as err:
+        LPServeConfig(lanes=3, mesh=MeshPlan(pod=1, data=2))
+    with pytest.raises(ValueError) as ref_err:
+        RefConfig(lanes=3, mesh=RefMeshPlan(pod=1, data=2))
+    assert str(err.value) == str(ref_err.value)
+
+
+MESH_CODE = """
+from repro_torch.dist import MeshPlan
+from repro_torch.graphs import build, erdos
+from repro_torch.lpserve import LPEngine, LPServeConfig
+
+probs = [build("match", erdos(30 + 10 * i, 80 + 25 * i, seed=i), device="cpu") for i in range(5)]
+probs += [build("vcover", erdos(40, 110, seed=9), device="cpu")]
+eng = LPEngine(LPServeConfig(lanes=4, mesh=MeshPlan(pod=2, data=2)))
+sols = eng.solve_many(probs)
+st = eng.stats()
+print(json.dumps({"dst": [[s.feasible, s.objective] for s in sols], "mesh": st["mesh"],
+                  "completed": st["completed"], "keys": sorted(st)}))
+"""
+
+
+def test_engine_mesh_sharded_lanes():
+    """LPEngine on a (2, 2) plan over four gloo ranks against the reference's
+    sequential engine (tests/test_dist_solver.py::test_lpserve_mesh_sharded_lanes):
+    the same feasibility, objectives within rtol 0.1, the mesh stats; every
+    rank serves the same answers."""
+    refs = [ref_build("match", ref_erdos(30 + 10 * i, 80 + 25 * i, seed=i)) for i in range(5)]
+    refs += [ref_build("vcover", ref_erdos(40, 110, seed=9))]
+    want = RefEngine(RefConfig(lanes=4))
+    ref = want.solve_many(refs)
+    ranks = run_ranks(MESH_CODE, world=4)
+    for d in ranks:
+        assert d == ranks[0]
+    d = ranks[0]
+    assert d["completed"] == 6
+    assert set(d["keys"]) == set(want.stats()) | {"mesh"}
+    for r, (df, do) in zip(ref, d["dst"]):
+        assert bool(r.feasible) == df
+        if df:
+            np.testing.assert_allclose(do, float(r.objective), rtol=0.1)
+    mesh = d["mesh"]
+    assert mesh["devices"] == 4 and mesh["pod"] == 2 and mesh["data"] == 2
+    assert mesh["lanes_per_device"] == 2
+    assert mesh["dist_launches"] > 0
+    assert mesh["psum_rounds"] > 0  # pod splitting actually communicated
+    assert sorted(mesh) == ["data", "devices", "dist_launches", "lane_rounds_per_device", "lanes_per_device", "pod",
+                            "psum_rounds"]
 
 
 def test_serving_demo_on_cpu(capsys):
