@@ -72,8 +72,11 @@ before the result lines are printed.
    served match lanes launch it; beside cuSPARSE's M^T w), softmax over the vertex rows
    (weights exactly 0 off the mask), the two-sided probe over both (mins
    exact), the search in both forms at a served match request's shape (the
-   vertex rows masked) held as above (bit for bit against the host loop
-   over the masked probe kernel, within ls_eps of the masked plain loop),
+   vertex rows masked) and at a served vcover request's ([1, 4,194,304],
+   the edge rows masked: form "masked cover"), held as above (bit for bit
+   against the host loop over the masked probe kernel, within ls_eps of
+   the masked plain loop); every timed search row prints the kernel's
+   plan (shared memory or streamed) and its ms a sweep,
    the axpy's min and max over the edge rows (exact; the update bit for
    bit over every row), and the scatter over the match operator of tier
    1's request padded onto the bucket (3M of 4,194,304 edges kept; x fits
@@ -643,6 +646,12 @@ def kernel_rows(K, refs, n_vertices: int, n_items: int, n_edges: int, dtype, eta
     del y, dy
     rows += search_rows(K, V, dtype, eta_b, failures, p_keep=kv)
     rows += binary_rows(K, V, dtype, eta_b, failures, p_keep=kv)
+    # the bucket's covering side, as a served vcover lane searches it: the
+    # objective row and the 4,194,304 edge slots, tier 1's 3M kept (more
+    # tiles a block than the plan holds in shared memory: the streamed path)
+    eta_c = float(make_eta(1 + Eb, EPS))
+    rows += search_rows(K, 1, dtype, eta_c, failures, m=Eb, c_keep=ke)
+    rows += binary_rows(K, 1, dtype, eta_c, failures, m=Eb, c_keep=ke)
     red = torch.empty(2, dtype=torch.float64, device=dev)
     step = torch.tensor([3.25], dtype=torch.float64, device=dev)
     out, mn, mx = K.axpy_reduce(z, dz, step, red=red, keep=ke)
@@ -697,22 +706,32 @@ def kernel_rows(K, refs, n_vertices: int, n_items: int, n_edges: int, dtype, eta
     return rows
 
 
-def search_state(n: int, kind: str, seed: int, dtype) -> list:
+def plan_text(plan: dict) -> str:
+    return f"{plan['path']} ({plan['gy']} + {plan['gz']} blocks, at most {plan['tiles']} tiles a block)"
+
+
+def search_state(n: int, kind: str, seed: int, dtype, m: int = 1) -> list:
     """A mid-solve MWU state (tests/test_torch_stepsize.py's _state) with n
-    packing rows and the one objective row of bmatch: y, z, dy, dz."""
+    packing rows and m covering rows: bmatch's n vertex rows and its one
+    objective row (m = 1), or vcover's objective row and its m edge rows
+    (n = 1): y, z, dy, dz."""
     rng = np.random.default_rng(seed)
-    y, dy, dz = rng.random(n) * 0.3, rng.random(n) * 1e-3, rng.random(1) * 4e-3 + 1e-4
-    z = {"far": rng.random(1) * 0.3, "near": 1.0 - dz * rng.uniform(0.5, 3.0, 1),
-         "done": 1.0 - dz * rng.uniform(0.2, 0.9, 1), "below": rng.random(1) * 0.3}[kind]
+    y, dy, dz = rng.random(n) * 0.3, rng.random(n) * 1e-3, rng.random(m) * 4e-3 + 1e-4
+    z = {"far": rng.random(m) * 0.3, "near": 1.0 - dz * rng.uniform(0.5, 3.0, m),
+         "done": 1.0 - dz * rng.uniform(0.2, 0.9, m), "below": rng.random(m) * 0.3}[kind]
     if kind == "below":  # a packing step 300x as large: f(1) < 1, the search backs off below 1
         dy = dy * 300.0
     return [torch.from_numpy(t).to(dtype).cuda() for t in (y, z, dy, dz)]
 
 
-def search_rows(K, n: int, dtype, eta: float, failures: list, p_keep=None) -> list[dict]:
-    """The Newton search kernel on seeded n + 1 states (its packing rows
+def search_rows(K, n: int, dtype, eta: float, failures: list, p_keep=None, m: int = 1, c_keep=None) -> list[dict]:
+    """The Newton search kernel on seeded n + m states (its packing rows
     masked by ``p_keep`` when given, as a served match request's padded
-    vertex rows are: the rows' "masked" forms). Against the host loop
+    vertex rows are: the rows' "masked" forms; its covering rows by
+    ``c_keep``, as a served vcover request's padded edge rows are: the
+    "masked cover" forms, whose m rows the plan streams). Each timed row
+    prints the kernel's plan (``search_plan``: shared memory or streamed) and
+    its ms a sweep on a line of its own. Against the host loop
     over the probe kernel (stepsize._newton_step_host): alpha bit for bit,
     probes and completes equal. Against its plain version, the same loop
     over plain PyTorch probes on the card (ref.newton_search_ref), whose
@@ -736,40 +755,44 @@ def search_rows(K, n: int, dtype, eta: float, failures: list, p_keep=None) -> li
     import struct
 
     from repro_torch.core import stepsize
+    from repro_torch.kernels.linesearch_probe.ops import search_plan
     from repro_torch.kernels.linesearch_probe.ref import newton_search_ref, newton_step_ref
 
     size = torch.finfo(dtype).bits // 8
-    masked = "" if p_keep is None else " masked"
-    mask_bytes = 0 if p_keep is None else n
+    masked = " masked cover" if c_keep is not None else "" if p_keep is None else " masked"
+    mask_bytes = (0 if p_keep is None else n) + (0 if c_keep is None else m)
+    plan = search_plan(n, m, dtype)
     for kind, alpha0 in (("far", 1.0), ("near", 37.0), ("done", None)):
-        y, z, dy, dz = search_state(n, kind, 1, dtype)
-        host = stepsize._newton_step_host(y, z, dy, dz, eta, p_keep, ls_eps=EPS, alpha0=alpha0)
-        dev = stepsize.newton_step(y, z, dy, dz, eta, p_keep, ls_eps=EPS, alpha0=alpha0)
-        p_alpha, p_probes, p_completes = newton_search_ref(y, dy, z, dz, eta, EPS, alpha0, p_keep).tolist()
+        y, z, dy, dz = search_state(n, kind, 1, dtype, m)
+        host = stepsize._newton_step_host(y, z, dy, dz, eta, p_keep, c_keep, ls_eps=EPS, alpha0=alpha0)
+        dev = stepsize.newton_step(y, z, dy, dz, eta, p_keep, c_keep, ls_eps=EPS, alpha0=alpha0)
+        p_alpha, p_probes, p_completes = newton_search_ref(y, dy, z, dz, eta, EPS, alpha0, p_keep, c_keep).tolist()
         same = (struct.pack("d", dev.alpha), dev.probes, dev.completes) == \
             (struct.pack("d", host.alpha), host.probes, host.completes)
         bar = EPS * max(dev.alpha, p_alpha)
         near = dev.completes == bool(p_completes) and abs(dev.alpha - p_alpha) <= bar
-        check(failures, same, f"newton_search{masked} {dtype} [{n}, 1] {kind}, alpha0 {alpha0}: card {tuple(dev)} | "
+        check(failures, same, f"newton_search{masked} {dtype} [{n}, {m}] {kind}, alpha0 {alpha0}: card {tuple(dev)} | "
                               f"host loop {tuple(host)}")
-        check(failures, near, f"newton_search{masked} {dtype} [{n}, 1] {kind}, alpha0 {alpha0}: plain search "
+        check(failures, near, f"newton_search{masked} {dtype} [{n}, {m}] {kind}, alpha0 {alpha0}: plain search "
                               f"({p_alpha!r}, {int(p_probes)}, {bool(p_completes)}), |alpha - plain| "
                               f"{abs(dev.alpha - p_alpha):.3g} (bar {bar:.3g})")
         if kind == "far":
             timed, err, probes, ok, far_bar = (y, z, dy, dz, alpha0), abs(dev.alpha - p_alpha), dev.probes, \
                 same and near, bar
     y, z, dy, dz, alpha0 = timed
-    ms = device_ms(lambda: K.newton_search(y, dy, z, dz, eta, EPS, alpha0, p_keep=p_keep), 50)
-    plain_ms = host_ms(lambda: newton_search_ref(y, dy, z, dz, eta, EPS, alpha0, p_keep).tolist())
-    loop_ms = host_ms(lambda: stepsize._newton_step_host(y, z, dy, dz, eta, p_keep, ls_eps=EPS, alpha0=alpha0))
-    call = call_ms(lambda: stepsize.newton_step(y, z, dy, dz, eta, p_keep, ls_eps=EPS, alpha0=alpha0), 50)
+    ms = device_ms(lambda: K.newton_search(y, dy, z, dz, eta, EPS, alpha0, p_keep=p_keep, c_keep=c_keep), 50)
+    plain_ms = host_ms(lambda: newton_search_ref(y, dy, z, dz, eta, EPS, alpha0, p_keep, c_keep).tolist())
+    loop_ms = host_ms(lambda: stepsize._newton_step_host(y, z, dy, dz, eta, p_keep, c_keep, ls_eps=EPS, alpha0=alpha0))
+    call = call_ms(lambda: stepsize.newton_step(y, z, dy, dz, eta, p_keep, c_keep, ls_eps=EPS, alpha0=alpha0), 50)
     # bound: the inputs (and the mask) read once; operations of every sweep the search took
-    b_ms, b_by = bound(2 * (n + 1) * size + mask_bytes, 9 * (n + 1) * (probes + 1), dtype)
-    r = dict(name="newton_search", dtype=str(dtype).removeprefix("torch."), shape=[n, 1], max_abs_err=err,
+    b_ms, b_by = bound(2 * (n + m) * size + mask_bytes, 9 * (n + m) * (probes + 1), dtype)
+    r = dict(name="newton_search", dtype=str(dtype).removeprefix("torch."), shape=[n, m], max_abs_err=err,
              bar=far_bar, within_bar=ok, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
              call_ms=call, plain_call_ms=plain_ms, host_loop_ms=loop_ms, probes=probes,
-             ms_per_probe=ms / (probes + 1))
-    check(failures, ok, f"newton_search{masked} {r['dtype']} [{n}, 1]: {probes} probes; device ms a search {ms:.4f} "
+             ms_per_probe=ms / (probes + 1), ms_per_sweep=ms / (probes + 1), path=plan["path"])
+    print(f"  newton_search{masked} {r['dtype']} [{n}, {m}]: path {plan_text(plan)}; {probes + 1} sweeps, "
+          f"{r['ms_per_sweep']:.5f} ms a sweep", flush=True)
+    check(failures, ok, f"newton_search{masked} {r['dtype']} [{n}, {m}]: {probes} probes; device ms a search {ms:.4f} "
                         f"({r['ms_per_probe']:.4f} a probe with the alpha = 0 sweep), bound {b_ms:.4f} ({b_by}); "
                         f"host clock ms a search: plain {plain_ms:.4f}, host loop over the probe kernel "
                         f"{loop_ms:.4f}, newton_step with its read {call:.4f}")
@@ -780,46 +803,50 @@ def search_rows(K, n: int, dtype, eta: float, failures: list, p_keep=None) -> li
     dev = torch.device("cuda")
     step_ok, step_err = True, 0.0
     for kind, alpha0 in (("far", 1.0), ("near", 37.0), ("done", 1.0), ("below", 1.0)):
-        y, z, dy, dz = search_state(n, kind, 1, dtype)
-        host = stepsize._newton_step_host(y, z, dy, dz, eta, p_keep, ls_eps=EPS, alpha0=alpha0)
+        y, z, dy, dz = search_state(n, kind, 1, dtype, m)
+        host = stepsize._newton_step_host(y, z, dy, dz, eta, p_keep, c_keep, ls_eps=EPS, alpha0=alpha0)
         for d_max in (1e-3, 0.0):
             dm = torch.tensor(d_max, dtype=dtype, device=dev)
             ap, ap_p = (torch.tensor([alpha0], dtype=torch.float64, device=dev) for _ in range(2))
-            rec = stepsize.newton_step_record(y, z, dy, dz, eta, EPS, dm, ap, p_mask=p_keep).tolist()
-            plain = newton_step_ref(y, dy, z, dz, eta, EPS, dm, ap_p, p_keep).tolist()
+            rec = stepsize.newton_step_record(y, z, dy, dz, eta, EPS, dm, ap, p_mask=p_keep, c_mask=c_keep).tolist()
+            plain = newton_step_ref(y, dy, z, dz, eta, EPS, dm, ap_p, p_keep, c_keep).tolist()
             bad = d_max <= 0 or host.alpha < 1
             same = (bits(rec[0]), int(rec[1]), bool(rec[2])) == (bits(host.alpha), host.probes, host.completes) \
                 and bool(rec[4]) == bad and bits(rec[3]) == bits(0.0 if bad else host.alpha) \
                 and bits(ap.item()) == bits(alpha0 if bad else host.alpha)
             near = (rec[2], rec[4]) == (plain[2], plain[4]) and abs(rec[0] - plain[0]) <= EPS * max(rec[0], plain[0])
             check(failures, same and near and (kind != "below" or host.alpha < 1),
-                  f"newton_search{masked} step form {dtype} [{n}, 1] {kind}, alpha_prev {alpha0}, max(d) {d_max}: record "
+                  f"newton_search{masked} step form {dtype} [{n}, {m}] {kind}, alpha_prev {alpha0}, max(d) {d_max}: "
+                  f"record "
                   f"{rec} | host loop {tuple(host)}, bad {bad}; plain {plain}")
             step_ok = step_ok and same and near
             step_err = max(step_err, abs(rec[0] - plain[0]))
-    y, z, dy, dz = search_state(n, "far", 1, dtype)
+    y, z, dy, dz = search_state(n, "far", 1, dtype, m)
     dm0, ap, out = (torch.zeros((), dtype=dtype, device=dev), torch.ones(1, dtype=torch.float64, device=dev),
                     torch.empty(5, dtype=torch.float64, device=dev))
     def search():
-        return K.newton_search(y, dy, z, dz, eta, EPS, ap, d_max=dm0, out=out, p_keep=p_keep)
+        return K.newton_search(y, dy, z, dz, eta, EPS, ap, d_max=dm0, out=out, p_keep=p_keep, c_keep=c_keep)
 
     probes = int(search()[1].item())
     ms = device_ms(search, 50)
-    plain_ms = host_ms(lambda: newton_step_ref(y, dy, z, dz, eta, EPS, dm0, ap, p_keep).tolist())
-    b_ms, b_by = bound(2 * (n + 1) * size + mask_bytes, 9 * (n + 1) * (probes + 1), dtype)
+    plain_ms = host_ms(lambda: newton_step_ref(y, dy, z, dz, eta, EPS, dm0, ap, p_keep, c_keep).tolist())
+    b_ms, b_by = bound(2 * (n + m) * size + mask_bytes, 9 * (n + m) * (probes + 1), dtype)
     s = dict(r, form="step" + masked, max_abs_err=step_err, within_bar=step_ok, ms=ms, plain_ms=plain_ms,
              bound_ms=b_ms, bound_by=b_by, call_ms=call_ms(search, 50), plain_call_ms=plain_ms, probes=probes,
-             ms_per_probe=ms / (probes + 1))
-    check(failures, step_ok, f"newton_search{masked} step form {s['dtype']} [{n}, 1]: {probes} probes; device ms a "
+             ms_per_probe=ms / (probes + 1), ms_per_sweep=ms / (probes + 1))
+    print(f"  newton_search{masked} step form {s['dtype']} [{n}, {m}]: path {plan_text(plan)}; {probes + 1} sweeps, "
+          f"{s['ms_per_sweep']:.5f} ms a sweep", flush=True)
+    check(failures, step_ok, f"newton_search{masked} step form {s['dtype']} [{n}, {m}]: {probes} probes; device ms a "
                              f"search {ms:.4f}, bound {b_ms:.4f} ({b_by}); plain {plain_ms:.4f} (host clock); eager "
                              f"call {s['call_ms']:.4f}")
     return [dict(r, form="host alpha0" + masked), s]
 
 
-def binary_rows(K, n: int, dtype, eta: float, failures: list, p_keep=None) -> list[dict]:
-    """The binary search kernel (Alg. 3 in one launch) on the seeded n + 1
+def binary_rows(K, n: int, dtype, eta: float, failures: list, p_keep=None, m: int = 1, c_keep=None) -> list[dict]:
+    """The binary search kernel (Alg. 3 in one launch) on the seeded n + m
     states of ``search_rows`` (its packing rows masked by ``p_keep`` when
-    given: the row's "masked" form). In both forms against the host loop
+    given: the row's "masked" form; its covering rows by ``c_keep``: "masked
+    cover"), its plan and ms a sweep printed as there. In both forms against the host loop
     over the probe kernel (stepsize._binary_search_step_host): alpha,
     probes and completes bit for bit; the step form (max(d) and the warm
     start alpha_prev read from device memory, the record [alpha, probes,
@@ -837,6 +864,7 @@ def binary_rows(K, n: int, dtype, eta: float, failures: list, p_keep=None) -> li
     import struct
 
     from repro_torch.core import stepsize
+    from repro_torch.kernels.linesearch_probe.ops import search_plan
     from repro_torch.kernels.linesearch_probe.ref import binary_step_ref
 
     def bits(v: float) -> bytes:
@@ -844,18 +872,19 @@ def binary_rows(K, n: int, dtype, eta: float, failures: list, p_keep=None) -> li
 
     dev = torch.device("cuda")
     size = torch.finfo(dtype).bits // 8
-    masked = "" if p_keep is None else " masked"
+    masked = " masked cover" if c_keep is not None else "" if p_keep is None else " masked"
+    plan = search_plan(n, m, dtype)
     ok, err = True, 0.0
     for kind, alpha0 in (("far", 1.0), ("near", 37.0), ("done", 1.0), ("below", 1.0)):
-        y, z, dy, dz = search_state(n, kind, 1, dtype)
-        host = stepsize._binary_search_step_host(y, z, dy, dz, eta, p_keep, ls_eps=EPS, alpha0=alpha0)
-        lone = stepsize.binary_search_step(y, z, dy, dz, eta, p_keep, ls_eps=EPS, alpha0=alpha0)
+        y, z, dy, dz = search_state(n, kind, 1, dtype, m)
+        host = stepsize._binary_search_step_host(y, z, dy, dz, eta, p_keep, c_keep, ls_eps=EPS, alpha0=alpha0)
+        lone = stepsize.binary_search_step(y, z, dy, dz, eta, p_keep, c_keep, ls_eps=EPS, alpha0=alpha0)
         same = (bits(lone.alpha), lone.probes, lone.completes) == (bits(host.alpha), host.probes, host.completes)
         for d_max in (1e-3, 0.0):
             dm = torch.tensor(d_max, dtype=dtype, device=dev)
             ap, ap_p = (torch.tensor([alpha0], dtype=torch.float64, device=dev) for _ in range(2))
-            rec = stepsize.binary_step_record(y, z, dy, dz, eta, EPS, dm, ap, p_mask=p_keep).tolist()
-            plain = binary_step_ref(y, dy, z, dz, eta, EPS, dm, ap_p, p_keep).tolist()
+            rec = stepsize.binary_step_record(y, z, dy, dz, eta, EPS, dm, ap, p_mask=p_keep, c_mask=c_keep).tolist()
+            plain = binary_step_ref(y, dy, z, dz, eta, EPS, dm, ap_p, p_keep, c_keep).tolist()
             bad = d_max <= 0 or host.alpha < 1
             same = same and (bits(rec[0]), int(rec[1]), bool(rec[2])) == \
                 (bits(host.alpha), host.probes, host.completes) and bool(rec[4]) == bad \
@@ -864,29 +893,34 @@ def binary_rows(K, n: int, dtype, eta: float, failures: list, p_keep=None) -> li
             near = host.alpha < 1 if kind == "below" else host.alpha < 1 or \
                 (rec[2], rec[4]) == (plain[2], plain[4]) and abs(rec[0] - plain[0]) <= EPS * max(rec[0], plain[0])
             check(failures, same and near,
-                  f"binary_search{masked} {dtype} [{n}, 1] {kind}, alpha_prev {alpha0}, max(d) {d_max}: record {rec} | "
+                  f"binary_search{masked} {dtype} [{n}, {m}] {kind}, alpha_prev {alpha0}, max(d) {d_max}: "
+                  f"record {rec} | "
                   f"host loop {tuple(host)}, bad {bad}; one-call form {tuple(lone)}; plain {plain}")
             ok = ok and same and near
             if host.alpha >= 1:
                 err = max(err, abs(rec[0] - plain[0]))
-    y, z, dy, dz = search_state(n, "far", 1, dtype)
+    y, z, dy, dz = search_state(n, "far", 1, dtype, m)
     dm0, ap, out = (torch.zeros((), dtype=dtype, device=dev), torch.ones(1, dtype=torch.float64, device=dev),
                     torch.empty(5, dtype=torch.float64, device=dev))
 
     def search():
-        return K.binary_search(y, dy, z, dz, eta, EPS, ap, d_max=dm0, out=out, p_keep=p_keep)
+        return K.binary_search(y, dy, z, dz, eta, EPS, ap, d_max=dm0, out=out, p_keep=p_keep, c_keep=c_keep)
 
     probes = int(search()[1].item())
     ms = device_ms(search, 50)
-    plain_ms = host_ms(lambda: binary_step_ref(y, dy, z, dz, eta, EPS, dm0, ap, p_keep).tolist())
-    loop_ms = host_ms(lambda: stepsize._binary_search_step_host(y, z, dy, dz, eta, p_keep, ls_eps=EPS, alpha0=1.0))
+    plain_ms = host_ms(lambda: binary_step_ref(y, dy, z, dz, eta, EPS, dm0, ap, p_keep, c_keep).tolist())
+    loop_ms = host_ms(lambda: stepsize._binary_search_step_host(y, z, dy, dz, eta, p_keep, c_keep, ls_eps=EPS,
+                                                                alpha0=1.0))
     # bound: the inputs (and the mask) read once; the operations of every sweep the search took
-    b_ms, b_by = bound(2 * (n + 1) * size + (0 if p_keep is None else n), 9 * (n + 1) * (probes + 2), dtype)
-    r = dict(name="binary_search", form="step" + masked, dtype=str(dtype).removeprefix("torch."), shape=[n, 1],
+    b_ms, b_by = bound(2 * (n + m) * size + (0 if p_keep is None else n) + (0 if c_keep is None else m),
+                       9 * (n + m) * (probes + 2), dtype)
+    r = dict(name="binary_search", form="step" + masked, dtype=str(dtype).removeprefix("torch."), shape=[n, m],
              max_abs_err=err, bar=EPS, within_bar=ok, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
              library_ms=None, call_ms=call_ms(search, 50), plain_call_ms=plain_ms, host_loop_ms=loop_ms,
-             probes=probes, ms_per_sweep=ms / (probes + 2))
-    check(failures, ok, f"binary_search{masked} step form {r['dtype']} [{n}, 1]: {probes} probes; device ms a search "
+             probes=probes, ms_per_sweep=ms / (probes + 2), path=plan["path"])
+    print(f"  binary_search{masked} step form {r['dtype']} [{n}, {m}]: path {plan_text(plan)}; {probes + 2} sweeps, "
+          f"{r['ms_per_sweep']:.5f} ms a sweep", flush=True)
+    check(failures, ok, f"binary_search{masked} step form {r['dtype']} [{n}, {m}]: {probes} probes; device ms a search "
                         f"{ms:.4f} ({r['ms_per_sweep']:.4f} a sweep, {probes + 2} sweeps), bound {b_ms:.4f} ({b_by}); "
                         f"host clock ms a search: plain {plain_ms:.4f}, host loop over the probe kernel {loop_ms:.4f}; "
                         f"eager call {r['call_ms']:.4f}")

@@ -235,13 +235,15 @@ inline cudaError_t coop_blocks(void (*kernel)(Params), int& blocks) {
   return cudaSuccess;
 }
 
-// Launch kernel(params) on a co-resident grid (cooperative launch), so
-// that it may wait at a grid barrier; a grid that cannot be co-resident is
-// refused with cudaErrorCooperativeLaunchTooLarge, never run.
+// Launch kernel(params) on a co-resident grid (cooperative launch), with
+// `smem` bytes of dynamic shared memory a block, so that it may wait at a
+// grid barrier; a grid that cannot be co-resident is refused with
+// cudaErrorCooperativeLaunchTooLarge, never run.
 template <typename Params>
-inline int launch_cooperative(void (*kernel)(Params), int blocks, const Params& params, cudaStream_t stream) {
+inline int launch_cooperative(void (*kernel)(Params), int blocks, const Params& params, cudaStream_t stream,
+                              size_t smem = 0) {
   void* args[] = {const_cast<Params*>(&params)};
-  const cudaError_t rc = cudaLaunchCooperativeKernel((const void*)kernel, dim3(blocks), dim3(kThreads), args, 0,
+  const cudaError_t rc = cudaLaunchCooperativeKernel((const void*)kernel, dim3(blocks), dim3(kThreads), args, smem,
                                                      stream);
   if (rc != cudaSuccess) {
     cudaGetLastError();  // clear it, so the next entry point does not report it

@@ -18,7 +18,14 @@ Each side may carry a row mask (``p_keep`` for (y, dy), ``c_keep`` for
 as a = -inf and are left out of min v, as the masked rows of
 ``core.stepsize.make_probe_fn``. A kept row's arithmetic is the unmasked
 kernel's, so an all-true mask gives the unmasked bits.
+
+:func:`search_plan` tells how the kernel sweeps two sides of given
+lengths on the card: its blocks a side, and whether each block holds its
+tiles' inputs in shared memory between sweeps or reads them from device
+memory at every sweep.
 """
+import ctypes
+
 import torch
 
 from .. import loader
@@ -26,10 +33,16 @@ from .ref import (binary_search_ref, binary_step_ref, linesearch_probe2_ref, lin
                   newton_search_ref, newton_step_ref)
 
 
+def _scratch(name, y):
+    """The kernel's scratch on y's stream: its partials' tagged slots and the
+    hand-off words, zeroed once when made (the generation starts at 0)."""
+    return loader.scratch(name, y, loader.load().rt_search_scratch_states(), zeroed=True)
+
+
 def _launch(name, y, dy, ky, z, dz, kz, nz, se_y, se_z, alpha, out):
     dtype, dev = y.dtype, y.device
     with torch.cuda.device(dev):
-        part = loader.scratch("linesearch_probe", y, 4)
+        part = _scratch("linesearch_probe", y)
         rc = loader.kernel_fn("rt_linesearch_probe2", dtype)(
             y.data_ptr(), dy.data_ptr(), ky, y.shape[0], float(se_y), z.data_ptr(), dz.data_ptr(), kz, nz,
             float(se_z), float(alpha), part.data_ptr(), out.data_ptr(), loader.stream_handle(y),
@@ -37,6 +50,22 @@ def _launch(name, y, dy, ky, z, dz, kz, nz, se_y, se_z, alpha, out):
     loader.check_status(rc, name)
     loader.LAUNCHES["linesearch_probe"] += 1
     return out
+
+
+def search_plan(ny: int, nz: int, dtype: torch.dtype, device=None) -> dict:
+    """The search kernel's plan (``csrc/search_plan.cuh``) for sides of ny
+    and nz elements of ``dtype`` on a CUDA device: ``gy`` and ``gz`` blocks
+    a side, ``tiles`` (most tiles a block sweeps) and ``path``, "shared
+    memory" (the inputs held there from the first sweep on) or "streamed"
+    (read from device memory at every sweep).
+    A lone probe and both searches take the same plan."""
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"search_plan: dtype must be float32 or float64, got {dtype}")
+    out = (ctypes.c_int * 4)()
+    with torch.cuda.device(device if device is not None else torch.cuda.current_device()):
+        rc = loader.load().rt_search_plan(int(ny), int(nz), torch.finfo(dtype).bits // 8, out)
+    loader.check_status(rc, "search_plan")
+    return dict(gy=out[0], gz=out[1], tiles=out[2], path="shared memory" if out[3] else "streamed")
 
 
 def _check(name, y, dy):
@@ -110,7 +139,7 @@ def _search(name: str, y, dy, z, dz, eta, ls_eps, alpha0, d_max, out, p_keep, c_
         out = torch.empty(size, dtype=torch.float64, device=dev)
     loader.check_slot(name, y, out, size, "out")
     with torch.cuda.device(dev):
-        part = loader.scratch(name, y, 8)
+        part = _scratch(name, y)
         rc = loader.kernel_fn("rt_" + name, dtype)(
             y.data_ptr(), dy.data_ptr(), ky, y.shape[0], z.data_ptr(), dz.data_ptr(), kz, z.shape[0], float(eta),
             float(ls_eps), 0.0 if step or alpha0 is None else float(alpha0), not step and alpha0 is not None,

@@ -180,6 +180,10 @@ def load() -> ctypes.CDLL:
     lib.rt_flash_bf16_config.restype = ctypes.c_int
     lib.rt_max_partials.argtypes = []
     lib.rt_max_partials.restype = ctypes.c_int
+    lib.rt_search_plan.argtypes = [_I64, _I64, _INT, ctypes.POINTER(ctypes.c_int)]
+    lib.rt_search_plan.restype = ctypes.c_int
+    lib.rt_search_scratch_states.argtypes = []
+    lib.rt_search_scratch_states.restype = ctypes.c_int
     lib.rt_incidence_scatter_scratch.argtypes = [_I64, _I64, _I64]
     lib.rt_incidence_scatter_scratch.restype = ctypes.c_int64
     lib.rt_incidence_scatter_tile.argtypes = []
@@ -207,18 +211,20 @@ def partial_blocks(n: int) -> int:
     return max(1, min(-(-n // THREADS), MAX_PARTIALS))
 
 
-def scratch(name: str, like: torch.Tensor, states: int) -> torch.Tensor:
+def scratch(name: str, like: torch.Tensor, states: int, zeroed: bool = False) -> torch.Tensor:
     """The partials' scratch of a one-launch reduction over ``like``: room for
     ``states`` values of like's dtype per partial, as many partials as a grid
-    may have (the kernels size their grids themselves). Kept for the life
-    of the process, one per (name, device, current stream, dtype, size), so
-    that two launches share one only in stream order."""
-    return _scratch(name, like.device, stream_handle(like), like.dtype, states * load().rt_max_partials())
+    may have (the kernels size their grids themselves), zeroed when it is
+    made if ``zeroed``. Kept for the life of the process, one per (name,
+    device, current stream, dtype, size), so that two launches share one
+    only in stream order."""
+    return _scratch(name, like.device, stream_handle(like), like.dtype, states * load().rt_max_partials(), zeroed)
 
 
 @functools.lru_cache(maxsize=None)
-def _scratch(name: str, device: torch.device, stream: int, dtype: torch.dtype, numel: int) -> torch.Tensor:
-    return torch.empty(numel, dtype=dtype, device=device)
+def _scratch(name: str, device: torch.device, stream: int, dtype: torch.dtype, numel: int,
+             zeroed: bool) -> torch.Tensor:
+    return (torch.zeros if zeroed else torch.empty)(numel, dtype=dtype, device=device)
 
 
 def stream_handle(t: torch.Tensor) -> int:

@@ -271,6 +271,76 @@ def test_standard_step_record_on_card(cuda, dtype, masked):
             assert float(ap) == (1.0 if d_max > 0 else 5.0)
 
 
+# Both sides of each threshold of the search kernel's plan
+# (csrc/search_plan.cuh) on this card's grid G, as (packing rows, covering
+# rows, the plan's path): one tile a block, then the grid split (two tiles
+# for some blocks), the most tiles held (three), one row more (four tiles,
+# streamed); and the covering side's last held and first streamed length.
+_PLAN_EDGES = {"1 tile": lambda g, t: ((g - 1) * t, 1, "shared memory"),
+               "2 tiles": lambda g, t: ((g - 1) * t + 1, 1, "shared memory"),
+               "3 tiles, most held": lambda g, t: (3 * (g - 1) * t, 1, "shared memory"),
+               "4 tiles, streamed": lambda g, t: (3 * (g - 1) * t + 1, 1, "streamed"),
+               "cover held": lambda g, t: (1, 3 * (g - 1) * t, "shared memory"),
+               "cover streamed": lambda g, t: (1, 3 * (g - 1) * t + 1, "streamed")}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("edge", list(_PLAN_EDGES))
+@pytest.mark.parametrize("masked", [False, True], ids=["plain", "masked"])
+@pytest.mark.parametrize("rule", ["newton", "binary"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_search_at_plan_thresholds_on_card(cuda, dtype, rule, masked, edge):
+    """The search kernel at both sides of every held/streamed threshold of
+    its plan: the plan takes the expected path; the lone search and the
+    step form give the host loop's alpha bit for bit (with probes and
+    completes), as the MWU iteration decides on it; a second launch and
+    launches on two streams at once give the same bits; so does the lone
+    probe, the body of both."""
+    from repro_torch.kernels.linesearch_probe.ops import search_plan
+
+    big = search_plan(1 << 30, 1, dtype)
+    tile = 256 * (64 // (torch.finfo(dtype).bits // 8))
+    n, m, path = _PLAN_EDGES[edge](big["gy"] + big["gz"], tile)
+    assert search_plan(n, m, dtype)["path"] == path
+    y, z, dy, dz = _search_state(n, m, "far", n + m, dtype, cuda)
+    pm = _keep(n, 5, cuda) if masked and n > 1 else None
+    cm = _keep(m, 6, cuda) if masked and m > 1 else None
+    eta = float(10 * np.log(n + m) / 0.1)
+    host_fn, lone_fn, record_fn = {
+        "newton": (stepsize._newton_step_host, stepsize.newton_step, stepsize.newton_step_record),
+        "binary": (stepsize._binary_search_step_host, stepsize.binary_search_step, stepsize.binary_step_record)}[rule]
+    host = host_fn(y, z, dy, dz, eta, pm, cm, ls_eps=0.1, alpha0=1.0)
+    lone = lone_fn(y, z, dy, dz, eta, pm, cm, ls_eps=0.1, alpha0=1.0)
+    assert (_bits(lone.alpha), lone.probes, lone.completes) == (_bits(host.alpha), host.probes, host.completes)
+    d_max = torch.tensor(1e-3, dtype=dtype, device=cuda)
+
+    def record():
+        alpha_prev = torch.ones(1, dtype=torch.float64, device=cuda)
+        return record_fn(y, z, dy, dz, eta, 0.1, d_max, alpha_prev, p_mask=pm, c_mask=cm), alpha_prev
+
+    rec, alpha_prev = record()
+    alpha, probes, completes, step, bad = rec.tolist()
+    assert (_bits(alpha), int(probes), bool(completes)) == (_bits(host.alpha), host.probes, host.completes)
+    want_bad = host.alpha < 1
+    assert bool(bad) == want_bad and _bits(step) == _bits(0.0 if want_bad else host.alpha)
+    assert _bits(float(alpha_prev)) == _bits(1.0 if want_bad else host.alpha)
+    probe = K.linesearch_probe2(y, dy, z, dz, 7.5, eta, p_keep=pm, c_keep=cm)
+    again = record()
+    assert torch.equal(again[0], rec) and torch.equal(again[1], alpha_prev)
+    assert torch.equal(K.linesearch_probe2(y, dy, z, dz, 7.5, eta, p_keep=pm, c_keep=cm), probe)
+    streams = [torch.cuda.Stream(cuda) for _ in range(2)]
+    torch.cuda.synchronize()
+    outs = []
+    for st in streams:
+        with torch.cuda.stream(st):
+            outs.append([(record(), K.linesearch_probe2(y, dy, z, dz, 7.5, eta, p_keep=pm, c_keep=cm))
+                         for _ in range(3)])
+    torch.cuda.synchronize()
+    for res in outs:
+        for (r, ap), pr in res:
+            assert torch.equal(r, rec) and torch.equal(ap, alpha_prev) and torch.equal(pr, probe)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("alpha0", [None, 37.0])
 @pytest.mark.parametrize("kind", ["far", "near", "done"])
