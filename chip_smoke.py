@@ -59,7 +59,9 @@ before the result lines are printed.
    host-float form and the plain version, in place as well.
    ``step_direction`` (g gathered from w, as bmatch's solve runs it) must
    give d bit for bit as the plain eager chain, in both of its sources, and
-   max(d) exactly. ``incidence_scatter`` runs M x with the items' Zipf
+   max(d) exactly. The gather runs in every form (plain, with an edge
+   slab's mask, weighted, both), each bit for bit its plain version, beside
+   cuSPARSE's M^T w over the CSR of its entries. ``incidence_scatter`` runs M x with the items' Zipf
    popularity of the bmatch graph (one item of ~740k entries): within
    1e-4 (f32) / 1e-10 (f64) of its plain version relative to max(1,
    |plain|), two launches bitwise equal, with the v side as the operator
@@ -68,8 +70,10 @@ before the result lines are printed.
    replaces. The masked forms (row masks, one byte a row: the padded rows
    of phase 6's requests) get rows of their own at phase 6's bucket
    V1048576xE4194304 with tier 1's rows real: the gather over the padded
-   match operator's edges (a masked ``Incidence`` is no plain gather, so
-   served match lanes launch it; beside cuSPARSE's M^T w), softmax over the vertex rows
+   match operator's edges in every form (its edge mask: a served vcover
+   lane's covering product; beside cuSPARSE's M^T w), the step direction
+   of a served match lane (the gather with the edge mask inside the pass:
+   d bit for bit the plain chain, max(d) exact), softmax over the vertex rows
    (weights exactly 0 off the mask), the two-sided probe over both (mins
    exact), the search in both forms at a served match request's shape (the
    vertex rows masked) and at a served vcover request's ([1, 4,194,304],
@@ -173,9 +177,13 @@ before the result lines are printed.
    sequential ``Solver(batch_width=1).solve`` on the card
    (examples/serve_lp_batch.py's contract), batches < feasibility calls,
    and every lane iteration launched the search and the step direction
-   once (no lone probe). One more round, profiled (a fresh engine's
+   once (no lone probe), and the gather only for the vcover lanes'
+   covering products (once a lane iteration and once at a lane's start):
+   served match lanes gather inside the step direction. One more round,
+   profiled (a fresh engine's
    second round over four tier-0/1 match requests, their CSR built by its
-   first), must read the host at most its loop iterations + 3 times; it
+   first), must read the host at most its loop iterations + 3 times and
+   launch no lone gather; it
    prints its device time by kernel, the device-to-host copies' time and
    the idle share against the same round of another fresh engine timed
    without the profiler.
@@ -185,13 +193,14 @@ before the result lines are printed.
    and std (std cut to 500 iterations; the cut is printed): status,
    iterations, probes an iteration, device ms a lane iteration, ms a
    search launch, host reads a loop iteration (at most 1.01 for every
-   rule, else the phase fails) and the idle share. (b) Figure 3:
+   rule, else the phase fails), the idle share and the kernels' launches.
+   (b) Figure 3:
    generalized matching with ``benchmarks/bench_convergence.py``'s bounds
    (users lb = min(3, deg), ub = 5; items ub = 200), eps 0.05, by
    ``solve_traced`` with the newton and the std rule and by ``mpc_solve``,
    each cut to 2,000 iterations (std to 500): iterations to eps (or "not
-   reached by the cap"), the final violation, ms an iteration and host reads an
-   iteration; first ``mpc_solve`` on a small instance on the card against
+   reached by the cap"), the final violation, ms an iteration, host reads an
+   iteration and the kernels' launches; first ``mpc_solve`` on a small instance on the card against
    the CPU (the same iterations, x within rel 1e-9).
 8. The distributed solve (``repro_torch.dist``) on phase 3's problem. (a)
    ``DistSolver(plan=MeshPlan(), batch_width=4).solve`` must equal phase
@@ -202,12 +211,13 @@ before the result lines are printed.
    parent hands them the edges and the search bounds through a temporary
    directory. Each solves with ``DistSolver(plan=MeshPlan(pod=2),
    batch_width=4)`` over its edge slab (98,609,647 edges, odd: one padded,
-   masked edge, so the slab's gather runs alone). Fails unless the
+   masked edge, gathered inside the step direction with the slab's mask).
+   Fails unless the
    Solution is FEASIBLE within 1.5*eps of the exact maximum, max Mx <=
    1 + 1e-9 on the host, both ranks return the same x (sha256), status,
-   bound and iterations, and each rank launched the search, the step
-   direction and the gather once a lane iteration and the axpy three
-   times. Prints each rank's time to solution, rounds, lane iterations,
+   bound and iterations, and each rank launched the search and the step
+   direction once a lane iteration, the axpy three times and no lone
+   gather. Prints each rank's time to solution, rounds, lane iterations,
    peak memory, and, from one more feasibility solve at the certified
    bound, its device ms a lane iteration (its own kernels), the
    all_reduce's ms a lane iteration (host clock, the device drained
@@ -257,11 +267,12 @@ FLASH_REL_L2_BAR = 6e-3
 EPS = 0.1
 # the form of a kernel that the main path launches, where a kernel has two
 # rows in phase 2 (its kernels-line entry takes that row); the "masked"
-# rows of phase 6's forms go into the entry's "masked" field
+# rows of phase 6's forms go into the entry's "masked" field (the row at
+# phase 6's bucket where a form has rows at two shapes)
 MAIN_FORM = {"axpy_reduce": "device step", "newton_search": "step", "binary_search": "step"}
 MASKED_FORM = {"softmax_weights": "masked", "linesearch_probe": "masked", "newton_search": "step masked",
                "binary_search": "step masked", "axpy_reduce": "masked", "incidence_scatter": "masked",
-               "incidence_gather": "masked"}
+               "incidence_gather": "masked", "step_direction": "masked"}
 # phase 7: iteration caps of the comparison studies (cuts: the reference's
 # bench_convergence.py runs 6,000 iterations, MWUOptions' default cap is
 # 5,000). The std rule, whose iterations are alike (alpha 1, no search),
@@ -285,6 +296,16 @@ def sha256(t) -> str:
     """sha256 of a tensor's or an array's bytes, to compare two trees' bits."""
     a = t.detach().cpu().numpy() if isinstance(t, torch.Tensor) else t
     return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+
+def served_digest(sols) -> str:
+    """sha256 over served Solutions' x bytes and objective bits, in order: to
+    compare two trees' served answers bit for bit (tools/serve_bits.py)."""
+    h = hashlib.sha256()
+    for sol in sols:
+        h.update(np.ascontiguousarray(sol.x if sol.x is not None else np.zeros(0)).tobytes())
+        h.update(np.float64(sol.objective).tobytes())
+    return h.hexdigest()
 
 
 def check(failures: list, ok: bool, what: str) -> None:
@@ -457,16 +478,13 @@ def kernel_rows(K, refs, n_vertices: int, n_items: int, n_edges: int, dtype, eta
     u = torch.randint(0, n - n_items, (E,), generator=gen, device=dev, dtype=torch.int32).sort().values
     v = torch.randint(n - n_items, n, (E,), generator=gen, device=dev, dtype=torch.int32)
     w = torch.rand(n, generator=gen, device=dev, dtype=dtype)
-    err = (K.incidence_gather(u, v, w) - refs["incidence_gather"](u, v, w)).abs().max().item()
-    # one library call computing the same function: the CSR product M^T w
-    crow = torch.arange(0, 2 * E + 1, 2, device=dev, dtype=torch.int32)
-    mt = torch.sparse_csr_tensor(crow, torch.stack([u, v], dim=1).reshape(-1),
-                                 torch.ones(2 * E, device=dev, dtype=dtype), size=(E, n), check_invariants=False)
-    lib_err = (torch.mv(mt, w) - K.incidence_gather(u, v, w)).abs().max().item()
-    check(failures, lib_err <= tol, f"sparse M^T w agrees with the gather ({lib_err:.3g})")
-    row("incidence_gather", [E, n], err, 0.0, err == 0.0, lambda: K.incidence_gather(u, v, w),
-        lambda: refs["incidence_gather"](u, v, w), 10, E * (4 + 4 + size) + n * size, E, lambda: torch.mv(mt, w))
-    del crow, mt
+    # every form: plain (bmatch's), masked (an edge slab's padded edge off,
+    # as phase 8 (b)'s slabs), weighted, masked and weighted
+    slab_mask = torch.ones(E, dtype=torch.bool, device=dev)
+    slab_mask[-1] = False
+    weights = (torch.rand(E, generator=gen, device=dev, dtype=torch.float64) + 0.5).to(dtype)
+    gather_rows(K, row, refs, failures, u, v, w, n, dtype, tol, slab_mask, weights)
+    del slab_mask, weights
 
     # the step direction with its max, g gathered from w (bmatch's source):
     # d bit-equal to the plain eager chain, max(d) exact; the read source on
@@ -686,24 +704,62 @@ def kernel_rows(K, refs, n_vertices: int, n_items: int, n_edges: int, dtype, eta
         lambda: K.incidence_scatter(x, a, b, order=op.scatter_order), lambda: refs["incidence_scatter"](x, a, b), 10,
         a.nnz * size + 4 * nnz + 2 * (V + 1) * 8 + V * size, nnz, lambda: torch.mv(mat, x), form="masked")
     del a, b, x, mat
-    # the gather at the same bucket, over the padded operator's edges: a
-    # masked Incidence is no plain gather, so served match lanes launch it
-    # (the mask is applied after it); its library call is M^T w over the CSR
-    # of the 4,194,304 x 1,048,576 transposed incidence
-    u, v = op.u, op.v
+    # the gather at the same bucket, over the padded operator's edges, in
+    # every form: "masked" as a served vcover lane's covering product runs
+    # it (its padded edges off), weighted, masked and weighted, and plain
+    u, v, mask = op.u, op.v, op.edge_mask
     w = torch.rand(V, generator=gen, device=dev, dtype=dtype)
-    err = (K.incidence_gather(u, v, w) - refs["incidence_gather"](u, v, w)).abs().max().item()
-    crow = torch.arange(0, 2 * Eb + 1, 2, device=dev, dtype=torch.int32)
-    mt = torch.sparse_csr_tensor(crow, torch.stack([u, v], dim=1).reshape(-1),
-                                 torch.ones(2 * Eb, device=dev, dtype=dtype), size=(Eb, V), check_invariants=False)
-    lib_err = (torch.mv(mt, w) - K.incidence_gather(u, v, w)).abs().max().item()
-    check(failures, lib_err <= tol, f"sparse M^T w agrees with the gather at the bucket ({lib_err:.3g})")
-    row("incidence_gather", [Eb, V], err, 0.0, err == 0.0, lambda: K.incidence_gather(u, v, w),
-        lambda: refs["incidence_gather"](u, v, w), 10, Eb * (4 + 4 + size) + V * size, Eb, lambda: torch.mv(mt, w),
-        form="masked")
-    del op, u, v, w, crow, mt
+    weights = (torch.rand(Eb, generator=gen, device=dev, dtype=torch.float64) + 0.5).to(dtype)
+    gather_rows(K, row, refs, failures, u, v, w, V, dtype, tol, mask, weights)
+    # the step direction of a served match lane: the gather with its edge
+    # mask inside the pass (no lone gather, ones, where or multiply); d bit
+    # for bit the plain chain, max(d) exact
+    h = torch.rand(Eb, generator=gen, device=dev, dtype=dtype) * 2.0
+    x = torch.rand(Eb, generator=gen, device=dev, dtype=dtype)
+    scale = float(torch.tensor(1.0 / eta_b, dtype=dtype))
+    gather = (u, v, w, mask, None)
+    d, dmax = K.step_direction(h, x, scale, gather=gather)
+    d_r, dmax_r = refs["step_direction"](h, x, scale, gather=gather)
+    same = torch.equal(d, d_r) and dmax.item() == dmax_r.item()
+    check(failures, same, f"step_direction masked {dtype} [{Eb}, {V}]: d bit-equal to the plain chain (gather, "
+                          f"ones, where, multiply, ratio), max(d) {dmax.item():.6g} exact")
+    row("step_direction", [Eb, V], (d - d_r).abs().max().item(), 0.0, same,
+        lambda: K.step_direction(h, x, scale, gather=gather), lambda: refs["step_direction"](h, x, scale, gather=gather),
+        reps, Eb * (4 + 4 + 1 + 3 * size) + V * size, 7 * Eb, form="masked")
+    del op, u, v, w, mask, weights, h, x, d, d_r
     torch.cuda.empty_cache()
     return rows
+
+
+def gather_rows(K, row, refs, failures: list, u, v, w, n: int, dtype, tol: float, mask, weights) -> None:
+    """The gather's rows over edges (u, v) and w of n values in every form:
+    plain, "masked" (the edge factor's mask), "weighted" and "masked
+    weighted", each bit for bit its plain version, beside cuSPARSE's M^T w
+    over the CSR of the E x n transposed incidence (its entries the edge
+    factor), a yardstick the port never calls."""
+    from repro_torch.kernels.incidence_gather.ref import edge_factor
+
+    dev, E = w.device, u.shape[0]
+    size = torch.finfo(dtype).bits // 8
+    reps = 10 if E > 10_000_000 else 200
+    crow = torch.arange(0, 2 * E + 1, 2, device=dev, dtype=torch.int32)
+    cols = torch.stack([u, v], dim=1).reshape(-1)
+    for form, m, wt in ((None, None, None), ("masked", mask, None), ("weighted", None, weights),
+                        ("masked weighted", mask, weights)):
+        got = K.incidence_gather(u, v, w, m, wt)
+        want = refs["incidence_gather"](u, v, w, m, wt)
+        same = torch.equal(got, want)
+        err = (got - want).abs().max().item()
+        f = edge_factor(E, dtype, dev, m, wt)
+        mt = torch.sparse_csr_tensor(crow, cols, f.repeat_interleave(2), size=(E, n), check_invariants=False)
+        lib_err = ((torch.mv(mt, w) - got).abs() / got.abs().clamp(min=1.0)).max().item()
+        check(failures, lib_err <= tol, f"sparse M^T w ({form or 'plain'}) agrees with the gather ({lib_err:.3g}, "
+                                        f"relative)")
+        nbytes = E * (4 + 4 + size + (m is not None) + size * (wt is not None)) + n * size
+        row("incidence_gather", [E, n], err, 0.0, same, lambda: K.incidence_gather(u, v, w, m, wt),
+            lambda: refs["incidence_gather"](u, v, w, m, wt), reps, nbytes, E, lambda: torch.mv(mt, w), form=form)
+        del got, want, f, mt
+
 
 
 def plan_text(plan: dict) -> str:
@@ -1861,6 +1917,7 @@ def serve_requests(n_requests: int, failures: list) -> dict:
         check(failures, ok and ref.feasible and rel <= 3 * EPS,
               f"request {i:2d}: {p.name:6s} erdos{SERVE_TIERS[i % 3]} calls {sol.feasibility_calls}, objective "
               f"{sol.objective:.3f} (sequential {ref.objective:.3f}, rel {rel:.4f}, bar {3 * EPS}); {cert}")
+    print(f"sha256 served answers: {served_digest(sols)} ({len(sols)} requests)", flush=True)
     check(failures, stats["batches"] < stats["feasibility_calls"],
           f"batches {stats['batches']} < feasibility calls {stats['feasibility_calls']}")
     check(failures, stats["completed"] == n_requests and stats["not_found"] == 0,
@@ -1870,6 +1927,15 @@ def serve_requests(n_requests: int, failures: list) -> dict:
           and launches["linesearch_probe"] == 0 and launches["flash_attention"] == 0,
           f"every lane iteration on the card: launches {launches} for {lane_iters} lane iterations (the search, the "
           f"step direction once each, the axpy 3x, softmax 2x, no lone probe)")
+    # served match lanes gather their packing gradient inside the step
+    # direction, with the padded edges' mask: no lone gather; a vcover lane's
+    # covering product M^T d is one (one a lane iteration, one at its start)
+    vcover = [r for r in rounds if r["bucket"][0] == "vcover"]
+    covering = sum(sum(r["iters"]) + r["lanes"] for r in vcover)
+    check(failures, launches["incidence_gather"] == covering,
+          f"served match lanes launch no lone gather: incidence_gather {launches['incidence_gather']} = the vcover "
+          f"lanes' covering products ({covering}: {sum(sum(r['iters']) for r in vcover)} lane iterations and "
+          f"{sum(r['lanes'] for r in vcover)} lanes' starts)")
 
     # one round profiled: a fresh engine's second round over the four
     # requests of the first tier-0/1 match bucket (its first round built
@@ -1920,9 +1986,11 @@ def serve_requests(n_requests: int, failures: list) -> dict:
     check(failures, reads <= loop + 3,
           f"profiled round: {reads} host reads in {loop} loop iterations ({r['probes']} probes; bar: loop "
           f"iterations + 3)")
-    check(failures, prof_launches["linesearch_probe"] == 0 and prof_launches["newton_search"] == sum(r["iters"]),
+    check(failures, prof_launches["linesearch_probe"] == 0 and prof_launches["newton_search"] == sum(r["iters"])
+          and prof_launches["incidence_gather"] == 0 and prof_launches["step_direction"] == sum(r["iters"]),
           f"profiled round: no probe read back one by one (linesearch_probe {prof_launches['linesearch_probe']}, "
-          f"newton_search {prof_launches['newton_search']} for {sum(r['iters'])} lane iterations)")
+          f"newton_search {prof_launches['newton_search']} for {sum(r['iters'])} lane iterations); match lanes: "
+          f"step_direction {prof_launches['step_direction']}, no lone gather ({prof_launches['incidence_gather']})")
     return info
 
 
@@ -1952,6 +2020,7 @@ def table3(prob, bound: float, failures: list) -> dict:
         # profiled); the profiler's own count can miss an event of a long trace
         counted = K.launch_counts()
         launches = counted["newton_search"] + counted["binary_search"]
+        print(f"  Table 3 {rule}: launches of the timed and the profiled solve: {json.dumps(counted)}", flush=True)
         p["phase_s"] = time.perf_counter() - t0
         p["probes_per_iter"] = p["probes"] / max(p["lane_iters"], 1)
         p["ms_per_search_launch"] = p["search_ms"] / p["search_launches"] if p["search_launches"] else None
@@ -1987,6 +2056,7 @@ def figure3(g, failures: list) -> dict:
     ``mpc_solve`` on a small instance (build_instance cut to 300 users and
     140 items) on the card and on the CPU: the same iterations, x within
     rel 1e-9."""
+    from repro_torch import kernels as K
     from repro_torch.core import MPCOptions, mpc_solve
     from repro_torch.core.mwu import MWUOptions, solve_traced
     from repro_torch.graphs import bipartite_ratings, generalized_matching_lp
@@ -2024,6 +2094,7 @@ def figure3(g, failures: list) -> dict:
     methods = (("mwu-newton", "newton", FIG3_CAP), ("mwu-std", "std", FIG3_STD_CAP), ("mpcsolver-gd", None, FIG3_CAP))
     for name, rule, cap in methods:
         torch.cuda.synchronize()
+        K.reset_launch_counts()
         t0 = time.perf_counter()
         with counted_reads() as reads:
             if rule is None:
@@ -2038,12 +2109,12 @@ def figure3(g, failures: list) -> dict:
         reached = iters_to(viol, FIG3_EPS)
         r = dict(iters=iters, cap=cap, iters_to_eps=reached, final_violation=float(viol[-1]), wall_s=wall,
                  ms_per_iter=1e3 * wall / max(iters, 1), host_reads=reads[0],
-                 host_reads_per_iter=reads[0] / max(iters, 1))
+                 host_reads_per_iter=reads[0] / max(iters, 1), launches=K.launch_counts())
         out[name] = r
         print(f"  Figure 3 {name}: iterations to eps {FIG3_EPS}: "
               f"{'not reached by the cap' if reached is None else reached}; {iters} iterations, final violation "
               f"{r['final_violation']!r}, {r['ms_per_iter']:.3f} ms an iteration, {r['host_reads_per_iter']:.4f} host "
-              f"reads an iteration", flush=True)
+              f"reads an iteration; launches {json.dumps(r['launches'])}", flush=True)
         finite = bool(np.isfinite(viol).all()) and bool(torch.isfinite(torch.as_tensor(x)).all())
         check(failures, finite and 0 < iters <= cap and len(viol) >= iters and reads[0] <= iters + 3,
               f"Figure 3 {name}: {iters} iterations, finite violations and x, {reads[0]} host reads")
@@ -2210,8 +2281,8 @@ def dist_solve(g, lo: float, hi: float, exact: int, failures: list) -> dict:
     checks that the Solution is FEASIBLE within 1.5*eps of the exact
     maximum, that max Mx <= 1 + 1e-9 on the host, that both ranks return
     the same x, status, bound and iterations, and that every lane iteration
-    ran the search, the step direction, the standalone gather (a masked
-    slab has no fused gather) and three axpys."""
+    ran the search and the step direction once and three axpys, and no lone
+    gather (the masked slab's gather runs inside the step direction)."""
     import tempfile
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -2270,10 +2341,12 @@ def dist_solve(g, lo: float, hi: float, exact: int, failures: list) -> dict:
     check(failures, a.get("max_Mx", np.inf) <= 1 + 1e-9, f"(b) host-recomputed max(Mx) = {a.get('max_Mx')!r} <= 1 + 1e-9")
     for rep in reports:
         n, L = rep["iters"], rep["launches"]
-        ok = (L["newton_search"] == L["step_direction"] == L["incidence_gather"] == n and L["axpy_reduce"] == 3 * n
-              and L["incidence_scatter"] > 0 and L["softmax_weights"] > 0 and L["flash_attention"] == 0)
-        check(failures, ok, f"(b) rank {rep['rank']}: search, step direction and the masked slab's gather once a lane "
-                            f"iteration ({n}), the axpy three times: {json.dumps(L)}")
+        ok = (L["newton_search"] == L["step_direction"] == n and L["incidence_gather"] == 0
+              and L["axpy_reduce"] == 3 * n and L["incidence_scatter"] > 0 and L["softmax_weights"] > 0
+              and L["flash_attention"] == 0)
+        check(failures, ok, f"(b) rank {rep['rank']}: search and step direction once a lane iteration ({n}; the "
+                            f"masked slab gathers inside the step direction: no lone gather), the axpy three times: "
+                            f"{json.dumps(L)}")
     launches = {name: sum(rep["launches"][name] for rep in reports) for name in a["launches"]}
     return dict(wall_s=wall, reports=reports, launches=launches)
 
@@ -2385,8 +2458,8 @@ def main() -> int:
             launches = {"linesearch_probe": binary_launches, "binary_search": binary_launches,
                         "incidence_gather": small_launches}.get(name, info["launches"])[name]
         launches += serve["launches"][name] + ident["launches"][name] + dist8["launches"][name]
-        masked = next((m for m in rows if name in MASKED_FORM and m["name"] == name and m["dtype"] == "float64"
-                       and m.get("form") == MASKED_FORM[name]), None)
+        masked = min((m for m in rows if name in MASKED_FORM and m["name"] == name and m["dtype"] == "float64"
+                      and m.get("form") == MASKED_FORM[name]), key=lambda m: m["shape"][0], default=None)
         kernels.append(dict(name=name, route="cuda", source=source, replaces=replaces, launches=launches,
                             serving_launches=serve["launches"][name],
                             dist_launches=dict(identity=ident["launches"][name], ranks=dist8["launches"][name]),

@@ -19,9 +19,9 @@ lane still running, on that lane's rows of the lane-major state (x
 - two softmax-weight sweeps (``smoothing``: the softmax kernel),
 - the step direction and its max in one launch (the step-direction
   kernel), which gathers the packing gradient itself where ``P``'s
-  transposed product is a plain gather (``LinOp.as_gather``: bmatch,
-  match); else the transposed product comes first (the gather kernel for
-  incidence),
+  transposed product is a gather (``LinOp.as_gather``: bmatch, match,
+  with the edge factor of a padded or weighted incidence: served match
+  lanes, padded edge slabs); else the transposed product comes first,
 - the covering gradient's transposed product,
 - two scatter-add products (``operators``: on the card the segmented-sum
   kernel, which sums in a fixed order, so a card solve repeats),
@@ -251,7 +251,8 @@ def _iteration(ln: _Lane, record_fn, ls_eps) -> None:
     _, wp = smax_and_weights(y, ln.eta, where=pm)
     _, wc = smin_and_weights(z, ln.eta, where=cm)
     # packing gradient P^T grad smax(Px): gathered inside the step-direction
-    # kernel where it is a plain gather, else computed here
+    # kernel where it is a gather (an edge mask and weights included), else
+    # computed here
     gather = P.as_gather(wp)
     g = None if gather is not None else P.rmatvec(wp)
     h = C.rmatvec(wc)  # covering gradient C^T grad smin(Cx)

@@ -19,9 +19,10 @@ card solve repeats bit for bit; ``index_add_``'s float atomics do not.
 Products with the transpose of ``Incidence`` and ``VertexEdgePair`` are
 gathers and go through :func:`repro_torch.kernels.incidence_gather`, which
 launches the CUDA kernel for CUDA tensors and runs its plain version on
-the CPU. ``as_gather`` tells the MWU iteration when ``rmatvec`` is a
-plain gather ``w[u] + w[v]``, which its step-direction kernel then
-computes in registers.
+the CPU; a masked or weighted ``Incidence`` hands the kernel its edge
+factor, so its ``rmatvec`` is one launch. ``as_gather`` tells the MWU
+iteration when ``rmatvec`` is a gather ``(w[u] + w[v]) * factor``, which
+its step-direction kernel then computes in registers.
 
 Edge indices stay int32 on the device: ``index_add_``, ``index_select``
 and ``index_reduce_`` take them as they are, so no int64 copy of ``u``/``v``
@@ -44,6 +45,7 @@ from typing import Any
 import torch
 
 from ..kernels import incidence_gather, incidence_scatter
+from ..kernels.incidence_gather.ref import edge_factor
 from ..kernels.incidence_scatter import dispatch_order, segments
 
 __all__ = [
@@ -90,8 +92,10 @@ class LinOp:
         raise NotImplementedError
 
     def as_gather(self, y: torch.Tensor):
-        """``(u, v, w)`` with ``rmatvec(y) = w[u] + w[v]`` bit for bit, or None
-        where the transposed product is not such a gather."""
+        """``(u, v, w, mask, weights)`` with ``rmatvec(y) =
+        incidence_gather(u, v, w, mask, weights)`` bit for bit (mask and
+        weights: the edge factor, either may be None), or None where the
+        transposed product is not such a gather."""
         return None
 
     # nnz as stored (implicit ops report the implicit nonzero count)
@@ -208,9 +212,17 @@ class Incidence(LinOp):
         return (self.n_vertices, int(self.u.shape[0]))
 
     def _w(self, dtype):
-        E = self.u.shape[0]
-        w = torch.ones(E, dtype=dtype, device=self.u.device) if self.weights is None else self.weights.to(dtype)
-        return _masked(w, self.edge_mask)
+        return edge_factor(self.u.shape[0], dtype, self.u.device, self.edge_mask, self.weights)
+
+    def _weights(self, dtype):
+        """The weights in ``dtype`` (None: unweighted), converted once per
+        dtype and kept on the operator, as the gather kernels read them."""
+        if self.weights is None:
+            return None
+        kept = self.__dict__.setdefault("_weights_by_dtype", {})
+        if dtype not in kept:
+            kept[dtype] = self.weights.to(dtype).contiguous()
+        return kept[dtype]
 
     def _weighted(self, x):
         # x * _w(x.dtype); an unweighted, unmasked operator multiplies by
@@ -239,11 +251,12 @@ class Incidence(LinOp):
         return out.index_add_(0, self.u, xw).index_add_(0, self.v, xw)
 
     def rmatvec(self, y):
-        # g_e = y_u + y_v  (gather direction — the kernel's hot spot)
-        return self._weighted(incidence_gather(self.u, self.v, y))
+        # g_e = (y_u + y_v) * _w_e  (gather direction — the kernel's hot spot),
+        # the edge factor applied in the gather's own pass
+        return incidence_gather(*self.as_gather(y))
 
     def as_gather(self, y):
-        return (self.u, self.v, y) if self.weights is None and self.edge_mask is None else None
+        return (self.u, self.v, y, self.edge_mask, self._weights(y.dtype))
 
     def colmax(self, row_scale=None):
         w = self._w(torch.float32 if row_scale is None else row_scale.dtype)

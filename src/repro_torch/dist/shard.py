@@ -75,8 +75,8 @@ class PodSum(LinOp):
     which one ``all_reduce`` over ``group`` completes — after which y/z are
     fully replicated, so ``rmatvec`` (gather of a replicated vector onto
     the local slab) and ``colmax`` (per-local-column) need no communication
-    at all, and ``as_gather`` is the inner operator's: an unmasked slab
-    keeps the step direction's fused gather.
+    at all, and ``as_gather`` is the inner operator's: a slab, its padded
+    edge masked or not, keeps the step direction's fused gather.
     """
 
     inner: LinOp

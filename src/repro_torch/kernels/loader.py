@@ -56,8 +56,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "
 
 # Launch geometry of axpy_reduce's two-launch reduction, as
 # csrc/common.cuh uses it: 256 threads a block and at most one partial per
-# resident block (132 SMs x 8). The one-launch reductions size their grids
-# themselves.
+# resident block (132 SMs x 8); the step direction's grid is two such waves
+# (csrc/gather.cuh). The one-launch reductions size their grids themselves.
 THREADS = 256
 MAX_PARTIALS = 132 * 8
 
@@ -74,7 +74,8 @@ _F64 = ctypes.c_double
 _FLOAT = (torch.float32, torch.float64)
 _SEARCH_ARGS = [_PTR, _PTR, _PTR, _I64, _PTR, _PTR, _PTR, _I64, _F64, _F64, _F64, _INT, _F64] + [_PTR] * 5
 _ENTRY_POINTS = {
-    "rt_incidence_gather": ([_PTR, _PTR, _PTR, _PTR, _I64, _PTR], _FLOAT),
+    # u, v, w, mask, weights, g, E, stream
+    "rt_incidence_gather": ([_PTR] * 6 + [_I64, _PTR], _FLOAT),
     # v, keep, se, n, part, stats, w, stream
     "rt_softmax_weights": ([_PTR, _PTR, _F64, _I64, _PTR, _PTR, _PTR, _PTR], _FLOAT),
     # y, dy, ky, ny, se_y, z, dz, kz, nz, se_z, alpha, part, out, stream
@@ -88,8 +89,8 @@ _ENTRY_POINTS = {
     # x, base, out, n; (offsets, splits, src, wt, nnz, lo, span, slabs) of side A, then of side B; order,
     # scratch, stream
     "rt_incidence_scatter": ([_PTR, _PTR, _PTR, _I64] + ([_PTR] * 4 + [_I64] * 4) * 2 + [_PTR] * 3, _FLOAT),
-    # u, v, w, g, h, x, scale, tiny, E, nb, d, part, ticket, dmax, stream
-    "rt_step_direction": ([_PTR] * 6 + [_F64, _F64, _I64, _INT] + [_PTR] * 5, _FLOAT),
+    # u, v, w, mask, weights, g, h, x, scale, tiny, E, nb, d, part, ticket, dmax, stream
+    "rt_step_direction": ([_PTR] * 8 + [_F64, _F64, _I64, _INT] + [_PTR] * 5, _FLOAT),
     # q, k, v, o; B, S, Hq, Hkv, D; (batch, seq, head) strides of q, k, v, o; causal, window; stream
     "rt_flash_attention": ([_PTR] * 4 + [_INT] * 5 + [_I64] * 12 + [_INT, _INT, _PTR], (torch.bfloat16, torch.float32)),
 }

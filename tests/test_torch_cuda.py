@@ -18,7 +18,7 @@ from dataclasses import replace
 from repro_torch import kernels as K
 from repro_torch.api import MWUOptions, Solver, Status, stack_problems
 from repro_torch.configs import get
-from repro_torch.core import MPCOptions, mpc_solve
+from repro_torch.core import MPCOptions, mpc_solve, solve
 from repro_torch.graphs import (bipartite_ratings, build, erdos, generalized_matching_lp, generalized_matching_problem,
                                 rgg)
 from repro_torch.kernels.axpy_reduce.ref import axpy_reduce_ref
@@ -575,6 +575,106 @@ def test_step_direction_matches_plain_on_card(cuda, E, dtype):
     d0, m0 = K.step_direction(dev[3], dev[4] * 0.0, scale, g=dev[5])  # a zero direction
     assert float(m0) == 0.0 and not bool(d0.any())
     assert K.launch_counts()["step_direction"] == 5
+
+
+def _bits_of(t: torch.Tensor) -> torch.Tensor:
+    """A float tensor's bits as integers on the host: equal bits, NaN and signed zero included."""
+    return t.cpu().reshape(-1).view(torch.int64 if t.dtype == torch.float64 else torch.int32)
+
+
+def _same_bits(got: torch.Tensor, card_plain: torch.Tensor, host_plain: torch.Tensor) -> bool:
+    """got bit for bit the plain version run on the card (NaN and signed zero
+    included), and the host's plain version where that is not NaN (a NaN's
+    payload is the processor's: the card's and the host's differ)."""
+    nan = host_plain.reshape(-1).isnan()
+    return (torch.equal(_bits_of(got), _bits_of(card_plain)) and torch.equal(got.cpu().reshape(-1).isnan(), nan)
+            and torch.equal(_bits_of(got)[~nan], _bits_of(host_plain)[~nan]))
+
+
+def _factor_inputs(E, dtype, seed):
+    """Edges over E // 7 vertices with w holding inf and -0.0 (so that a
+    masked or zero-weight edge gives NaN or a signed zero), a mask and
+    weights with zeros: the gather's and the step direction's edge factor."""
+    gen = torch.Generator().manual_seed(seed)
+    n = max(E // 7, 3)
+    u = torch.randint(0, n, (E + 1,), generator=gen, dtype=torch.int32)
+    v = torch.randint(0, n, (E + 1,), generator=gen, dtype=torch.int32)
+    w = torch.rand(n, generator=gen, dtype=dtype) * 2e-3
+    w[0], w[1], w[2] = float("inf"), -0.0, -1e-3
+    mask = torch.rand(E + 1, generator=gen) > 0.3
+    weights = torch.rand(E + 1, generator=gen, dtype=dtype) + 0.5
+    weights[::5] = 0.0
+    return u, v, w, mask, weights
+
+
+FACTOR_FORMS = {"plain": (False, False), "masked": (True, False), "weighted": (False, True),
+                "masked_weighted": (True, True)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("E", [1, 5, 1030, 4099, 3_000_001])
+@pytest.mark.parametrize("form", list(FACTOR_FORMS))
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "offset"])
+def test_gather_forms_match_plain_on_card(cuda, offset, form, E, dtype):
+    """The lone gather and the step direction's gather source in every form
+    (plain, masked, weighted, both) bit for bit their plain versions
+    (``_same_bits``: NaN and signed zero included), on 16-byte aligned
+    tensors and on views one element off; one launch each."""
+    u, v, w, mask, weights = _factor_inputs(E, dtype, E + 7 * offset)
+    with_mask, with_weights = FACTOR_FORMS[form]
+    cut = slice(offset, offset + E)
+    host = (u[cut], v[cut], w, mask[cut] if with_mask else None, weights[cut] if with_weights else None)
+    dev = [None if t is None else t.to(cuda) for t in (u, v, w, mask, weights)]
+    card = (dev[0][cut], dev[1][cut], dev[2], dev[3][cut] if with_mask else None,
+            dev[4][cut] if with_weights else None)
+    K.reset_launch_counts()
+    got = K.incidence_gather(*card)
+    assert _same_bits(got, incidence_gather_ref(*card), incidence_gather_ref(*host))
+    gen = torch.Generator().manual_seed(E)
+    h = torch.rand(E + 1, generator=gen, dtype=dtype) * 2e-3
+    x = torch.rand(E + 1, generator=gen, dtype=dtype)
+    h[::4] = torch.finfo(dtype).tiny
+    hc, xc = h.to(cuda)[cut], x.to(cuda)[cut]
+    scale = float(torch.tensor(1 / 211.7, dtype=dtype))
+    d_host, m_host = step_direction_ref(h[cut], x[cut], scale, gather=host)
+    d_card, m_card = step_direction_ref(hc, xc, scale, gather=card)
+    d, m = K.step_direction(hc, xc, scale, gather=card)
+    assert _same_bits(d, d_card, d_host) and _same_bits(m, m_card, m_host)
+    d_read, _ = K.step_direction(hc, xc, scale, g=got)  # the read source on the gathered g: the same d
+    assert _same_bits(d_read, d_card, d_host)
+    torch.cuda.synchronize()
+    assert K.launch_counts()["incidence_gather"] == 1 and K.launch_counts()["step_direction"] == 2
+
+
+@pytest.mark.cuda
+def test_card_masked_match_lane_launches_no_lone_gather(cuda):
+    """A served match lane (padded, its padded edges masked) and a padded
+    weighted one: the packing gradient is gathered inside the step direction
+    with the edge factor, one step_direction launch a lane iteration and no
+    lone gather; the lane equals its CPU solve's status, and repeats bit for
+    bit."""
+    opts = MWUOptions(eps=EPS, step_rule="newton")
+    padded = pad_problem(build("match", erdos(700, 2500, seed=5), device=cuda), BucketSpec(1024, 4096))
+    bound = float(padded.lo)
+    K.reset_launch_counts()
+    lane = Solver(opts).feasible(padded, bound)
+    counts = K.launch_counts()
+    assert counts["incidence_gather"] == 0 and counts["step_direction"] == lane.iters > 0
+    assert counts["newton_search"] == lane.iters and counts["axpy_reduce"] == 3 * lane.iters
+    again = Solver(opts).feasible(padded, bound)
+    assert torch.equal(again.x, lane.x) and again.iters == lane.iters
+    cpu = Solver(opts).feasible(pad_problem(build("match", erdos(700, 2500, seed=5), device="cpu"),
+                                            BucketSpec(1024, 4096)), bound)
+    assert cpu.status == lane.status
+    P, C, pm, cm = padded.instantiate(bound)
+    weighted = ops.Incidence(u=P.u, v=P.v, n_vertices=P.n_vertices, edge_mask=P.edge_mask,
+                             weights=torch.rand(P.u.shape[0], generator=torch.Generator(device=cuda).manual_seed(0),
+                                                device=cuda, dtype=torch.float64) + 0.5)
+    K.reset_launch_counts()
+    res = solve(weighted, C, opts, p_mask=pm, c_mask=cm)
+    counts = K.launch_counts()
+    assert counts["incidence_gather"] == 0 and counts["step_direction"] == res.iters > 0
 
 
 @pytest.mark.cuda
@@ -1221,6 +1321,7 @@ def test_card_two_ranks_share_the_card(cuda):
     for d in (b, v):
         assert d["launches"]["step_direction"] == d["iters"] and d["launches"]["newton_search"] == d["iters"]
         assert d["launches"]["incidence_scatter"] > 0 and d["launches"]["axpy_reduce"] == 3 * d["iters"]
+    assert b["launches"]["incidence_gather"] == 0  # edge slabs, padded or not, gather inside the step direction
 
 
 @pytest.mark.cuda

@@ -243,6 +243,62 @@ def test_masked_lane_equals_host_rule_solve(case, monkeypatch):
     assert torch.equal(got.x, host.x)
 
 
+def test_masked_lane_iteration_matches_reference(monkeypatch):
+    """A served match lane's first iteration (the padded edges masked in P)
+    against the reference's ``_iteration`` on the same padded operators:
+    the packing gradient goes into the step direction as a gather with the
+    edge mask (no lone gather, no multiply of its own), whose d is bit for
+    bit the reference's rmatvec, ratio and d chain on the same inputs; the
+    iteration's record (status, probes, the alpha within ls_eps) and the
+    state after it (x, the masked max of y and min of z, within ls_eps)
+    agree with the reference's carry."""
+    from repro.core import mwu as RM
+    from repro.core import operators as RO
+    from repro.core import stepsize as RS
+    from repro_torch.core import operators as TO
+
+    padded = pad_problem(build("match", erdos(60, 160, seed=0), device="cpu"), BucketSpec(128, 256))
+    bound = float(padded.lo)
+    P, C, pm, cm = padded.instantiate(bound)
+    assert P.edge_mask is not None and not bool(P.edge_mask.all()) and cm is None
+    calls, gathers = [], []
+    fused, lone = mwu.step_direction, TO.incidence_gather
+    monkeypatch.setattr(mwu, "step_direction",  # x is the lane's state, updated in place after: kept as it was
+                        lambda h, x, *a, **k: calls.append(((h, x.clone(), *a), k, fused(h, x, *a, **k))) or calls[-1][2])
+    monkeypatch.setattr(TO, "incidence_gather", lambda *a, **k: gathers.append(a) or lone(*a, **k))
+    res, trace = mwu.solve_traced(P, C, MWUOptions(eps=EPS, step_rule="newton", max_iter=1), p_mask=pm)
+    monkeypatch.undo()
+    assert res.iters == 1 and len(calls) == 1 and gathers == []
+    (h, x, scale), kw, (d, d_max) = calls[0]
+    assert kw["g"] is None
+    u, v, wp, mask, weights = kw["gather"]
+    assert mask is P.edge_mask and weights is None
+
+    RP = RO.Incidence(u=jnp.asarray(u.numpy()), v=jnp.asarray(v.numpy()), n_vertices=P.n_vertices,
+                      edge_mask=jnp.asarray(mask.numpy()))
+    RC = RO.OnesRow(c=jnp.asarray(C.c.numpy()), inv_bound=jnp.asarray(C.inv_bound.numpy()))
+    jpm = jnp.asarray(pm.numpy())
+    # the step direction on the port's own inputs, by the reference's chain
+    g = RP.rmatvec(jnp.asarray(wp.numpy()))
+    tiny = jnp.finfo(jnp.float64).tiny
+    hj, xj = jnp.asarray(h.numpy()), jnp.asarray(x.numpy())
+    d_ref = scale * jnp.maximum(0.0, 1.0 - jnp.where(hj > tiny, g / jnp.maximum(hj, tiny), jnp.inf)) * xj
+    np.testing.assert_array_equal(d.numpy(), np.asarray(d_ref))
+    assert float(d_max) == float(jnp.max(d_ref)) > 0.0
+
+    # the reference's iteration from its own start
+    eta = jnp.asarray(RM.make_eta(P.shape[0] + C.shape[0], EPS), jnp.float64)
+    x0 = RM.init_x(RP, EPS, jnp.float64)
+    carry = RM._Carry(x=x0, y=RP.matvec(x0), z=RC.matvec(x0), it=jnp.int32(0), probes=jnp.int32(0),
+                      alpha_prev=jnp.ones((), jnp.float64), status=jnp.int32(0))
+    nxt = RM._iteration(RP, RC, eta, 1.0 / eta, RS.STEP_RULES["newton"], EPS, jpm, None, None, carry)
+    assert (int(nxt.status), int(nxt.probes)) == (mwu.Status.RUNNING, res.ls_probes)
+    assert abs(trace["alpha"][0] - float(nxt.alpha_prev)) <= EPS * float(nxt.alpha_prev)
+    np.testing.assert_allclose(res.x.numpy(), np.asarray(nxt.x), rtol=EPS, atol=0)
+    assert abs(res.max_px - float(RM._masked_max(nxt.y, jpm))) <= EPS * res.max_px
+    assert abs(res.min_cx - float(jnp.min(nxt.z))) <= EPS * res.min_cx
+
+
 def test_masked_lanes_read_once_a_loop_iteration(monkeypatch):
     """Masked Newton lanes read the host once a loop iteration for all lanes
     (the record), plus once to start and once to finish: the masked min of

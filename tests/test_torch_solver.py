@@ -96,6 +96,35 @@ def test_dom_set_borderline_probe():
     assert got.objective == pytest.approx(ref.objective, rel=2 * EPS)
 
 
+def test_binary_rule_stalls_at_certified_bound_as_reference():
+    """The binary rule at a bmatch's certified bound, in the port and in the
+    reference (ROADMAP.md queue 3). On bipartite_ratings(300, 60) (2,945
+    edges) both Newton solves certify 60; at that bound the binary rule's
+    solve stalls in both: alpha equal to rel 1e-6 for its first 80
+    iterations (then the bisections part on ulps), the violation held at
+    ~0.8662 from iteration ~100 (min Cx ~0.134), and both end INFEASIBLE
+    once a search returns alpha < 1 (the reference after 661 iterations,
+    the port after 939). The stall is the reference's own: the port's rule
+    follows it."""
+    from repro.core.mwu import solve_traced as ref_traced
+    from repro_torch.core import solve_traced
+
+    ref_prob = build("bmatch", bipartite_ratings(300, 60, avg_ratings=10.0, seed=0))
+    prob = port_problem(ref_prob)
+    newton = RefSolver(RefOptions(eps=EPS, step_rule="newton")).solve(ref_prob)
+    bound = newton.bound
+    assert Solver(MWUOptions(eps=EPS, step_rule="newton")).solve(prob).bound == bound == 60.0
+    ref, ref_tr = ref_traced(*ref_prob.instantiate(bound)[:2], RefOptions(eps=EPS, step_rule="binary"),
+                             p_mask=ref_prob.p_mask)
+    got, tr = solve_traced(*prob.instantiate(bound)[:2], MWUOptions(eps=EPS, step_rule="binary"), p_mask=prob.p_mask)
+    assert got.status == int(ref.status) == Status.INFEASIBLE
+    ra, pa = np.asarray(ref_tr["alpha"]), np.asarray(tr["alpha"])
+    np.testing.assert_allclose(pa[:80], ra[:80], rtol=1e-6)
+    for it in (100, min(got.iters, int(ref.iters)) - 1):  # the plateau, to its end
+        assert tr["max_violation"][it] == pytest.approx(ref_tr["max_violation"][it], abs=1e-3)
+    assert got.min_cx == pytest.approx(float(ref.min_cx), rel=2e-3) and got.min_cx < 0.2
+
+
 def test_feasibility_certificates_hold():
     """The port's certified x: Mx <= 1 for match, covering for vcover."""
     ref_prob = _instance("match", "rgg8")
