@@ -8,8 +8,9 @@ sm_90a and drives the port's paths, the MWU graph-LP solve, the
 hubert-xlarge encoder forward, recurrentgemma-9b's forward (RG-LRU blocks
 and MQA local attention at head dim 256), graph-LP serving
 (``repro_torch.lpserve``), the paper's two comparison studies (Table
-3's step rules, Figure 3's MPCSolver baseline) and the distributed solve
-(``repro_torch.dist``), in eight phases; any failed phase exits non-zero
+3's step rules, Figure 3's MPCSolver baseline), the distributed solve
+(``repro_torch.dist``) and mixtral-8x22b's MoE forward with the paper's
+MWU LP router inside it, in nine phases; any failed phase exits non-zero
 before the result lines are printed.
 
 1. Card: its name and power limit (nvidia-smi) and the kernels' build time.
@@ -223,15 +224,57 @@ before the result lines are printed.
    all_reduce's ms a lane iteration (host clock, the device drained
    first) and its host reads a loop iteration. The two ranks share one
    card, so none of it is a speed-up figure.
+9. mixtral-8x22b's forward (arXiv:2401.04088) at full width: d_model
+   6144, 48 query heads over 8 kv heads of d 128, a 4,096-key window,
+   8 experts of d_ff 16384, top-2, vocab 32768, ``attn_impl="pallas"``,
+   bf16 compute over f32 params from a seeded random init (depth cut from
+   56 to 4 layers, ~42 GB), on B 1 x S 6144 tokens (past the window) at
+   one dispatch group: capacity 1,920, a routing LP of 49,152 variables,
+   49,160 packing and 6,145 covering rows. The same weights run with the
+   ``topk`` router and with the ``mwu`` router, whose LP each layer solves
+   with the port's MWU kernels (16 Newton iterations). For each router:
+   ms a forward (median of 5), tokens/s, the idle share, a profile split
+   (matmuls, flash, the router's kernels, dispatch/combine by CUDA events,
+   weight casts, the rest), the router's ms a layer (CUDA events), MWU
+   iterations and host reads a layer, each layer's expert load (max over
+   mean) and dropped tokens; the router alone on layer 0's logits,
+   profiled (its kernels, its plain ops, the device's idle time); the
+   router's kernels at its shapes (softmax over 49,160 and 6,145 rows, the
+   step direction's g form, the Newton search, the three axpys; f32, the
+   LP's first iteration) against their plain versions, with device ms and
+   bounds (``router_rows``; the kernels line's ``router`` field). Fails
+   unless: (a) every layer's routing LP on the card matches the same LP
+   on the CPU (the plain versions), in f64 over the whole budget (x within
+   1e-4, the same iterations, probes and status, the same routes on every
+   token whose k-th/(k+1)-th margin exceeds 1e-4; near ties printed) and,
+   in f32, the forward's own LP over its first three iterations (x within
+   1e-4, the same probes): over the whole budget the f32 LP is decided by
+   rounding (``ROUTER_F32_ITERS``), and is printed; (b) ``moe_apply`` on
+   layer 0's input at capacity_factor = E, in f32 with TF32 off, matches
+   a per-expert loop on the card within 2e-4, with either router; (c)
+   layer 0's logits as two dispatch groups give two lanes that each equal
+   their own G 1 solve bit for bit; (d) each forward repeats bit for bit
+   (sha256 of the hidden states); (e) the topk forward is within relative
+   L2 5e-2 of the chunked-attention forward of the same module given the
+   flash forward's routes (a router decision is discrete: routing freely,
+   bf16 rounding moves near-tie tokens to other experts, whose count a
+   layer is printed with that relative L2); (f) one forward launches
+   flash attention once a layer, and the router's kernels once (search,
+   step direction), twice (softmax) and three times (axpy) a router lane
+   iteration, nothing else; and the mwu forward reads the host at most
+   its routing loops' iterations + 2 times a layer.
 
 The line before the last is ``{"kernels": [...]}``, one entry per kernel;
 the last is ``{"ok": true, "device": {...}}``. The flash entry takes row
 (a) in bf16 and the launches of both phase 5 forwards, and row (d) in bf16
-with phase 5 (b)'s launches under ``recurrentgemma``; the axpy and the searches take
+with phase 5 (b)'s launches under ``recurrentgemma``, row (c) with phase 9's launches
+under ``mixtral``; the axpy and the searches take
 the row of the form the main path launches (device step, step form), and
 each MWU kernel's masked row goes into its entry's ``masked`` field. Every
-entry's launches add phase 6's (``serving_launches``) and phase 8's, (a)'s
-and both ranks' of (b) (``dist_launches``). The script exits non-zero
+entry's launches add phase 6's (``serving_launches``), phase 8's, (a)'s
+and both ranks' of (b) (``dist_launches``), and phase 9's two forwards'
+(``moe_launches``); the MWU kernels the router launches carry its rows at
+its shapes under ``router``. The script exits non-zero
 without a result when no CUDA device is present or when it is run outside
 the repository.
 """
@@ -2351,6 +2394,473 @@ def dist_solve(g, lo: float, hi: float, exact: int, failures: list) -> dict:
     return dict(wall_s=wall, reports=reports, launches=launches)
 
 
+# -- phase 9 -----------------------------------------------------------------
+MOE_LAYERS = 4  # mixtral-8x22b's 56 layers cut to 4: ~42 GB of f32 params
+MOE_TOKENS = 6144  # B 1 x S 6144, past the 4,096-key window
+LAYER_TOL = 2e-4  # (b): dispatch and combine vs the expert loop (tests/test_layers.py:172)
+ROUTER_X_TOL = 1e-4  # (a): the router's x, tests/test_kernels.py's f32 bar
+ROUTE_MARGIN = 1e-4  # (a): routes compared on tokens whose k-th / (k+1)-th margin exceeds this
+# (a) in f32: the iterations before rounding grows. The f32 routing LP
+# amplifies an ulp about threefold an iteration (the Newton step is a
+# cancellation at eta ~ 300): on the CPU the port's own x moves by up to
+# 4.9e-2 over 16 iterations at T 6,144 when the tokens are permuted (an LP
+# symmetry), with alpha within 2.6e-5 of itself through iteration 3.
+ROUTER_F32_ITERS = 3
+
+
+class _Spans:
+    """CUDA events around each call of the functions it wraps in a module:
+    ``spans[name]`` lists (start, end) event pairs; ``calls[name]`` each
+    call's (args, result) where ``keep`` names the function."""
+
+    def __init__(self, module, names, keep=()):
+        self.module, self.saved = module, {n: getattr(module, n) for n in names}
+        self.spans = {n: [] for n in names}
+        self.calls = {n: [] for n in names}
+        for n in names:
+            setattr(module, n, self._wrap(n, n in keep))
+
+    def _wrap(self, name, keep):
+        inner = self.saved[name]
+
+        def timed(*a, **kw):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = inner(*a, **kw)
+            end.record()
+            self.spans[name].append((start, end))
+            if keep:
+                self.calls[name].append((a, out))
+            return out
+        return timed
+
+    def restore(self) -> None:
+        for n, f in self.saved.items():
+            setattr(self.module, n, f)
+
+    def ms(self, name) -> list[float]:
+        torch.cuda.synchronize()
+        return [s.elapsed_time(e) for s, e in self.spans[name]]
+
+
+def _route_sets(idx: torch.Tensor) -> torch.Tensor:
+    return torch.sort(idx, dim=-1).values
+
+
+def _margin(x: torch.Tensor, probs: torch.Tensor, k: int) -> torch.Tensor:
+    """Each token's gap between its k-th and (k+1)-th rounding score."""
+    s = torch.sort(x + 1e-6 * probs, dim=-1, descending=True).values
+    return s[..., k - 1] - s[..., k]
+
+
+def replace_moe(cfg, **kw):
+    from dataclasses import replace
+
+    return replace(cfg, moe=replace(cfg.moe, **kw))
+
+
+def router_checks(moe, logits: torch.Tensor, res_card, cfg, layer: int, failures: list) -> dict:
+    """(a) for one layer: the layer's routing LP on the card vs the same LP on
+    the CPU (the kernels' plain versions). In f64 (the same operators at
+    f64) over the whole budget: x within 1e-4, the same iterations, probes
+    and status, the same routes past the margin. In f32, the forward's own
+    LP: over its first ROUTER_F32_ITERS iterations x within 1e-4 and the
+    same probes; over the whole budget (``res_card``, the forward's own
+    solve) printed: rounding decides it (ROUTER_F32_ITERS's note)."""
+    from repro_torch.core import solve_lanes
+
+    m = cfg.moe
+    _, cap = moe.dispatch_shape(cfg, logits.shape[0] * logits.shape[1])
+    opts = moe.router_options(m.mwu_iters)
+    out = {}
+    # f64: the affinities from the card's softmax, so both sides solve one LP
+    p64 = torch.softmax(logits[0].double(), dim=-1)
+    card = solve_lanes([(*moe.routing_ops(p64, m.top_k, cap), None, None)], opts).lane(0)
+    cpu = solve_lanes([(*moe.routing_ops(p64.cpu(), m.top_k, cap), None, None)], opts).lane(0)
+    x_card, x_cpu = card.x.cpu().reshape(p64.shape), cpu.x.reshape(p64.shape)
+    dx = (x_card - x_cpu).abs().max().item()
+    idx_card, _ = moe.round_plan(x_card, p64.cpu(), m.top_k, torch.float64)
+    idx_cpu, _ = moe.round_plan(x_cpu, p64.cpu(), m.top_k, torch.float64)
+    past = _margin(x_cpu, p64.cpu(), m.top_k) > ROUTE_MARGIN
+    flips = int(((_route_sets(idx_card) != _route_sets(idx_cpu)).any(-1) & past).sum())
+    out["f64"] = dict(max_abs_dx=dx, iters=[card.iters, cpu.iters], probes=[card.ls_probes, cpu.ls_probes],
+                      status=[card.status, cpu.status], route_flips_past_margin=flips, near_ties=int((~past).sum()))
+    check(failures, dx <= ROUTER_X_TOL and card.iters == cpu.iters and card.ls_probes == cpu.ls_probes
+          and card.status == cpu.status and flips == 0,
+          f"(a) layer {layer}, f64: the routing LP on the card vs the CPU over {m.mwu_iters} iterations: x max "
+          f"|diff| {dx:.3g} (bar {ROUTER_X_TOL}), iterations {card.iters} / {cpu.iters}, probes {card.ls_probes} / "
+          f"{cpu.ls_probes}, status {card.status} / {cpu.status}; routes differ on {flips} tokens past the margin "
+          f"{ROUTE_MARGIN} ({out['f64']['near_ties']} near ties)")
+    # f32, the forward's LP: its first iterations in lockstep
+    _, card3 = moe.routing_lp(logits, m.top_k, cap, ROUTER_F32_ITERS)
+    _, cpu3 = moe.routing_lp(logits.cpu(), m.top_k, cap, ROUTER_F32_ITERS)
+    dx3 = (card3.x.cpu() - cpu3.x).abs().max().item()
+    same3 = (card3.iters.tolist(), card3.ls_probes.tolist()) == (cpu3.iters.tolist(), cpu3.ls_probes.tolist())
+    out["f32_first"] = dict(iters=ROUTER_F32_ITERS, max_abs_dx=dx3, probes=[int(card3.ls_probes[0]),
+                                                                           int(cpu3.ls_probes[0])])
+    check(failures, dx3 <= ROUTER_X_TOL and same3,
+          f"(a) layer {layer}, f32: the forward's routing LP on the card vs the CPU over its first "
+          f"{ROUTER_F32_ITERS} iterations: x max |diff| {dx3:.3g} (bar {ROUTER_X_TOL}), probes "
+          f"{out['f32_first']['probes']}")
+    # f32 over the whole budget: printed
+    probs, cpu16 = moe.routing_lp(logits.cpu(), m.top_k, cap, m.mwu_iters)
+    x_card = res_card.x.cpu().reshape(probs.shape)
+    x_cpu = cpu16.x.reshape(probs.shape)
+    idx_card, _ = moe.round_plan(x_card, probs, m.top_k, torch.float32)
+    idx_cpu, _ = moe.round_plan(x_cpu, probs, m.top_k, torch.float32)
+    past = _margin(x_cpu, probs, m.top_k) > ROUTE_MARGIN
+    flips = int(((_route_sets(idx_card) != _route_sets(idx_cpu)).any(-1) & past).sum())
+    out["f32_whole"] = dict(max_abs_dx=(x_card - x_cpu).abs().max().item(),
+                            iters=[int(res_card.iters[0]), int(cpu16.iters[0])],
+                            status=[int(res_card.status[0]), int(cpu16.status[0])],
+                            route_flips_past_margin=flips, near_ties=int((~past).sum()))
+    print(f"  (a) layer {layer}, f32 over the whole budget (not a check: rounding decides it): "
+          f"{json.dumps(out['f32_whole'])}", flush=True)
+    return out
+
+
+def expert_oracle_check(moe, x: torch.Tensor, p: dict, cfg, router: str, failures: list) -> dict:
+    """(b): ``moe_apply`` on layer 0's input at capacity_factor = E (no
+    token dropped), in f32 with TF32 off, against a loop over the experts
+    that runs every token through every expert, on the card."""
+    import torch.nn.functional as F
+
+    m = replace_moe(cfg, router=router, capacity_factor=float(cfg.moe.n_experts))
+    x32 = x.float()
+    T, d = x32.shape[1], x32.shape[2]
+    got = moe.moe_apply(p, x32, m).reshape(T, d)
+    # the layer's own routes: its logits by the same product, then its router
+    logits = (x32.reshape(1, T, d) @ p["router"]).float()
+    _, cap = moe.dispatch_shape(m, T)
+    idx, gate = (moe.topk_route(logits, m.moe.top_k) if router == "topk"
+                 else moe.mwu_route(logits, m.moe.top_k, cap, m.moe.mwu_iters))
+    idx, gate = idx[0], gate[0]
+    xt = x32[0]
+    y = torch.zeros_like(xt)
+    for e in range(m.moe.n_experts):
+        oe = (F.silu(xt @ p["wg"][e]) * (xt @ p["wu"][e])) @ p["wd"][e]
+        for j in range(m.moe.top_k):
+            sel = idx[:, j] == e
+            y[sel] += gate[sel, j, None] * oe[sel]
+        del oe
+    diff = (got - y).abs()
+    err = diff.max().item()
+    ok = bool((diff <= LAYER_TOL * (1 + y.abs())).all())
+    check(failures, ok, f"(b) {router}: moe_apply on layer 0's input ({T} tokens) at capacity_factor "
+                        f"{m.moe.capacity_factor:g}, f32 (TF32 off), vs the per-expert loop on the card: max_abs_err "
+                        f"{err:.3g} (bar {LAYER_TOL} abs and rel)")
+    return dict(router=router, max_abs_err=err, within_bar=ok)
+
+
+def router_rows(K, moe, logits: torch.Tensor, cfg, failures: list) -> list[dict]:
+    """The router's kernels at the shapes its LP gives them, f32, each
+    against its plain version: the state of the first iteration of the
+    routing LP of ``logits`` (x from ``init_x``, y = Px of 49,160 rows,
+    z = Cx of 6,145, the weights of both, g = P^T w_p and h = C^T w_c, the
+    step direction d and its images), as ``core.mwu._iteration`` computes
+    it. Softmax weights within 1e-4 (tests/test_kernels.py's f32 bar); the
+    step direction (g form) and the three device-step axpys bit for bit;
+    the Newton search bit for bit the host loop over the probe kernel and
+    within ls_eps * alpha of its plain version. Device ms of one launch
+    (CUDA graph replay; the plain search on the host clock), the bound of
+    each (bytes once over HBM's rate, or the operations)."""
+    import struct
+
+    from repro_torch.core import stepsize
+    from repro_torch.core.mwu import init_x, make_eta
+    from repro_torch.kernels.axpy_reduce.ref import axpy_reduce_ref
+    from repro_torch.kernels.linesearch_probe.ref import newton_search_ref
+    from repro_torch.kernels.softmax_weights.ref import softmax_weights_ref
+    from repro_torch.kernels.step_direction.ref import step_direction_ref
+
+    m = cfg.moe
+    _, cap = moe.dispatch_shape(cfg, logits.shape[0] * logits.shape[1])
+    opts = moe.router_options(m.mwu_iters)
+    P, C = moe.routing_ops(torch.softmax(logits[0].float(), dim=-1), m.top_k, cap)
+    dt, size, tol, ls = torch.float32, 4, 1e-4, opts.ls_tol
+    eta = float(torch.tensor(make_eta(P.shape[0] + C.shape[0], opts.eps, opts.eta_factor), dtype=dt))
+    scale = float(torch.tensor(0.5 / eta, dtype=dt))  # mixed packing/covering: half the pure step scale
+    x = init_x(P, opts.eps, dt)
+    y, z = P.matvec(x), C.matvec(x)
+    wp, wc = K.softmax_weights(y, eta, 1.0)[1], K.softmax_weights(z, eta, -1.0)[1]
+    g, h = P.rmatvec(wp), C.rmatvec(wc)
+    d, dmax = K.step_direction(h, x, scale, g=g)
+    dy, dz = P.matvec(d), C.matvec(d)
+    rows = []
+
+    def row(name, shape, err, bar, ok, kernel, plain_ms, nbytes, ops, form=None):
+        b_ms, b_by = bound(nbytes, ops, dt)
+        r = dict(name=name, form=form, dtype="float32", shape=shape, max_abs_err=err, bar=bar, within_bar=ok,
+                 ms=device_ms(kernel, 200), plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        check(failures, ok, f"router {name}{'' if form is None else f' ({form})'} float32 {shape}: max_abs_err "
+                            f"{err:.3g} (bar {bar}); device ms: kernel {r['ms']:.4f}, plain {plain_ms:.4f}, bound "
+                            f"{b_ms:.4f} ({b_by})")
+        rows.append(r)
+
+    for v, sign in ((y, 1.0), (z, -1.0)):
+        lse, w = K.softmax_weights(v, eta, sign)
+        lse_r, w_r = softmax_weights_ref(v, eta, sign)
+        lse_err, w_err = abs(lse.item() - lse_r.item()), (w - w_r).abs().max().item()
+        n = v.shape[0]
+        row("softmax_weights", [n], max(lse_err, w_err), tol, lse_err <= tol * max(1.0, abs(lse_r.item()))
+            and w_err <= tol, lambda: K.softmax_weights(v, eta, sign),
+            device_ms(lambda: softmax_weights_ref(v, eta, sign), 200), 2 * n * size, 7 * n)
+    n = x.shape[0]
+    d_r, dmax_r = step_direction_ref(h, x, scale, g=g)
+    same = torch.equal(d, d_r) and dmax.item() == dmax_r.item()
+    row("step_direction", [n], (d - d_r).abs().max().item(), 0.0, same, lambda: K.step_direction(h, x, scale, g=g),
+        device_ms(lambda: step_direction_ref(h, x, scale, g=g), 200), 4 * n * size, 4 * n, form="g")
+    # the first iteration's search: warm start 1 (the loop's alpha_prev)
+    host = stepsize._newton_step_host(y, z, dy, dz, eta, ls_eps=ls, alpha0=1.0)
+    card = stepsize.newton_step(y, z, dy, dz, eta, ls_eps=ls, alpha0=1.0)
+    p_alpha, _, p_completes = newton_search_ref(y, dy, z, dz, eta, ls, 1.0).tolist()
+    same = (struct.pack("d", card.alpha), card.probes, card.completes) == \
+        (struct.pack("d", host.alpha), host.probes, host.completes)
+    bar = ls * max(card.alpha, p_alpha)
+    near = card.completes == bool(p_completes) and abs(card.alpha - p_alpha) <= bar
+    ny, nz = y.shape[0], z.shape[0]
+    row("newton_search", [ny, nz], abs(card.alpha - p_alpha), bar, same and near,
+        lambda: K.newton_search(y, dy, z, dz, eta, ls, 1.0),
+        host_ms(lambda: newton_search_ref(y, dy, z, dz, eta, ls, 1.0).tolist()),
+        2 * (ny + nz) * size, 9 * (ny + nz) * (card.probes + 1))
+    rows[-1]["probes"] = card.probes
+    step = torch.tensor([card.alpha], dtype=torch.float64, device=x.device)
+    for a, da in ((x, d), (y, dy), (z, dz)):
+        buf, red = torch.empty_like(a), torch.empty(2, dtype=torch.float64, device=a.device)
+        got, mn, mx = K.axpy_reduce(a, da, step, out=buf, red=red)
+        out_r, mn_r, mx_r = axpy_reduce_ref(a, da, card.alpha)
+        same = torch.equal(got, out_r) and (mn.item(), mx.item()) == (mn_r.item(), mx_r.item())
+        n = a.shape[0]
+        row("axpy_reduce", [n], (got - out_r).abs().max().item(), 0.0, same,
+            lambda: K.axpy_reduce(a, da, step, out=buf, red=red),
+            device_ms(lambda: axpy_reduce_ref(a, da, card.alpha), 200), 3 * n * size, 4 * n, form="device step")
+    return rows
+
+def moe_forward(K, card: str, failures: list) -> dict:
+    """Phase 9: mixtral-8x22b's forward at full width on the card, cut to
+    MOE_LAYERS layers, with both routers on the same seeded weights;
+    ``card`` is nvidia-smi's name and power limit."""
+    from dataclasses import replace
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get
+    from repro_torch.models import Model
+    from repro_torch.models.layers import moe
+
+    base = get("mixtral-8x22b")
+    cfg = replace(base, n_layers=MOE_LAYERS, attn_impl="pallas")
+    m = cfg.moe
+    B, S = 1, MOE_TOKENS
+    G, cap = moe.dispatch_shape(cfg, B * S)
+    t0 = time.perf_counter()
+    model = Model(cfg, device="cuda", seed=0)
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=torch.Generator(device="cuda").manual_seed(1),
+                           device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"  {cfg.name}: {cfg.n_layers} of {base.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} heads over "
+          f"{cfg.n_kv_heads} of d {cfg.d_head}, window {cfg.sliding_window}, {m.n_experts} experts of d_ff {m.d_ff}, "
+          f"top-{m.top_k}, vocab {cfg.vocab_size}; {n_params / 1e9:.3f}B f32 params "
+          f"({torch.cuda.memory_allocated() / 1e9:.1f} GB on the card), init {init_s:.1f} s; tokens {B} x {S}; "
+          f"dispatch groups {G}, capacity {cap}: the routing LP has {S * m.n_experts} variables, "
+          f"{m.n_experts + S * m.n_experts} packing and {S + 1} covering rows", flush=True)
+
+    def run():
+        return model({"tokens": tokens})
+
+    out = {}
+    for router in ("topk", "mwu"):
+        model.cfg = replace_moe(cfg, router=router)
+        with torch.inference_mode():
+            run()  # warm-up: cuBLAS handles and heuristics
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            K.reset_launch_counts()
+            spans = _Spans(moe, ("topk_route", "mwu_route", "routing_lp", "_dispatch_group", "_combine_group",
+                                 "moe_apply"), keep=("topk_route", "mwu_route", "routing_lp", "moe_apply"))
+            torch.cuda.synchronize()
+            try:
+                with counted_reads() as reads:
+                    t0 = time.perf_counter()
+                    h = run()
+                    torch.cuda.synchronize()
+                    first_s = time.perf_counter() - t0
+            finally:
+                spans.restore()
+            launches = K.launch_counts()
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            walls = []
+            for _ in range(5):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                h2 = run()
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+            wall_s = float(np.median(walls))
+            digests = [sha256(h.view(torch.int16)), sha256(h2.view(torch.int16))]  # the bf16 bits
+            del h2
+            logits = model.logits(h[:, -1:])
+            finite = bool(torch.isfinite(h).all()) and bool(torch.isfinite(logits[..., :cfg.vocab_size]).all())
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], record_shapes=True) as prof:
+                run()
+                torch.cuda.synchronize()
+        kernels = _device_kernels(prof)
+        busy = sum(k[0] for k in kernels)
+        flash_ms = sum(k[0] for k in kernels if "rt::flash" in k[2])
+        router_kernel_ms = sum(k[0] for k in kernels if "rt::" in k[2] and "rt::flash" not in k[2])
+        mm_ms = sum(k[0] for k in kernels if any(w in k[2].lower() for w in ("gemm", "nvjet", "xmma", "cutlass")))
+        cast_ms = _weight_cast_ms(prof, model)
+        route_name = "mwu_route" if router == "mwu" else "topk_route"
+        router_ms = spans.ms(route_name)
+        dispatch_ms = sum(spans.ms("_dispatch_group")) + sum(spans.ms("_combine_group"))
+        E = m.n_experts
+        per_layer = []
+        for a, (idx, _) in spans.calls[route_name]:
+            load = moe.expert_load(idx, E).float()
+            per_layer.append(dict(load_max_over_mean=(load.max() / load.mean()).item(),
+                                  dropped=int(torch.clamp(load - cap, min=0).sum())))
+        lp = [res for _, (_, res) in spans.calls["routing_lp"]]
+        iters = [int(r.iters.sum()) for r in lp]
+        info = dict(router=router, init_s=init_s, first_forward_s=first_s, wall_ms=1e3 * wall_s,
+                    wall_ms_runs=[1e3 * w for w in walls], tokens_per_s=B * S / wall_s, max_memory_gb=peak_gb,
+                    launches=launches, hidden_sha256=digests, hidden_finite=finite,
+                    router_ms_per_layer=router_ms, mwu_iters_per_layer=iters, host_reads=reads[0],
+                    host_reads_per_layer=reads[0] / cfg.n_layers, layers=per_layer,
+                    profile=dict(device_busy_ms=busy, matmul_ms=mm_ms, flash_ms=flash_ms,
+                                 router_kernel_ms=router_kernel_ms, dispatch_combine_ms=dispatch_ms,
+                                 weight_cast_ms=cast_ms,
+                                 other_ms=busy - mm_ms - flash_ms - router_kernel_ms - dispatch_ms - cast_ms,
+                                 device_idle_share=1.0 - busy / (1e3 * wall_s)))
+        print(f"  {router} on {card}: " + json.dumps(info), flush=True)
+        for ms, count, key in kernels[:14]:
+            print(f"    {ms:10.2f} ms {count:7d} x  {key[:110]}", flush=True)
+        check(failures, finite and list(h.shape) == [B, S, cfg.d_model],
+              f"{router}: hidden states {list(h.shape)} and last-position logits finite ({finite})")
+        check(failures, digests[0] == digests[1], f"(d) {router}: two forwards give the same hidden states "
+                                                  f"(sha256 {digests[0][:16]}... / {digests[1][:16]}...)")
+        # (f): flash once a layer; the router's kernels once (search, step
+        # direction) or twice (softmax) or three times (axpy) a lane iteration
+        n = sum(iters)
+        want = dict(flash_attention=cfg.n_layers, newton_search=n, step_direction=n, softmax_weights=2 * n,
+                    axpy_reduce=3 * n)
+        got = {name: launches[name] for name in launches}
+        ok = all(got[name] == want.get(name, 0) for name in got)
+        check(failures, ok, f"(f) {router}: launches in one forward {json.dumps(got)}; want {json.dumps(want)} "
+                            f"({n} router lane iterations over {cfg.n_layers} layers, the rest 0)")
+        if router == "mwu":
+            want_reads = sum(i + 2 for i in iters)  # the loop's start, one a loop iteration, its result
+            check(failures, reads[0] <= want_reads,
+                  f"mwu: {reads[0]} host reads in one forward ({reads[0] / cfg.n_layers:.2f} a layer; the routing "
+                  f"loop's start, one a loop iteration and its result come to {want_reads})")
+        out[router] = dict(info=info, h=h, routes=[i for _, (i, _) in spans.calls[route_name]],
+                           logits=[a[0] for a, _ in spans.calls[route_name]], lp=lp,
+                           moe_input=spans.calls["moe_apply"][0][0][1] if router == "topk" else None)
+        del logits
+    model.cfg = cfg
+
+    # (e) the topk forward vs the chunked-attention forward of the same
+    # module, given the flash forward's routes (each layer's experts as the
+    # flash forward chose them, the gates from the chunked forward's own
+    # probs): rounding in bf16 moves router logits across near-ties; the
+    # same forward routing freely is printed with its route flips per layer
+    topk = out["topk"]
+    model.cfg = replace(replace_moe(cfg, router="topk"), attn_impl="chunked")
+    route = moe.topk_route
+    layer = iter(range(cfg.n_layers))
+
+    def replay(lg, k):
+        idx = topk["routes"][next(layer)]
+        probs = torch.softmax(lg.float(), dim=-1)
+        gate = torch.gather(probs, -1, idx)
+        return idx, (gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)).to(lg.dtype)
+
+    spans = _Spans(moe, ("topk_route",), keep=("topk_route",))
+    try:
+        with torch.inference_mode():
+            h_free = run()
+            moe.topk_route = replay
+            h_same = run()
+    finally:
+        moe.topk_route = route
+        spans.restore()
+        model.cfg = cfg
+    h = topk["h"].float()
+    rel_same = ((h - h_same.float()).norm() / h_same.float().norm()).item()
+    rel_free = ((h - h_free.float()).norm() / h_free.float().norm()).item()
+    flips = [int((_route_sets(a) != _route_sets(i)).any(-1).sum())
+             for a, (_, (i, _)) in zip(topk["routes"], spans.calls["topk_route"])]
+    del h_free, h_same
+    check(failures, rel_same <= LOGITS_REL_L2_BAR,
+          f"(e) topk: vs the chunked-attention forward given the flash forward's routes: relative L2 hidden "
+          f"{rel_same:.4g} (bar {LOGITS_REL_L2_BAR}); routing freely {rel_free:.4g}, with {flips} tokens routed to "
+          f"other experts per layer")
+    torch.cuda.empty_cache()
+
+    # (a) every layer's routing LP, card vs CPU
+    mwu = out["mwu"]
+    t_a = time.perf_counter()
+    lp_checks = [router_checks(moe, lg, res, cfg, i, failures) for i, (lg, res) in
+                 enumerate(zip(mwu["logits"], mwu["lp"]))]
+    print(f"  (a) {time.perf_counter() - t_a:.1f} s", flush=True)
+
+    # (c) layer 0's logits as two dispatch groups: two lanes, each its own G 1 solve bit for bit
+    cfg2 = replace(cfg, moe_dispatch_groups=2)
+    G2, cap2 = moe.dispatch_shape(cfg2, B * S)
+    lg2 = mwu["logits"][0].reshape(G2, -1, m.n_experts)
+    _, both = moe.routing_lp(lg2, m.top_k, cap2, m.mwu_iters)
+    lanes = []
+    for g in range(G2):
+        _, alone = moe.routing_lp(lg2[g:g + 1], m.top_k, cap2, m.mwu_iters)
+        lanes.append(dict(x_equal=bool(torch.equal(both.x[g], alone.x[0])),
+                          iters=[int(both.iters[g]), int(alone.iters[0])],
+                          probes=[int(both.ls_probes[g]), int(alone.ls_probes[0])]))
+    check(failures, all(ln["x_equal"] and ln["iters"][0] == ln["iters"][1] and ln["probes"][0] == ln["probes"][1]
+                        for ln in lanes),
+          f"(c) layer 0's logits as {G2} groups (capacity {cap2}): each lane equals its own G 1 solve bit for bit: "
+          f"{json.dumps(lanes)}")
+
+    # the router's kernels at its shapes against their plain versions
+    rrows = router_rows(K, moe, mwu["logits"][0], cfg, failures)
+
+    # the router alone, profiled: its kernels, its plain ops and the device's
+    # idle time a layer (the device traced alone: tracing the host's
+    # operators too would slow the host-bound loop)
+    lg0 = mwu["logits"][0]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        moe.mwu_route(lg0, m.top_k, cap, m.mwu_iters)
+        end.record()
+        torch.cuda.synchronize()
+    rk = _device_kernels(prof)
+    span = start.elapsed_time(end)
+    r_kernels = sum(k[0] for k in rk if "rt::" in k[2])
+    r_plain = sum(k[0] for k in rk if "rt::" not in k[2])
+    router_alone = dict(span_ms=span, kernel_ms=r_kernels, plain_ms=r_plain, idle_ms=span - r_kernels - r_plain,
+                        launches={k[2].split("(")[0][-60:]: k[1] for k in rk})
+    print(f"  the router alone on layer 0's logits on {card}: {json.dumps(router_alone)}", flush=True)
+
+    # (b) dispatch and combine at capacity_factor = E against the expert loop, f32 with TF32 off
+    x0 = topk["moe_input"]
+    p0 = {name: t for name, t in model.blocks[0].moe.items()}
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.inference_mode():
+            oracle = [expert_oracle_check(moe, x0, p0, cfg, r, failures) for r in ("topk", "mwu")]
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    for r in out.values():
+        del r["h"]
+    del model, topk, mwu
+    torch.cuda.empty_cache()
+    return dict(topk=out["topk"]["info"], mwu=out["mwu"]["info"], rel_l2_vs_chunked_same_routes=rel_same,
+                rel_l2_vs_chunked_free=rel_free, chunked_route_flips=flips, router_lp=lp_checks, lanes=lanes,
+                router_alone=router_alone, oracle=oracle, router_rows=rrows)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n-users", type=int, default=480_189, help="users of the full-size bmatch graph")
@@ -2438,6 +2948,15 @@ def main() -> int:
     dist8 = dist_solve(graph, lo, hi, info["exact"], failures)
     print(f"  phase 8: {time.perf_counter() - t8:.1f} s", flush=True)
     end_phase("8", failures)
+    del graph
+    torch.cuda.empty_cache()
+
+    print(f"== phase 9: {MOE_LAYERS} layers of mixtral-8x22b at full width, both routers (MoE, the MWU LP router)",
+          flush=True)
+    t9 = time.perf_counter()
+    moe9 = moe_forward(K, smi, failures)
+    print(f"  phase 9: {time.perf_counter() - t9:.1f} s", flush=True)
+    end_phase("9", failures)
     print(f"  total {time.perf_counter() - t_start:.1f} s", flush=True)
 
     # one entry per kernel: for the MWU kernels their float64 row at the
@@ -2445,8 +2964,9 @@ def main() -> int:
     # the lone probe's from phase 4's binary-rule solves, where the probe
     # runs inside the search: 0; the gather's from its six Newton solves:
     # bmatch gathers inside step_direction); for flash attention row (a) in
-    # bf16 and the launches of one forward of each of phase 5's models, and
-    # row (d) with recurrentgemma's launches
+    # bf16 and the launches of one forward of each of phase 5's models, row
+    # (d) with recurrentgemma's launches and row (c) with mixtral's (phase 9);
+    # every entry adds phase 9's launches
     kernels = []
     for name, (source, replaces) in K.KERNELS.items():
         if name == "flash_attention":
@@ -2457,11 +2977,12 @@ def main() -> int:
                      and r.get("form") in (None, MAIN_FORM.get(name))), key=lambda r: r["shape"][0])
             launches = {"linesearch_probe": binary_launches, "binary_search": binary_launches,
                         "incidence_gather": small_launches}.get(name, info["launches"])[name]
-        launches += serve["launches"][name] + ident["launches"][name] + dist8["launches"][name]
+        moe_launches = moe9["topk"]["launches"][name] + moe9["mwu"]["launches"][name]
+        launches += serve["launches"][name] + ident["launches"][name] + dist8["launches"][name] + moe_launches
         masked = min((m for m in rows if name in MASKED_FORM and m["name"] == name and m["dtype"] == "float64"
                       and m.get("form") == MASKED_FORM[name]), key=lambda m: m["shape"][0], default=None)
         kernels.append(dict(name=name, route="cuda", source=source, replaces=replaces, launches=launches,
-                            serving_launches=serve["launches"][name],
+                            serving_launches=serve["launches"][name], moe_launches=moe_launches,
                             dist_launches=dict(identity=ident["launches"][name], ranks=dist8["launches"][name]),
                             **{k: r.get(k) for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                                      "library_ms", "call_ms", "plain_call_ms", "shape", "dtype", "bar",
@@ -2469,9 +2990,17 @@ def main() -> int:
                             masked=None if masked is None else {k: masked.get(k) for k in (
                                 "form", "shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                 "library_ms")}))
+        router = [{k: rr.get(k) for k in ("form", "shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                         "library_ms")} for rr in moe9["router_rows"] if rr["name"] == name]
+        if router:  # the MWU kernels at the router's shapes (f32) and phase 9's launches
+            kernels[-1]["router"] = dict(launches=moe_launches, rows=router)
         if name == "flash_attention":
             d = next(r for r in rows if r["name"] == name and r["case"] == "d" and r["dtype"] == "bfloat16")
             kernels[-1]["recurrentgemma"] = dict(launches=hybrid["launches"][name], **{k: d.get(k) for k in (
+                "shape", "dtype", "max_abs_err", "rel_l2", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "config")})
+            c = next(r for r in rows if r["name"] == name and r["case"] == "c" and r["dtype"] == "bfloat16")
+            kernels[-1]["mixtral"] = dict(launches=moe_launches, **{k: c.get(k) for k in (
                 "shape", "dtype", "max_abs_err", "rel_l2", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                 "config")})
     print(json.dumps({"kernels": kernels}))

@@ -1,1 +1,1 @@
-"""Layers of the port's model plane: norms, rope, mlp, attention."""
+"""Layers of the port's model plane: norms, rope, mlp, moe, attention, rglru."""

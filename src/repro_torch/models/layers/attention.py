@@ -2,9 +2,10 @@
 
 Port of ``repro.models.layers.attention`` without the KV cache. Covers the
 attention variants of the pool: GQA, MQA and MHA, QKV bias (qwen1.5),
-RoPE, bidirectional (hubert) and sliding-window masks (mixtral; the MQA
-local attention of recurrentgemma, 16 query heads over one kv head of d 256
-in a 2,048-key window).
+RoPE, bidirectional (hubert) and sliding-window masks (mixtral-8x22b's 48
+query heads over 8 kv heads of d 128 in a 4,096-key window, ahead of its MoE
+layer; the MQA local attention of recurrentgemma, 16 query heads over one kv
+head of d 256 in a 2,048-key window).
 
 Implementations, chosen by ``impl`` (default ``cfg.attn_impl``) as in the
 reference:
@@ -14,8 +15,9 @@ reference:
   * ``pallas``  - the flash-attention kernel (``repro_torch.kernels``): on
     the card the hand-written CUDA kernel, on the CPU its plain version.
 
-Decode and prefill through a cache wait for the serving slice (ROADMAP
-queue 1 item 15): ``attention_apply`` raises for a cache.
+Still missing (ROADMAP queue 1 item 15.1): the KV cache, and with it
+decode and prefill, through attention and through MoE (one token routed a
+step); ``attention_apply`` raises for a cache.
 """
 from __future__ import annotations
 

@@ -3,8 +3,9 @@
 Port of ``repro.models.model.Model`` for the full-sequence forward of two
 block kinds, the layer's kind coming from ``cfg.pattern()``:
 
-  "attn"  - norm -> attention -> residual, norm -> mlp -> residual
-            (dense, encoder and GQA decoders; recurrentgemma's MQA local attention);
+  "attn"  - norm -> attention -> residual, norm -> (mlp | moe) -> residual
+            (dense, encoder and GQA decoders; the MoE decoders mixtral and
+            dbrx, with either router; recurrentgemma's MQA local attention);
   "rglru" - norm -> rglru -> residual, norm -> mlp -> residual (recurrentgemma).
 
 The layers are the reference's in its order: ``reps`` repetitions of the
@@ -13,9 +14,10 @@ Python loop replaces ``lax.scan``, and there is no rematerialization (the
 forward runs under ``torch.inference_mode``). ``audio_frames`` consumes
 precomputed (B, S, d_model) frames, as in the reference.
 
-Not ported yet (ROADMAP queue 1 item 15): the ``ssm`` block kind, MoE, the
+Not ported yet (ROADMAP queue 1 item 15): the ``ssm`` block kind, the
 ``vision_text`` modality, and ``decode_step``, ``prefill`` and
-``init_caches``; each raises ``NotImplementedError``.
+``init_caches`` (with them decode through MoE, one token routed a step);
+each raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -26,15 +28,21 @@ from torch import nn
 from .common import Dtypes, dense_init
 from .layers import attention as att
 from .layers import mlp as mlpmod
+from .layers import moe as moemod
 from .layers import norms
 from .layers import rglru as rg
 
 __all__ = ["Model", "load_jax_params"]
 
 _LATER = "ROADMAP queue 1 item 15"
-# each block kind's parameter groups, in the reference's names; the second is the mixer
-_GROUPS = {"attn": ("ln1", "attn", "ln2", "mlp"), "rglru": ("ln1", "rglru", "ln2", "mlp")}
 _MIXER_INIT = {"attn": att.attention_init, "rglru": rg.rglru_init}
+
+
+def _groups(kind: str, cfg) -> tuple:
+    """A block's parameter groups, in the reference's names: ln1, the mixer
+    (``attn`` or ``rglru``), ln2, and the feed-forward, ``moe`` in place of
+    ``mlp`` in an attn block of an MoE config (reference ``model.py:79-85``)."""
+    return ("ln1", kind, "ln2", "moe" if kind == "attn" and cfg.moe is not None else "mlp")
 
 
 def _params(d: dict) -> nn.ParameterDict:
@@ -42,16 +50,20 @@ def _params(d: dict) -> nn.ParameterDict:
 
 
 class Block(nn.Module):
-    """One layer of kind ``kind``: the groups of ``_GROUPS[kind]`` (ln1, the
-    mixer ``attn`` or ``rglru``, ln2, mlp), each a dict of parameters."""
+    """One layer of kind ``kind``: the groups of ``_groups(kind, cfg)`` (ln1,
+    the mixer ``attn`` or ``rglru``, ln2, ``mlp`` or ``moe``), each a dict of
+    parameters."""
 
     def __init__(self, kind: str, cfg, gen: torch.Generator, dtype, device):
         super().__init__()
         self.kind = kind
+        self.groups = _groups(kind, cfg)
         self.ln1 = _params(norms.norm_init(cfg.d_model, cfg.norm_type, dtype, device))
         setattr(self, kind, _params(_MIXER_INIT[kind](gen, cfg, dtype, device)))
         self.ln2 = _params(norms.norm_init(cfg.d_model, cfg.norm_type, dtype, device))
-        self.mlp = _params(mlpmod.mlp_init(gen, cfg, dtype, device))
+        ffn = self.groups[-1]
+        init = moemod.moe_init if ffn == "moe" else mlpmod.mlp_init
+        setattr(self, ffn, _params(init(gen, cfg, dtype, device)))
 
 
 class Model(nn.Module):
@@ -61,11 +73,9 @@ class Model(nn.Module):
     def __init__(self, cfg, device="cuda", seed: int = 0):
         super().__init__()
         pattern = cfg.pattern()
-        if set(pattern) - set(_GROUPS):
-            raise NotImplementedError(f"{cfg.name}: block kinds {sorted(set(pattern) - set(_GROUPS))} are not "
+        if set(pattern) - set(_MIXER_INIT):
+            raise NotImplementedError(f"{cfg.name}: block kinds {sorted(set(pattern) - set(_MIXER_INIT))} are not "
                                       f"ported yet ({_LATER})")
-        if cfg.moe is not None:
-            raise NotImplementedError(f"{cfg.name}: MoE is not ported yet ({_LATER})")
         if cfg.modality not in ("text", "audio_frames"):
             raise NotImplementedError(f"{cfg.name}: modality {cfg.modality!r} is not ported yet ({_LATER})")
         self.cfg = cfg
@@ -97,6 +107,8 @@ class Model(nn.Module):
             a, _ = rg.rglru_apply(blk.rglru, h, cfg)
         x = x + a
         h = norms.apply_norm(blk.ln2, x, cfg.norm_type, cfg.norm_eps)
+        if blk.groups[-1] == "moe":
+            return x + moemod.moe_apply(blk.moe, h, cfg)
         return x + mlpmod.mlp_apply(blk.mlp, h, cfg)
 
     def embed(self, batch: dict) -> torch.Tensor:
@@ -165,7 +177,7 @@ def load_jax_params(model: Model, params: dict) -> Model:
             layer = {grp: {n: a[r] for n, a in leaves.items()} for grp, leaves in params["blocks"][f"b{j}"].items()}
         else:
             layer = params["tail"][f"t{i - model.reps * k}"]
-        groups = _GROUPS[blk.kind]
+        groups = blk.groups
         if set(layer) != set(groups):
             raise ValueError(f"layer {i}: groups {sorted(layer)} are not those of an {blk.kind} block")
         for grp in groups:

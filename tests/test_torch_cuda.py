@@ -1349,3 +1349,102 @@ def test_card_slab_scatter_zero_rows_and_repeats(cuda, dtype):
         empty = want == 0
         assert bool(empty.any()) and bool((got.cpu()[empty] == 0).all())
         assert float(((got.cpu() - want).abs() / want.abs().clamp(min=1.0)).max()) <= tol
+
+
+def _router_logits(T: int, E: int, seed: int) -> torch.Tensor:
+    return torch.randn(1, T, E, generator=torch.Generator().manual_seed(seed))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T, E, k", [(256, 8, 2), (6144, 8, 2), (768, 16, 4)])
+def test_moe_router_lp_card_matches_cpu(cuda, T, E, k):
+    """chip_smoke.py phase 9 (a) at three shapes (mixtral's T 6,144 x E 8
+    among them): the routing LP on the card vs the CPU. f64 over the whole
+    budget: x within 1e-4, the same iterations, probes and status, the same
+    routes on tokens past the 1e-4 margin. f32 (the forward's LP) over its
+    first three iterations, before rounding grows (tests/test_torch_moe.py's
+    docstring): x within 1e-4, the same probes."""
+    from repro_torch.core import solve_lanes
+    from repro_torch.models.layers import moe
+
+    logits = _router_logits(T, E, T + E)
+    cap = max(8, -(-int(np.ceil(T * k * 1.25 / E)) // 8) * 8)
+    opts = moe.router_options(16)
+    p64 = torch.softmax(logits[0].double(), dim=-1)
+    card = solve_lanes([(*moe.routing_ops(p64.to(cuda), k, cap), None, None)], opts).lane(0)
+    cpu = solve_lanes([(*moe.routing_ops(p64, k, cap), None, None)], opts).lane(0)
+    assert (card.iters, card.ls_probes, card.status) == (cpu.iters, cpu.ls_probes, cpu.status)
+    x_card, x_cpu = card.x.cpu().reshape(T, E), cpu.x.reshape(T, E)
+    assert float((x_card - x_cpu).abs().max()) <= 1e-4
+    idx_card, _ = moe.round_plan(x_card, p64, k, torch.float64)
+    idx_cpu, _ = moe.round_plan(x_cpu, p64, k, torch.float64)
+    s = torch.sort(x_cpu + 1e-6 * p64, dim=-1, descending=True).values
+    past = s[:, k - 1] - s[:, k] > 1e-4
+    assert torch.equal(torch.sort(idx_card, -1).values[past], torch.sort(idx_cpu, -1).values[past])
+    _, card3 = moe.routing_lp(logits.to(cuda), k, cap, 3)
+    _, cpu3 = moe.routing_lp(logits, k, cap, 3)
+    assert card3.ls_probes.tolist() == cpu3.ls_probes.tolist() and card3.iters.tolist() == cpu3.iters.tolist()
+    assert float((card3.x.cpu() - cpu3.x).abs().max()) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("router", ["topk", "mwu"])
+@pytest.mark.parametrize("arch", ["mixtral-8x22b", "dbrx-132b"])
+def test_moe_dispatch_combine_match_expert_loop_on_card(cuda, arch, router):
+    """Phase 9 (b) at the reduced width: moe_apply at capacity_factor = E
+    (no token dropped), f32 with TF32 off, against a loop over the experts
+    on the card within 2e-4 (tests/test_layers.py:172); and the forward's
+    bf16 layer repeats bit for bit."""
+    import torch.nn.functional as F
+
+    from repro_torch.models.layers import moe
+
+    cfg = get(arch).reduced()
+    cfg = replace(cfg, moe=replace(cfg.moe, router=router, capacity_factor=float(cfg.moe.n_experts)))
+    m = cfg.moe
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    p = moe.moe_init(gen, cfg, torch.float32, cuda)
+    x = torch.randn(2, 300, cfg.d_model, generator=gen, device=cuda)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        got = moe.moe_apply(p, x, cfg).reshape(-1, cfg.d_model)
+        xt = x.reshape(-1, cfg.d_model)
+        logits = (x.reshape(1, -1, cfg.d_model) @ p["router"]).float()
+        _, cap = moe.dispatch_shape(cfg, xt.shape[0])
+        idx, gate = moe.topk_route(logits, m.top_k) if router == "topk" else moe.mwu_route(logits, m.top_k, cap)
+        idx, gate = idx[0], gate[0]
+        y = torch.zeros_like(xt)
+        for e in range(m.n_experts):
+            oe = (F.silu(xt @ p["wg"][e]) * (xt @ p["wu"][e])) @ p["wd"][e]
+            for j in range(m.top_k):
+                sel = idx[:, j] == e
+                y[sel] += gate[sel, j, None] * oe[sel]
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert bool(((got - y).abs() <= 2e-4 * (1 + y.abs())).all())
+    xb = x.to(torch.bfloat16)
+    assert torch.equal(moe.moe_apply(p, xb, cfg), moe.moe_apply(p, xb, cfg))
+
+
+@pytest.mark.cuda
+def test_moe_router_lanes_equal_their_own_solves_on_card(cuda):
+    """Phase 9 (c): logits split into two dispatch groups run as two lanes of
+    one solve_lanes call on the card; each equals its own G 1 solve bit for
+    bit (x, iterations, probes), and a second run repeats."""
+    from repro_torch.models.layers import moe
+
+    logits = _router_logits(6144, 8, 11).reshape(2, 3072, 8).to(cuda)
+    k, cap = 2, 960
+    _, both = moe.routing_lp(logits, k, cap, 16)
+    for g in range(2):
+        _, alone = moe.routing_lp(logits[g:g + 1], k, cap, 16)
+        assert torch.equal(both.x[g], alone.x[0])
+        assert (both.iters[g], both.ls_probes[g]) == (alone.iters[0], alone.ls_probes[0])
+    K.reset_launch_counts()
+    _, again = moe.routing_lp(logits, k, cap, 16)
+    assert torch.equal(again.x, both.x)
+    n = int(again.iters.sum())
+    counts = K.launch_counts()
+    assert counts["newton_search"] == counts["step_direction"] == n and counts["axpy_reduce"] == 3 * n
+    assert counts["softmax_weights"] == 2 * n and counts["incidence_scatter"] == counts["incidence_gather"] == 0

@@ -35,6 +35,7 @@ from repro_torch.models.layers import attention, mlp, norms, rope
 TOL = 1e-5
 S = 40  # > attn_chunk 16 of the reduced configs: the pallas / chunked paths run
 ARCHS = ["hubert-xlarge", "minitron-4b", "starcoder2-15b", "qwen1.5-32b", "recurrentgemma-9b"]
+MOE_ARCHS = ["mixtral-8x22b", "dbrx-132b", "mixtral-8x22b-mwu", "dbrx-132b-mwu"]
 
 
 def _hubert_cut(get_fn):
@@ -150,7 +151,7 @@ def _batch(cfg, B=2):
     return {"tokens": rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)}
 
 
-@pytest.mark.parametrize("arch", ARCHS + ["hubert-cut", "rg-cut"])
+@pytest.mark.parametrize("arch", ARCHS + ["hubert-cut", "rg-cut"] + MOE_ARCHS)
 def test_model_forward_logits(arch):
     """Model.forward + logits with the reference's parameters, attn_impl pallas."""
     rcfg, cfg = _cfgs(arch)
@@ -205,6 +206,35 @@ def test_load_jax_params_rglru_layers():
         load_jax_params(model, params)
 
 
+@pytest.mark.parametrize("arch", ["mixtral-8x22b-mwu", "dbrx-132b"])
+def test_load_jax_params_moe_layers(arch):
+    """An MoE config with a tail: three attn layers as one repetition of
+    (attn, attn) and one tail layer. Every layer's ``moe`` group holds the
+    reference's router, wg, wu and wd (stacked at their repetition, the
+    tail's as they are), and its block applies the MoE layer: the tail
+    block against the reference's Model._apply_block."""
+    from repro.models.model import Model as RefModelCls
+
+    rcfg, cfg = (replace(c, n_layers=3, block_pattern=("attn", "attn")) for c in _cfgs(arch))
+    params = _np_tree(RefModel(rcfg, fsdp=False).init(jax.random.PRNGKey(9)))
+    model = load_jax_params(Model(cfg, device="cpu"), params)
+    layers = [params["blocks"]["b0"], params["blocks"]["b1"], params["tail"]["t0"]]
+    for i, (blk, layer) in enumerate(zip(model.blocks, layers)):
+        assert blk.groups == ("ln1", "attn", "ln2", "moe") and not hasattr(blk, "mlp")
+        assert set(layer["moe"]) == {"router", "wg", "wu", "wd"}
+        for name, leaf in layer["moe"].items():
+            ref = leaf[0] if i < 2 else leaf
+            np.testing.assert_array_equal(blk.moe[name].numpy(), ref, err_msg=f"layer {i} moe.{name}")
+    x = np.random.default_rng(10).standard_normal((2, S, cfg.d_model)).astype(np.float32)
+    ref, _ = RefModelCls(rcfg, fsdp=False)._apply_block("attn", jax.tree.map(jnp.asarray, layers[2]), jnp.asarray(x),
+                                                        jnp.arange(S))
+    _close(model._apply_block(model.blocks[2], _t(x), torch.arange(S)), ref, tol=2e-4)  # tests/test_layers.py:172
+    # an mlp group where the model has an moe block
+    params["tail"]["t0"]["mlp"] = params["tail"]["t0"].pop("moe")
+    with pytest.raises(ValueError, match="layer 2"):
+        load_jax_params(model, params)
+
+
 def test_rglru_block_forward():
     """One rglru layer of the model (ln1, rglru, residual, ln2, mlp, residual) against the reference's
     Model._apply_block, rg-cut's widths."""
@@ -221,7 +251,7 @@ def test_rglru_block_forward():
     _close(got, ref)
 
 
-@pytest.mark.parametrize("arch", ["mamba2-1.3b", "mixtral-8x22b", "internvl2-26b"])
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "internvl2-26b"])
 def test_model_unported_kinds_raise(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Model(get(arch).reduced(), device="cpu")
