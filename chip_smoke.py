@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--n-users N] [--serve-requests N]
+    python3 chip_smoke.py [--n-users N] [--serve-requests N] [--seed N]
 
 Builds the CUDA kernels of ``src/repro_torch/kernels/csrc`` with nvcc for
 sm_90a and drives the port's paths, the MWU graph-LP solve, the
@@ -9,9 +9,10 @@ hubert-xlarge encoder forward, recurrentgemma-9b's forward (RG-LRU blocks
 and MQA local attention at head dim 256), graph-LP serving
 (``repro_torch.lpserve``), the paper's two comparison studies (Table
 3's step rules, Figure 3's MPCSolver baseline), the distributed solve
-(``repro_torch.dist``) and mixtral-8x22b's MoE forward with the paper's
-MWU LP router inside it, in nine phases; any failed phase exits non-zero
-before the result lines are printed.
+(``repro_torch.dist``), mixtral-8x22b's MoE forward with the paper's
+MWU LP router inside it, and mixtral-8x22b's decode (the KV cache, prefill
+and the serving engine, ``repro_torch.serve``), in ten phases; any failed
+phase exits non-zero before the result lines are printed.
 
 1. Card: its name and power limit (nvidia-smi) and the kernels' build time.
 2. Kernels vs their plain PyTorch versions on the card, at the main path's
@@ -25,7 +26,7 @@ before the result lines are printed.
    attention (B 16, S 1500, 16 heads, d 80, bidirectional) and (b)
    minitron-4b's (B 1, S 4096, 24 over 8 heads, d 128, causal) in bf16 and
    f32, (c) mixtral-8x22b's (B 1, S 6144, 48 over 8 heads, d 128,
-   causal, window 4096) in bf16, and (d) recurrentgemma-9b's at phase 5
+   causal, window 4096) in bf16 and f32 (phase 10 (a)'s prefill), and (d) recurrentgemma-9b's at phase 5
    (b)'s shape (B 2, S 8192, 16 over 1 heads, d 256, causal, window 2048)
    in bf16 and f32, with the
    card's name and power limit. Within bar means |kernel - plain| <= bar * (1 + |plain|)
@@ -161,7 +162,14 @@ before the result lines are printed.
    ``rglru_apply`` must equal a loop of ``rglru_decode`` steps from an
    empty state within 1e-4 (atol and rtol): the reference's
    tests/test_layers.py identity (at the init's a of ~0.007 it checks the
-   block's wiring, not the carry).
+   block's wiring, not the carry). (c) The same module's ``prefill`` of
+   (b)'s 2 x 8192 tokens (a ring of 2,048 slots in each attn layer, the
+   rglru states), then 8 ``decode_step``s: the last step's logits within
+   relative L2 5e-2 of the last row of a forward over all 8,200 tokens, in
+   bf16; prefill ms (flash once an attn layer, no other kernel of the
+   port), ms a decode step (no kernel of the port), and one more step
+   profiled (weight casts, matmuls, the rest, the idle share against
+   that step's own time, CUDA events around it).
 6. Graph-LP serving at card size: 12 requests (``--serve-requests``),
    match and vcover alternating, request i on ``erdos(n, m, seed=i)`` of
    tier i % 3 of (600k, 2.2M), (800k, 3M), (1.5M, 4M) vertices and edges,
@@ -263,17 +271,50 @@ before the result lines are printed.
    step direction), twice (softmax) and three times (axpy) a router lane
    iteration, nothing else; and the mwu forward reads the host at most
    its routing loops' iterations + 2 times a layer.
+10. mixtral-8x22b decode on phase 9's module (its 4 layers at full width,
+   the same weights). (a) ``prefill`` of B 1 x S 6144 (past the 4,096-key
+   window), then 16 greedy ``decode_step``s, in f32 with TF32 off and the
+   topk router at capacity_factor = E (no token dropped at T 1 or T
+   6,160, as tests/test_layers.py:58-61): every layer's ring holds
+   positions 2,048-6,143 after the prefill and each step writes one slot,
+   (S + t) mod 4096; the last step's logits within relative L2 1e-3 of the
+   last row of a ``forward`` + ``logits`` over the 6,160 tokens, the
+   tokens routed differently a layer printed; the prefill and the forward
+   launch flash (its f32 body) once a layer, the decode steps never. Prints the f32 prefill's ms and
+   ms a decode step, and the bf16 prefill's (phase 9's config, median of
+   3). (b) ``Engine`` (``slots=4``, ``max_len=512``, greedy, bf16) with
+   each router on the same weights: four prompts of 24, 40, 56 and 64
+   tokens from ``--seed``, 32 new tokens each (95 decode steps: 64
+   teacher-forced, 31 sampled). Prints decode ms a step (median, CUDA
+   events around each step of the first engine run) and tokens/s (B over
+   it), the generate's wall and its generated tokens/s; one decode step
+   (the 16th generated, in a hand loop) profiled: weight casts, expert
+   matmuls (the einsums' bmm over an expert weight), attention over the
+   cache (the kernels inside the cache write and ``_sdpa_dense``, a
+   profiler range around each), the router's kernels, the rest, and the
+   idle share against that step's own time (CUDA events around it; fails
+   if the parts overlap: the rest below 0); for mwu the router's ms a layer a
+   step (CUDA events), its iterations and host reads a layer a step, each
+   layer's expert load, and the tokens it routed otherwise than top-k
+   would on the same logits. Fails unless two engine runs give the same tokens and the same
+   sha256 of the last logits, the tokens equal the hand loop of
+   ``decode_step`` + argmax from the same empty caches, no step launches
+   flash, the mwu steps launch the router's kernels as phase 9 (f) counts
+   them a router lane iteration (topk: none), and a generate reads the
+   host at most the routing loops' iterations + 2 times a layer a step
+   plus once a sampled step.
 
 The line before the last is ``{"kernels": [...]}``, one entry per kernel;
 the last is ``{"ok": true, "device": {...}}``. The flash entry takes row
 (a) in bf16 and the launches of both phase 5 forwards, and row (d) in bf16
-with phase 5 (b)'s launches under ``recurrentgemma``, row (c) with phase 9's launches
-under ``mixtral``; the axpy and the searches take
+with phase 5 (b)'s and (c)'s launches under ``recurrentgemma``, row (c) with phase 9's and
+phase 10's bf16 launches under ``mixtral``, row (c) f32 with phase 10 (a)'s f32
+launches under ``mixtral_f32``; the axpy and the searches take
 the row of the form the main path launches (device step, step form), and
 each MWU kernel's masked row goes into its entry's ``masked`` field. Every
 entry's launches add phase 6's (``serving_launches``), phase 8's, (a)'s
 and both ranks' of (b) (``dist_launches``), and phase 9's two forwards'
-(``moe_launches``); the MWU kernels the router launches carry its rows at
+and phase 10's runs (``moe_launches``); the MWU kernels the router launches carry its rows at
 its shapes under ``router``. The script exits non-zero
 without a result when no CUDA device is present or when it is run outside
 the repository.
@@ -301,6 +342,7 @@ PEAK_OPS_PER_S = {torch.float32: 67e12, torch.float64: 34e12, torch.bfloat16: 98
 LOGITS_REL_L2_BAR = 5e-2  # pallas vs dense (a) / chunked (b) forward of phase 5, bf16 through 48 / 38 layers
 SCAN_BAR = 1e-4  # phase 5 (b): rglru_apply vs its decode loop at f32 (tests/test_layers.py: 2e-4)
 SCAN_LOOP_BAR = 1e-5  # phase 5 (b): _scan vs a sequential f64 loop, a in (0.9, 0.999), S 8192 (~1e-7 on the CPU)
+RG_DECODE_STEPS = 8  # phase 5 (c): decode steps after the prefill of phase 5 (b)'s tokens
 # bf16 flash rows, whole tensor: ||kernel - plain|| / ||plain||. The two
 # differ by where p is rounded to bf16 (unnormalised in the kernel, after
 # the division in the plain version): ~3e-3 at every bf16 row. The bar is
@@ -1041,6 +1083,7 @@ FLASH_CASES = [  # tag, B, S, Hq, Hkv, d, causal, window, dtype
     ("b", 1, 4096, 24, 8, 128, True, None, torch.bfloat16),  # minitron-4b at train_4k
     ("b", 1, 4096, 24, 8, 128, True, None, torch.float32),
     ("c", 1, 6144, 48, 8, 128, True, 4096, torch.bfloat16),  # mixtral-8x22b, sliding window
+    ("c", 1, 6144, 48, 8, 128, True, 4096, torch.float32),  # phase 10 (a)'s f32 prefill
     ("d", 2, 8192, 16, 1, 256, True, 2048, torch.bfloat16),  # recurrentgemma-9b at phase 5 (b)'s batch
     ("d", 2, 8192, 16, 1, 256, True, 2048, torch.float32),
 ]
@@ -1839,9 +1882,79 @@ def hybrid_forward(K, card: str, failures: list) -> dict:
     check(failures, rel_h <= LOGITS_REL_L2_BAR and rel_logits <= LOGITS_REL_L2_BAR,
           f"vs the chunked-attention forward: relative L2 hidden {rel_h:.4g}, logits {rel_logits:.4g} "
           f"(bar {LOGITS_REL_L2_BAR})")
-    del model, h, logits
+    del h, logits
+    info["decode"] = hybrid_decode(K, model, tokens, card, failures)
+    del model
     torch.cuda.empty_cache()
     info["scan"] = scan_checks(failures)
+    return info
+
+
+def hybrid_decode(K, model, tokens: torch.Tensor, card: str, failures: list) -> dict:
+    """Phase 5 (c): ``prefill`` of phase 5 (b)'s tokens, then RG_DECODE_STEPS
+    ``decode_step``s; the last step's logits against the last row of a
+    forward over all S + RG_DECODE_STEPS tokens, in bf16. One more step is
+    profiled."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = model.cfg
+    B, S = tokens.shape
+    n, V = RG_DECODE_STEPS, cfg.vocab_size
+    more = torch.randint(0, V, (B, n), generator=torch.Generator(device="cuda").manual_seed(2), device="cuda")
+    with torch.inference_mode():
+        K.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, caches = model.prefill({"tokens": tokens}, S + n)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        prefill_launches = K.launch_counts()
+        K.reset_launch_counts()
+        steps = []
+        for t in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lg, caches = model.decode_step(caches, more[:, t:t + 1])
+            torch.cuda.synchronize()
+            steps.append(time.perf_counter() - t0)
+        decode_launches = K.launch_counts()
+        # one more step, profiled (not part of the check), between CUDA events
+        marks = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], record_shapes=True) as prof:
+            marks[0].record()
+            model.decode_step(caches, more[:, -1:])
+            marks[1].record()
+            torch.cuda.synchronize()
+        K.reset_launch_counts()
+        del caches
+        full = model.logits(model({"tokens": torch.cat([tokens, more], dim=1)})[:, -1:])
+    finite = bool(torch.isfinite(lg[..., :V]).all()) and bool(torch.isfinite(full[..., :V]).all())
+    rel = ((lg[..., :V] - full[..., :V]).norm() / full[..., :V].norm()).item()
+    n_attn = cfg.pattern().count("attn")
+    kernels = _device_kernels(prof)
+    busy = sum(k[0] for k in kernels)
+    mm_ms = sum(k[0] for k in kernels if any(w in k[2].lower() for w in ("gemm", "nvjet", "xmma", "cutlass")))
+    cast_ms = _weight_cast_ms(prof, model)
+    step_ms = 1e3 * float(np.median(steps))
+    info = dict(prefill_tokens=[B, S], prefill_ms=1e3 * prefill_s, decode_steps=n, decode_ms_per_step=step_ms,
+                decode_ms_runs=[1e3 * t for t in steps], decode_tokens_per_s=B * 1e3 / step_ms,
+                rel_l2_last_logits_vs_forward=rel,
+                launches={k: prefill_launches[k] + decode_launches[k] for k in prefill_launches},
+                profiled_step=dict(step_ms=marks[0].elapsed_time(marks[1]), device_busy_ms=busy,
+                                   weight_cast_ms=cast_ms, matmul_ms=mm_ms, other_ms=busy - cast_ms - mm_ms,
+                                   kernel_calls=sum(k[1] for k in kernels),
+                                   device_idle_share=1.0 - busy / marks[0].elapsed_time(marks[1])))
+    print(f"  (c) prefill + decode on {card}: " + json.dumps(info), flush=True)
+    for ms, count, key in kernels[:8]:
+        print(f"    {ms:10.3f} ms {count:5d} x  {key[:110]}", flush=True)
+    check(failures, finite and rel <= LOGITS_REL_L2_BAR,
+          f"(c) the last of {n} decode steps after a prefill of {B} x {S} vs the last row of a forward over "
+          f"{S + n} tokens: relative L2 {rel:.4g} (bar {LOGITS_REL_L2_BAR}), finite {finite}")
+    check(failures, prefill_launches["flash_attention"] == n_attn
+          and all(v == 0 for k, v in prefill_launches.items() if k != "flash_attention")
+          and all(v == 0 for v in decode_launches.values()),
+          f"(c) prefill launched flash {prefill_launches['flash_attention']} times ({n_attn} attn layers), the decode "
+          f"steps no kernel of the port ({decode_launches})")
     return info
 
 
@@ -2636,10 +2749,11 @@ def router_rows(K, moe, logits: torch.Tensor, cfg, failures: list) -> list[dict]
             device_ms(lambda: axpy_reduce_ref(a, da, card.alpha), 200), 3 * n * size, 4 * n, form="device step")
     return rows
 
-def moe_forward(K, card: str, failures: list) -> dict:
+def moe_forward(K, card: str, failures: list):
     """Phase 9: mixtral-8x22b's forward at full width on the card, cut to
     MOE_LAYERS layers, with both routers on the same seeded weights;
-    ``card`` is nvidia-smi's name and power limit."""
+    ``card`` is nvidia-smi's name and power limit. Returns the phase's
+    numbers and the model (phase 10 decodes with it)."""
     from dataclasses import replace
 
     from torch.profiler import ProfilerActivity, profile
@@ -2854,17 +2968,318 @@ def moe_forward(K, card: str, failures: list) -> dict:
         torch.backends.cuda.matmul.allow_tf32 = tf32
     for r in out.values():
         del r["h"]
-    del model, topk, mwu
+    del topk, mwu
     torch.cuda.empty_cache()
     return dict(topk=out["topk"]["info"], mwu=out["mwu"]["info"], rel_l2_vs_chunked_same_routes=rel_same,
                 rel_l2_vs_chunked_free=rel_free, chunked_route_flips=flips, router_lp=lp_checks, lanes=lanes,
-                router_alone=router_alone, oracle=oracle, router_rows=rrows)
+                router_alone=router_alone, oracle=oracle, router_rows=rrows), model
 
+
+
+# -- phase 10 ----------------------------------------------------------------
+DECODE_STEPS = 16  # (a): greedy decode steps after the prefill of MOE_TOKENS tokens
+DECODE_BAR = 1e-3  # (a): relative L2 of the last decode logits vs the forward's last row, f32 with TF32 off
+SERVE_LENGTHS = (24, 40, 56, 64)  # (b): the engine's four prompts, one slot each
+SERVE_NEW = 32  # (b): tokens generated a prompt
+SERVE_MAX_LEN = 512  # (b): the engine's caches (a ring of 512 slots: below the window)
+
+
+def _take_launches(K, total: dict) -> dict:
+    """The launch counts since the last reset, added into ``total``; resets them."""
+    got = K.launch_counts()
+    for name, n in got.items():
+        total[name] = total.get(name, 0) + n
+    K.reset_launch_counts()
+    return got
+
+
+def decode_past_window(K, model, card: str, total: dict, failures: list) -> dict:
+    """Phase 10 (a): prefill B 1 x MOE_TOKENS (past the window), then
+    DECODE_STEPS greedy decode steps, in f32 with TF32 off, the topk router
+    at capacity_factor = E; the last step's logits against the last row of
+    a forward over all the tokens. Then the bf16 prefill's time."""
+    from dataclasses import replace
+
+    from repro_torch.models.common import Dtypes
+    from repro_torch.models.layers import moe
+
+    cfg9 = model.cfg
+    cfg = replace(replace_moe(cfg9, router="topk", capacity_factor=float(cfg9.moe.n_experts)), dtype="float32")
+    S, W, n, L, V = MOE_TOKENS, cfg.sliding_window, DECODE_STEPS, cfg.n_layers, cfg.vocab_size
+    prompt = torch.randint(0, V, (1, S), generator=torch.Generator(device="cuda").manual_seed(3), device="cuda")
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model.cfg, model.dt = cfg, Dtypes(cfg)
+    spans = _Spans(moe, ("topk_route",), keep=("topk_route",))
+    try:
+        with torch.inference_mode():
+            K.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lg, caches = model.prefill({"tokens": prompt}, S + n)
+            torch.cuda.synchronize()
+            prefill_s = time.perf_counter() - t0
+            prefill_launches = _take_launches(K, total)
+            ring_ok = all(sorted(c.slot_pos.tolist()) == list(range(S - W, S)) for c in caches.layers)
+            toks, steps, advance_ok = [], [], True
+            for t in range(n):
+                cur = torch.argmax(lg[:, -1, :V], dim=-1, keepdim=True)
+                toks.append(cur)
+                want = caches.layers[0].slot_pos.clone()
+                want[(S + t) % W] = S + t
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                lg, caches = model.decode_step(caches, cur)
+                torch.cuda.synchronize()
+                steps.append(time.perf_counter() - t0)
+                advance_ok &= all(torch.equal(c.slot_pos, want) for c in caches.layers)
+            decode_launches = _take_launches(K, total)
+            del caches
+            full = model.logits(model({"tokens": torch.cat([prompt] + toks, dim=1)})[:, -1:])
+            forward_launches = _take_launches(K, total)
+    finally:
+        spans.restore()
+        model.cfg, model.dt = cfg9, Dtypes(cfg9)
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    finite = bool(torch.isfinite(lg[..., :V]).all()) and bool(torch.isfinite(full[..., :V]).all())
+    rel = ((lg[..., :V] - full[..., :V]).norm() / full[..., :V].norm()).item()
+    # each layer's routes: prefill and decode steps against the forward's
+    idx = [out[0][0] for _, out in spans.calls["topk_route"]]  # (T, k) a call: L prefill, n * L decode, L forward
+    flips = []
+    for layer in range(L):
+        inc = torch.cat([idx[layer]] + [idx[L + t * L + layer] for t in range(n)], dim=0)
+        flips.append(int((_route_sets(inc) != _route_sets(idx[L + n * L + layer])).any(-1).sum()))
+    del full, lg, spans
+    torch.cuda.empty_cache()
+    # the prefill in the forward's bf16 (phase 9's config: topk at capacity 1.25)
+    bf16 = []
+    with torch.inference_mode():
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, caches = model.prefill({"tokens": prompt}, S)
+            torch.cuda.synchronize()
+            bf16.append(time.perf_counter() - t0)
+            del caches
+    bf16_launches = _take_launches(K, total)
+    info = dict(prompt=[1, S], window=W, decode_steps=n, prefill_ms_f32=1e3 * prefill_s,
+                decode_ms_per_step_f32=1e3 * float(np.median(steps)), prefill_ms_bf16=1e3 * float(np.median(bf16)),
+                prefill_ms_bf16_runs=[1e3 * t for t in bf16], rel_l2_last_logits_vs_forward=rel,
+                tokens_routed_differently_per_layer=flips, prefill_flash=prefill_launches["flash_attention"],
+                prefill_flash_bf16=bf16_launches["flash_attention"],
+                flash_f32=prefill_launches["flash_attention"] + forward_launches["flash_attention"])
+    print(f"  (a) on {card}: " + json.dumps(info), flush=True)
+    check(failures, ring_ok, f"(a) after the prefill of {S} tokens every layer's ring of {W} slots holds positions "
+                             f"{S - W}..{S - 1}")
+    check(failures, advance_ok, f"(a) each of {n} decode steps wrote one slot, (S + t) mod {W}, in every layer")
+    check(failures, finite and rel <= DECODE_BAR,
+          f"(a) the last decode step's logits vs the last row of the forward over {S + n} tokens (f32, TF32 off, "
+          f"capacity E): relative L2 {rel:.4g} (bar {DECODE_BAR}); tokens routed differently a layer {flips}")
+    check(failures, prefill_launches["flash_attention"] == forward_launches["flash_attention"] == L
+          and bf16_launches["flash_attention"] == 3 * L and decode_launches["flash_attention"] == 0,
+          f"(a) each prefill launched flash once a layer (f32 {prefill_launches['flash_attention']}, bf16 "
+          f"{bf16_launches['flash_attention']} in 3), the f32 forward {forward_launches['flash_attention']} times, "
+          f"the decode steps {decode_launches['flash_attention']} times")
+    return info
+
+
+ATTENTION_RANGE = "phase10::attention_over_cache"
+
+
+def _split_step(prof, model) -> dict:
+    """Phase 10 (b): one profiled decode step's device time by part."""
+    from torch.autograd import DeviceType
+
+    kernels = _device_kernels(prof)
+    busy = sum(k[0] for k in kernels)
+    router = sum(k[0] for k in kernels if "rt::" in k[2] and "rt::flash" not in k[2])
+    # the kernels launched inside the cache write and _sdpa_dense (a profiler range around each call)
+    attention_ms = sum(e.device_time_total for e in prof.events()
+                       if e.name == ATTENTION_RANGE and e.device_type == DeviceType.CPU) / 1e3
+    # the expert products: the einsums' bmm calls over an expert weight, (E, d, d_ff) or (E, d_ff, d)
+    E, d, f = model.cfg.moe.n_experts, model.cfg.d_model, model.cfg.moe.d_ff
+    weights = ([E, d, f], [E, f, d])
+    experts = sum(e.device_time_total for e in prof.events()
+                  if e.name == "aten::bmm" and e.device_type == DeviceType.CPU and len(e.input_shapes) == 2
+                  and list(e.input_shapes[1]) in weights) / 1e3
+    casts = _weight_cast_ms(prof, model)
+    return dict(device_busy_ms=busy, weight_cast_ms=casts, expert_matmul_ms=experts,
+                attention_over_cache_ms=attention_ms, router_kernel_ms=router,
+                other_ms=busy - casts - experts - attention_ms - router)
+
+
+def _in_range(fn):
+    """fn inside a profiler range named ATTENTION_RANGE."""
+    def ranged(*a, **kw):
+        with torch.profiler.record_function(ATTENTION_RANGE):
+            return fn(*a, **kw)
+    return ranged
+
+
+def serve_decode(K, model, card: str, seed: int, total: dict, failures: list) -> dict:
+    """Phase 10 (b): ``Engine.generate`` on the card, greedy, bf16, with
+    each router on phase 9's weights."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models.layers import attention as att
+    from repro_torch.models.layers import moe
+    from repro_torch.serve import Engine, ServeConfig
+
+    cfg9 = model.cfg
+    V, L, E = cfg9.vocab_size, cfg9.n_layers, cfg9.moe.n_experts
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(1, V, n).astype(np.int32) for n in SERVE_LENGTHS]
+    B, maxp = len(prompts), max(SERVE_LENGTHS)
+    n_steps = maxp + SERVE_NEW - 1
+    padded = np.zeros((B, maxp), np.int32)  # as the engine pads them
+    for i, p in enumerate(prompts):
+        padded[i, :len(p)] = p
+    out = {}
+    for router in ("topk", "mwu"):
+        cfg = replace_moe(cfg9, router=router)
+        model.cfg = cfg
+        route_name = "mwu_route" if router == "mwu" else "topk_route"
+        # a hand loop of decode_step + argmax from empty caches (the engine's
+        # shapes warm up here); the middle generated step profiled, with a
+        # profiler range (ATTENTION_RANGE) around the attention over the cache
+        with torch.inference_mode():
+            toks = torch.from_numpy(padded).cuda()
+            caches = model.init_caches(B, SERVE_MAX_LEN)
+            for t in range(maxp):
+                lg, caches = model.decode_step(caches, toks[:, t:t + 1])
+            hand = []
+            cur = torch.argmax(lg[:, -1, :V], dim=-1)
+            for step in range(SERVE_NEW):
+                if step == SERVE_NEW // 2:
+                    saved = {name: getattr(att, name) for name in ("_cache_write", "_sdpa_dense")}
+                    for name, fn in saved.items():
+                        setattr(att, name, _in_range(fn))
+                    torch.cuda.synchronize()
+                    marks = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                    try:
+                        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                                     record_shapes=True) as prof:
+                            marks[0].record()
+                            lg, caches = model.decode_step(caches, cur[:, None])
+                            marks[1].record()
+                            torch.cuda.synchronize()
+                    finally:
+                        for name, fn in saved.items():
+                            setattr(att, name, fn)
+                    cur = torch.argmax(lg[:, -1, :V], dim=-1)
+                elif step:
+                    lg, caches = model.decode_step(caches, cur[:, None])
+                    cur = torch.argmax(lg[:, -1, :V], dim=-1)
+                hand.append(cur)
+            hand = [list(c) for c in zip(*torch.stack(hand).tolist())]
+            del caches
+        _take_launches(K, total)
+        split = _split_step(prof, model)
+        check(failures, split["other_ms"] >= 0,
+              f"(b) {router}: the profiled step's parts do not overlap (device busy {split['device_busy_ms']:.3f} ms, "
+              f"the rest {split['other_ms']:.3f} ms)")
+        # the engine, twice: the first timed a step (CUDA events around each
+        # decode_step), its launches, host reads and the router's spans
+        runs = []
+        for run in range(2):
+            eng = Engine(cfg, ServeConfig(max_len=SERVE_MAX_LEN, slots=B), device="cuda")
+            eng.load(model)
+            events, last = [], []
+            step = model.decode_step
+
+            def timed_step(caches, tokens):
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                start.record()
+                lg, new = step(caches, tokens)
+                end.record()
+                events.append((start, end))
+                last[:] = [lg]
+                return lg, new
+
+            model.decode_step = timed_step
+            spans = _Spans(moe, (route_name, "routing_lp"), keep=(route_name, "routing_lp"))
+            K.reset_launch_counts()
+            try:
+                with counted_reads() as reads:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    tokens_out = eng.generate(prompts, max_new=SERVE_NEW)
+                    torch.cuda.synchronize()
+                    wall_s = time.perf_counter() - t0
+            finally:
+                del model.decode_step
+                spans.restore()
+            torch.cuda.synchronize()
+            runs.append(dict(tokens=tokens_out, wall_s=wall_s, reads=reads[0], launches=_take_launches(K, total),
+                             step_ms=[s.elapsed_time(e) for s, e in events], spans=spans,
+                             logits_sha256=sha256(last[0])))
+        first, second = runs
+        spans = first["spans"]
+        iters = [int(res.iters.sum()) for _, (_, res) in spans.calls["routing_lp"]]
+        loads = torch.zeros(L, E, dtype=torch.int64)
+        for i, (_, (idx, _)) in enumerate(spans.calls[route_name]):
+            loads[i % L] += moe.expert_load(idx, E).cpu()
+        # the tokens a step the mwu router sent to other experts than top-k would, on the same logits
+        other_than_topk = sum(int((_route_sets(idx) != _route_sets(moe.topk_route(a[0], cfg.moe.top_k)[0]))
+                                  .any(-1).sum()) for a, (idx, _) in spans.calls.get("mwu_route", []))
+        step_ms = float(np.median(first["step_ms"]))
+        router_ms = spans.ms(route_name)
+        info = dict(router=router, slots=B, prompt_lengths=list(SERVE_LENGTHS), max_new=SERVE_NEW,
+                    decode_steps=len(first["step_ms"]), decode_ms_per_step=step_ms,
+                    decode_ms_per_step_p10_p90=[float(np.percentile(first["step_ms"], q)) for q in (10, 90)],
+                    tokens_per_s=B * 1e3 / step_ms, generate_wall_s=[first["wall_s"], second["wall_s"]],
+                    generated_tokens_per_s=B * SERVE_NEW / first["wall_s"],
+                    router_ms_per_layer_step=float(np.median(router_ms)),
+                    router_ms_per_layer_step_mean=float(np.mean(router_ms)),
+                    mwu_iters_per_layer_step=float(np.mean(iters)) if iters else 0.0,
+                    host_reads=first["reads"], host_reads_per_layer_step=(first["reads"] - SERVE_NEW) / (n_steps * L),
+                    expert_load_per_layer=loads.tolist(), tokens_routed_other_than_topk=other_than_topk,
+                    launches=first["launches"],
+                    profiled_step=dict(split, step_ms=marks[0].elapsed_time(marks[1]),
+                                       device_idle_share=1.0 - split["device_busy_ms"] / marks[0].elapsed_time(marks[1])),
+                    logits_sha256=[first["logits_sha256"], second["logits_sha256"]])
+        print(f"  (b) {router} on {card}: " + json.dumps(info), flush=True)
+        for ms, count, key in _device_kernels(prof)[:10]:
+            print(f"    {ms:10.3f} ms {count:5d} x  {key[:110]}", flush=True)
+        check(failures, first["tokens"] == second["tokens"] and first["logits_sha256"] == second["logits_sha256"],
+              f"(b) {router}: two engines give the same tokens and last logits (sha256 "
+              f"{first['logits_sha256'][:16]}... / {second['logits_sha256'][:16]}...)")
+        check(failures, first["tokens"] == hand,
+              f"(b) {router}: the engine's tokens equal a hand loop of decode_step + argmax")
+        check(failures, len(first["step_ms"]) == n_steps and len(iters) == (n_steps * L if router == "mwu" else 0),
+              f"(b) {router}: {len(first['step_ms'])} decode steps ({n_steps}), {len(iters)} routing LPs")
+        n = sum(iters)
+        want = dict(newton_search=n, step_direction=n, softmax_weights=2 * n, axpy_reduce=3 * n)
+        got = first["launches"]
+        check(failures, all(got[name] == want.get(name, 0) for name in got),
+              f"(b) {router}: launches in one generate {json.dumps(got)}; want {json.dumps(want)} ({n} router "
+              f"lane iterations over {n_steps} steps x {L} layers; no flash, the rest 0)")
+        want_reads = sum(i + 2 for i in iters) + SERVE_NEW
+        check(failures, first["reads"] <= want_reads,
+              f"(b) {router}: {first['reads']} host reads in one generate; the routing loops' starts, iterations "
+              f"and results and one a sampled step come to {want_reads}")
+        out[router] = info
+        del runs, first, second, spans, prof
+    model.cfg = cfg9
+    return out
+
+
+def moe_decode(K, model, card: str, seed: int, failures: list) -> dict:
+    """Phase 10: mixtral-8x22b decode on phase 9's module (a), (b); returns
+    the phase's numbers and its launches (every run of the phase is a main
+    path run: prefill, decode steps, the engine)."""
+    total: dict = {}
+    K.reset_launch_counts()
+    info = dict(prefill_decode=decode_past_window(K, model, card, total, failures))
+    info["engine"] = serve_decode(K, model, card, seed, total, failures)
+    info["launches"] = total
+    return info
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n-users", type=int, default=480_189, help="users of the full-size bmatch graph")
     ap.add_argument("--serve-requests", type=int, default=12, help="requests of phase 6's serving run")
+    ap.add_argument("--seed", type=int, default=0, help="seed of phase 10's prompts")
     ap.add_argument("--dist-rank", type=int, default=None, help=argparse.SUPPRESS)  # phase 8 (b)'s ranks
     ap.add_argument("--dist-dir", type=Path, default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
@@ -2954,9 +3369,17 @@ def main() -> int:
     print(f"== phase 9: {MOE_LAYERS} layers of mixtral-8x22b at full width, both routers (MoE, the MWU LP router)",
           flush=True)
     t9 = time.perf_counter()
-    moe9 = moe_forward(K, smi, failures)
+    moe9, moe_model = moe_forward(K, smi, failures)
     print(f"  phase 9: {time.perf_counter() - t9:.1f} s", flush=True)
     end_phase("9", failures)
+
+    print("== phase 10: mixtral-8x22b decode on phase 9's module (KV cache, prefill, the serving engine)", flush=True)
+    t10 = time.perf_counter()
+    decode10 = moe_decode(K, moe_model, smi, args.seed, failures)
+    del moe_model
+    torch.cuda.empty_cache()
+    print(f"  phase 10: {time.perf_counter() - t10:.1f} s", flush=True)
+    end_phase("10", failures)
     print(f"  total {time.perf_counter() - t_start:.1f} s", flush=True)
 
     # one entry per kernel: for the MWU kernels their float64 row at the
@@ -2965,19 +3388,21 @@ def main() -> int:
     # runs inside the search: 0; the gather's from its six Newton solves:
     # bmatch gathers inside step_direction); for flash attention row (a) in
     # bf16 and the launches of one forward of each of phase 5's models, row
-    # (d) with recurrentgemma's launches and row (c) with mixtral's (phase 9);
-    # every entry adds phase 9's launches
+    # (d) with recurrentgemma's launches (phase 5 (b), and (c)'s prefill),
+    # row (c) with mixtral's in bf16 (phases 9 and 10) and row (c) f32 with
+    # phase 10 (a)'s f32 prefill and forward; every entry adds phase 9's and
+    # phase 10's launches
     kernels = []
     for name, (source, replaces) in K.KERNELS.items():
         if name == "flash_attention":
             r = next(r for r in rows if r["name"] == name and r["case"] == "a" and r["dtype"] == "bfloat16")
-            launches = enc["launches"][name] + hybrid["launches"][name]
+            launches = enc["launches"][name] + hybrid["launches"][name] + hybrid["decode"]["launches"][name]
         else:
             r = max((r for r in rows if r["name"] == name and r["dtype"] == "float64"
                      and r.get("form") in (None, MAIN_FORM.get(name))), key=lambda r: r["shape"][0])
             launches = {"linesearch_probe": binary_launches, "binary_search": binary_launches,
                         "incidence_gather": small_launches}.get(name, info["launches"])[name]
-        moe_launches = moe9["topk"]["launches"][name] + moe9["mwu"]["launches"][name]
+        moe_launches = moe9["topk"]["launches"][name] + moe9["mwu"]["launches"][name] + decode10["launches"][name]
         launches += serve["launches"][name] + ident["launches"][name] + dist8["launches"][name] + moe_launches
         masked = min((m for m in rows if name in MASKED_FORM and m["name"] == name and m["dtype"] == "float64"
                       and m.get("form") == MASKED_FORM[name]), key=lambda m: m["shape"][0], default=None)
@@ -2996,13 +3421,17 @@ def main() -> int:
             kernels[-1]["router"] = dict(launches=moe_launches, rows=router)
         if name == "flash_attention":
             d = next(r for r in rows if r["name"] == name and r["case"] == "d" and r["dtype"] == "bfloat16")
-            kernels[-1]["recurrentgemma"] = dict(launches=hybrid["launches"][name], **{k: d.get(k) for k in (
+            rg_launches = hybrid["launches"][name] + hybrid["decode"]["launches"][name]
+            kernels[-1]["recurrentgemma"] = dict(launches=rg_launches, **{k: d.get(k) for k in (
                 "shape", "dtype", "max_abs_err", "rel_l2", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                 "config")})
-            c = next(r for r in rows if r["name"] == name and r["case"] == "c" and r["dtype"] == "bfloat16")
-            kernels[-1]["mixtral"] = dict(launches=moe_launches, **{k: c.get(k) for k in (
-                "shape", "dtype", "max_abs_err", "rel_l2", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                "config")})
+            f32_launches = decode10["prefill_decode"]["flash_f32"]
+            for key, dtype, n in (("mixtral", "bfloat16", moe_launches - f32_launches),
+                                  ("mixtral_f32", "float32", f32_launches)):
+                c = next(r for r in rows if r["name"] == name and r["case"] == "c" and r["dtype"] == dtype)
+                kernels[-1][key] = dict(launches=n, **{k: c.get(k) for k in (
+                    "shape", "dtype", "max_abs_err", "rel_l2", "ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms", "config")})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

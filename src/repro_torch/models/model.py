@@ -1,7 +1,7 @@
 """Model assembly: embeddings -> block stack -> final norm -> logits.
 
-Port of ``repro.models.model.Model`` for the full-sequence forward of two
-block kinds, the layer's kind coming from ``cfg.pattern()``:
+Port of ``repro.models.model.Model`` for the full-sequence forward, prefill
+and decode of two block kinds, the layer's kind coming from ``cfg.pattern()``:
 
   "attn"  - norm -> attention -> residual, norm -> (mlp | moe) -> residual
             (dense, encoder and GQA decoders; the MoE decoders mixtral and
@@ -14,12 +14,20 @@ Python loop replaces ``lax.scan``, and there is no rematerialization (the
 forward runs under ``torch.inference_mode``). ``audio_frames`` consumes
 precomputed (B, S, d_model) frames, as in the reference.
 
-Not ported yet (ROADMAP queue 1 item 15): the ``ssm`` block kind, the
-``vision_text`` modality, and ``decode_step``, ``prefill`` and
-``init_caches`` (with them decode through MoE, one token routed a step);
-each raises ``NotImplementedError``.
+Serving: ``init_caches`` gives one cache a layer (a ``KVCache`` for attn,
+an ``RGLRUState`` for rglru) in ``DecodeCaches``, with the position as a
+host int, so a decode step reads nothing from the device but what its MoE
+router reads. ``prefill`` runs a prompt from position 0 and fills the
+caches; ``decode_step`` runs one token a sequence (through MoE: one token
+routed a sequence a step). Both return the last position's logits and new
+caches, and leave the given ones as they were.
+
+Not ported yet (ROADMAP queue 1 item 15.3): the ``ssm`` block kind and the
+``vision_text`` modality; ``Model(...)`` raises ``NotImplementedError``.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -32,9 +40,9 @@ from .layers import moe as moemod
 from .layers import norms
 from .layers import rglru as rg
 
-__all__ = ["Model", "load_jax_params"]
+__all__ = ["Model", "DecodeCaches", "load_jax_params"]
 
-_LATER = "ROADMAP queue 1 item 15"
+_LATER = "ROADMAP queue 1 item 15.3"
 _MIXER_INIT = {"attn": att.attention_init, "rglru": rg.rglru_init}
 
 
@@ -47,6 +55,13 @@ def _groups(kind: str, cfg) -> tuple:
 
 def _params(d: dict) -> nn.ParameterDict:
     return nn.ParameterDict({k: nn.Parameter(v, requires_grad=False) for k, v in d.items()})
+
+
+class DecodeCaches(NamedTuple):
+    """One cache a layer, in the model's layer order, and the position of the next token."""
+
+    layers: tuple  # KVCache (attn) or RGLRUState (rglru), one a layer
+    pos: int  # tokens decoded so far (host int)
 
 
 class Block(nn.Module):
@@ -98,18 +113,23 @@ class Model(nn.Module):
 
     # ------------------------------------------------------------------
 
-    def _apply_block(self, blk: Block, x, positions):
+    def _apply_block(self, blk: Block, x, positions=None, cache=None, start: int | None = None):
+        """One layer -> (x, its new cache). Without a cache: the forward over
+        ``positions``. With one: x's tokens from host position ``start``, a
+        prompt (S > 1) or one decode step (S == 1)."""
         cfg = self.cfg
         h = norms.apply_norm(blk.ln1, x, cfg.norm_type, cfg.norm_eps)
         if blk.kind == "attn":
-            a, _ = att.attention_apply(blk.attn, h, cfg, positions=positions)
+            a, new_cache = att.attention_apply(blk.attn, h, cfg, positions=positions, cache=cache, start=start)
+        elif cache is not None and x.shape[1] == 1:
+            a, new_cache = rg.rglru_decode(blk.rglru, h, cfg, cache)
         else:
-            a, _ = rg.rglru_apply(blk.rglru, h, cfg)
+            a, new_cache = rg.rglru_apply(blk.rglru, h, cfg, state=cache)
         x = x + a
         h = norms.apply_norm(blk.ln2, x, cfg.norm_type, cfg.norm_eps)
         if blk.groups[-1] == "moe":
-            return x + moemod.moe_apply(blk.moe, h, cfg)
-        return x + mlpmod.mlp_apply(blk.mlp, h, cfg)
+            return x + moemod.moe_apply(blk.moe, h, cfg), new_cache
+        return x + mlpmod.mlp_apply(blk.mlp, h, cfg), new_cache
 
     def embed(self, batch: dict) -> torch.Tensor:
         """batch: {'tokens': (B, S) int} or {'frames': (B, S, d_model)}."""
@@ -133,17 +153,48 @@ class Model(nn.Module):
         x = self.embed(batch)
         positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
         for blk in self.blocks:
-            x = self._apply_block(blk, x, positions)
+            x, _ = self._apply_block(blk, x, positions)
         return norms.apply_norm(self.final_norm, x, cfg.norm_type, cfg.norm_eps)
 
-    def init_caches(self, batch, max_len):
-        raise NotImplementedError(f"decode caches are not ported yet ({_LATER})")
+    # ------------------------------------------------------------------
+    # serving
+    # ------------------------------------------------------------------
 
-    def decode_step(self, caches, tokens):
-        raise NotImplementedError(f"decode_step is not ported yet ({_LATER})")
+    def init_caches(self, batch: int, max_len: int) -> DecodeCaches:
+        """Empty caches for ``batch`` sequences of up to ``max_len`` positions:
+        KV caches in the compute dtype, rglru states as the reference's."""
+        dev = self.embedding.device
+        layers = tuple(att.init_kv_cache(self.cfg, batch, max_len, dtype=self.dt.compute, device=dev)
+                       if blk.kind == "attn" else rg.init_rglru_state(self.cfg, batch, device=dev)
+                       for blk in self.blocks)
+        return DecodeCaches(layers=layers, pos=0)
 
-    def prefill(self, batch, max_len):
-        raise NotImplementedError(f"prefill is not ported yet ({_LATER})")
+    def _final_logits(self, x):
+        cfg = self.cfg
+        return self.logits(norms.apply_norm(self.final_norm, x, cfg.norm_type, cfg.norm_eps))
+
+    def decode_step(self, caches: DecodeCaches, tokens):
+        """One decode step. tokens: (B, 1) ints (frames (B, 1, d) for audio).
+        Returns (logits (B, 1, V), new caches)."""
+        key = "frames" if self.cfg.modality == "audio_frames" else "tokens"
+        x = self.embed({key: tokens})
+        layers = []
+        for blk, cache in zip(self.blocks, caches.layers):
+            x, c = self._apply_block(blk, x, cache=cache, start=caches.pos)
+            layers.append(c)
+        return self._final_logits(x), DecodeCaches(layers=tuple(layers), pos=caches.pos + 1)
+
+    def prefill(self, batch: dict, max_len: int):
+        """Run a prompt from position 0, filling fresh caches of ``max_len``
+        positions. Returns (last-token logits (B, 1, V), caches)."""
+        x = self.embed(batch)
+        B, S = x.shape[0], x.shape[1]
+        caches = self.init_caches(B, max_len)
+        layers = []
+        for blk, cache in zip(self.blocks, caches.layers):
+            x, c = self._apply_block(blk, x, cache=cache, start=0)
+            layers.append(c)
+        return self._final_logits(x[:, -1:]), DecodeCaches(layers=tuple(layers), pos=S)
 
 
 def _fill(target, src, name: str) -> None:

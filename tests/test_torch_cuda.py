@@ -1448,3 +1448,96 @@ def test_moe_router_lanes_equal_their_own_solves_on_card(cuda):
     counts = K.launch_counts()
     assert counts["newton_search"] == counts["step_direction"] == n and counts["axpy_reduce"] == 3 * n
     assert counts["softmax_weights"] == 2 * n and counts["incidence_scatter"] == counts["incidence_gather"] == 0
+
+
+# -- KV cache, prefill, decode and the serving engine -------------------------
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["mixtral-8x22b", "recurrentgemma-9b"])
+def test_prefill_flash_matches_chunked_on_card(cuda, arch):
+    """Prefill of 40 tokens (past the window 16 and attn_chunk 16) at f32
+    with TF32 off: with ``pallas`` (the flash kernel once an attn layer)
+    against ``chunked`` on the card, the same weights: the last logits and
+    every cache within 1e-4 of their scale; then a decode step on each."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = replace(get(arch).reduced(), attn_impl="pallas")
+    if cfg.moe is not None:
+        cfg = replace(cfg, moe=replace(cfg.moe, capacity_factor=float(cfg.moe.n_experts)))
+    model = Model(cfg, device=cuda, seed=1)
+    toks = torch.randint(0, cfg.vocab_size, (2, 41), generator=torch.Generator().manual_seed(2)).to(cuda)
+    out = {}
+    for impl in ("pallas", "chunked"):
+        model.cfg = replace(cfg, attn_impl=impl)
+        K.reset_launch_counts()
+        with torch.inference_mode():
+            lg, caches = model.prefill({"tokens": toks[:, :40]}, 64)
+            step, _ = model.decode_step(caches, toks[:, 40:])
+        flash = K.launch_counts()["flash_attention"]
+        assert flash == (cfg.pattern().count("attn") if impl == "pallas" else 0)
+        out[impl] = (lg, caches, step)
+    (lg, ca, st), (lg2, ca2, st2) = out["pallas"], out["chunked"]
+    for a, b in [(lg, lg2), (st, st2)] + [(x, y) for c, c2 in zip(ca.layers, ca2.layers) for x, y in zip(c, c2)]:
+        if a.dtype.is_floating_point:
+            scale = b.abs().max().clamp(min=1.0)
+            torch.testing.assert_close(a / scale, b / scale, atol=1e-4, rtol=0)
+        else:
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_decode_repeats_bit_for_bit_on_card(cuda):
+    """mixtral-8x22b-mwu, bf16 compute: prefill then 8 decode steps, twice
+    from the same caches: the same logits bit for bit (the router's LP on
+    the card, the combine without atomics)."""
+    cfg = replace(get("mixtral-8x22b-mwu").reduced(), dtype="bfloat16", attn_impl="pallas")
+    model = Model(cfg, device=cuda, seed=4)
+    toks = torch.randint(0, cfg.vocab_size, (4, 48), generator=torch.Generator().manual_seed(5)).to(cuda)
+    with torch.inference_mode():
+        _, start = model.prefill({"tokens": toks[:, :40]}, 64)
+        runs = []
+        for _ in range(2):
+            caches, logits = start, []
+            for t in range(40, 48):
+                lg, caches = model.decode_step(caches, toks[:, t:t + 1])
+                logits.append(lg)
+            runs.append(torch.cat(logits, dim=1))
+    assert torch.equal(runs[0], runs[1]) and bool(torch.isfinite(runs[0]).all())
+
+
+@pytest.mark.cuda
+def test_engine_launches_on_card(cuda):
+    """Engine.generate with the mwu router on the card: no flash launch
+    while decoding, and the router's kernels once (search, step direction),
+    twice (softmax) and three times (axpy) a router lane iteration, nothing
+    else; two engines over the same model give the same tokens."""
+    from repro_torch.models.layers import moe
+    from repro_torch.serve import Engine, ServeConfig
+
+    cfg = get("mixtral-8x22b-mwu").reduced()
+    model = Model(cfg, device=cuda, seed=6)
+    prompts = [np.arange(1, n + 1, dtype=np.int32) * 7 % cfg.vocab_size for n in (5, 9, 12)]
+    iters = []
+    lp = moe.routing_lp
+
+    def counting(*a, **kw):
+        probs, res = lp(*a, **kw)
+        iters.append(int(res.iters.sum()))
+        return probs, res
+
+    moe.routing_lp = counting
+    try:
+        outs = []
+        for _ in range(2):
+            eng = Engine(cfg, ServeConfig(max_len=32, slots=4), device=cuda)
+            eng.load(model)
+            iters.clear()
+            K.reset_launch_counts()
+            outs.append(eng.generate(prompts, max_new=6))
+            counts = K.launch_counts()
+    finally:
+        moe.routing_lp = lp
+    assert outs[0] == outs[1]
+    steps = max(len(p) for p in prompts) + 6 - 1
+    assert len(iters) == steps * cfg.n_layers
+    n = sum(iters)
+    want = dict(newton_search=n, step_direction=n, softmax_weights=2 * n, axpy_reduce=3 * n)
+    assert counts == {name: want.get(name, 0) for name in counts}, (counts, want)

@@ -116,7 +116,8 @@ def test_builders_keep_int32_edges():
 
 
 def test_import_without_jax():
-    """repro_torch imports, solves and runs an encoder forward on the CPU, with jax unimportable."""
+    """repro_torch imports, solves, runs an encoder forward and a prefill and
+    decode step through the MWU router on the CPU, with jax unimportable."""
     src = Path(__file__).resolve().parents[1] / "src"
     code = (
         "import sys; sys.modules['jax'] = None\n"
@@ -124,7 +125,7 @@ def test_import_without_jax():
         "import repro_torch.configs, repro_torch.models, repro_torch.kernels.flash_attention\n"
         "import repro_torch.core.feasibility, repro_torch.core.gradient_descent, repro_torch.utils.deprecation\n"
         "import repro_torch.dist, repro_torch.sparsela, repro_torch.sparsela.distributed, repro_torch.core.mwu_dist\n"
-        "import repro_torch.lpserve\n"
+        "import repro_torch.lpserve, repro_torch.serve\n"
         "from repro_torch.api import MWUOptions, Solver\n"
         "from repro_torch.graphs import build, grid2d\n"
         "sol = Solver(MWUOptions(eps=0.1), batch_width=2).solve(build('match', grid2d(3), device='cpu'))\n"
@@ -135,6 +136,11 @@ def test_import_without_jax():
         "m = repro_torch.models.Model(cfg, device='cpu')\n"
         "x = m.logits(m({'frames': torch.zeros(1, 20, cfg.d_model)}))\n"
         "assert x.shape == (1, 20, cfg.padded_vocab) and bool(torch.isfinite(x).all())\n"
+        "mc = repro_torch.configs.get('mixtral-8x22b-mwu').reduced()\n"
+        "mm = repro_torch.models.Model(mc, device='cpu')\n"
+        "lg, ca = mm.prefill({'tokens': torch.arange(20)[None]}, 32)\n"
+        "lg, ca = mm.decode_step(ca, torch.ones(1, 1, dtype=torch.long))\n"
+        "assert lg.shape == (1, 1, mc.padded_vocab) and ca.pos == 21 and bool(torch.isfinite(lg).all())\n"
         "assert not any(m == 'repro' or m.startswith('repro.') for m in sys.modules)\n"
         "print('ok')\n"
     )

@@ -137,11 +137,29 @@ def test_attention_apply(arch, impl):
     _close(got, ref)
 
 
-def test_attention_with_cache_raises():
-    _, cfg = _cfgs("minitron-4b")
-    p = {k: _t(v) for k, v in _np_tree(ref_att.attention_init(jax.random.PRNGKey(1), cfg, jnp.float32)).items()}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        attention.attention_apply(p, torch.zeros(1, 4, cfg.d_model), cfg, positions=torch.arange(4), cache=object())
+@pytest.mark.parametrize("arch", ["minitron-4b", "mixtral-8x22b", "rg-cut"])
+def test_attention_with_cache(arch):
+    """A prompt of S 40 into an empty cache of 64 positions, then one
+    decode step, against the reference's attention_apply with its KVCache:
+    the outputs, and the caches' K, V and slot positions (a ring of 16
+    slots for a window of 16: the last 16 positions)."""
+    rcfg, cfg = _cfgs(arch)
+    params = _np_tree(ref_att.attention_init(jax.random.PRNGKey(1), rcfg, jnp.float32))
+    x = np.random.default_rng(3).standard_normal((2, S + 1, cfg.d_model)).astype(np.float32)
+    rp = {k: jnp.asarray(v) for k, v in params.items()}
+    p = {k: _t(v) for k, v in params.items()}
+    ref_cache = ref_att.init_kv_cache(rcfg, 2, 64, jnp.float32)
+    cache = attention.init_kv_cache(cfg, 2, 64, torch.float32, "cpu")
+    for lo, hi in ((0, S), (S, S + 1)):
+        pos = np.arange(lo, hi, dtype=np.int32)
+        ref, ref_cache = ref_att.attention_apply(rp, jnp.asarray(x[:, lo:hi]), rcfg, positions=jnp.asarray(pos),
+                                                 cache=ref_cache)
+        got, cache = attention.attention_apply(p, _t(x[:, lo:hi]), cfg, cache=cache, start=lo)
+        _close(got, ref)
+        for name in ("k", "v"):
+            _close(getattr(cache, name), getattr(ref_cache, name))
+        np.testing.assert_array_equal(cache.slot_pos.numpy(), np.asarray(ref_cache.slot_pos))
+    assert int(cache.slot_pos.max()) == S and cache.k.shape[1] == (16 if cfg.sliding_window else 64)
 
 
 def _batch(cfg, B=2):
@@ -228,7 +246,9 @@ def test_load_jax_params_moe_layers(arch):
     x = np.random.default_rng(10).standard_normal((2, S, cfg.d_model)).astype(np.float32)
     ref, _ = RefModelCls(rcfg, fsdp=False)._apply_block("attn", jax.tree.map(jnp.asarray, layers[2]), jnp.asarray(x),
                                                         jnp.arange(S))
-    _close(model._apply_block(model.blocks[2], _t(x), torch.arange(S)), ref, tol=2e-4)  # tests/test_layers.py:172
+    got, cache = model._apply_block(model.blocks[2], _t(x), torch.arange(S))
+    assert cache is None
+    _close(got, ref, tol=2e-4)  # tests/test_layers.py:172
     # an mlp group where the model has an moe block
     params["tail"]["t0"]["mlp"] = params["tail"]["t0"].pop("moe")
     with pytest.raises(ValueError, match="layer 2"):
@@ -247,7 +267,8 @@ def test_rglru_block_forward():
     ref, _ = RefModelCls(rcfg, fsdp=False)._apply_block("rglru", jax.tree.map(jnp.asarray, layer), jnp.asarray(x),
                                                         jnp.arange(S))
     model = load_jax_params(Model(cfg, device="cpu"), params)
-    got = model._apply_block(model.blocks[3], _t(x), torch.arange(S))
+    got, state = model._apply_block(model.blocks[3], _t(x), torch.arange(S))
+    assert state is None
     _close(got, ref)
 
 
@@ -264,8 +285,6 @@ def test_model_random_init():
     a, b = Model(cfg, device="cpu", seed=3), Model(cfg, device="cpu", seed=3)
     for (n, pa), (_, pb) in zip(a.named_parameters(), b.named_parameters()):
         assert torch.equal(pa, pb), n
-    with pytest.raises(NotImplementedError):
-        a.decode_step(None, None)
     gen = torch.Generator().manual_seed(0)
     w = dense_init(gen, (400, 300), torch.float32, "cpu", scale=2.0)
     std = 2.0 / 20.0
