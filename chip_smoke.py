@@ -10,9 +10,11 @@ and MQA local attention at head dim 256), graph-LP serving
 (``repro_torch.lpserve``), the paper's two comparison studies (Table
 3's step rules, Figure 3's MPCSolver baseline), the distributed solve
 (``repro_torch.dist``), mixtral-8x22b's MoE forward with the paper's
-MWU LP router inside it, and mixtral-8x22b's decode (the KV cache, prefill
-and the serving engine, ``repro_torch.serve``), in ten phases; any failed
-phase exits non-zero before the result lines are printed.
+MWU LP router inside it, mixtral-8x22b's decode (the KV cache, prefill
+and the serving engine, ``repro_torch.serve``) and mixtral-8x22b's training
+(``repro_torch.train``: the train step, AdamW, checkpoints, the Trainer), in
+eleven phases; any failed phase exits non-zero before the result lines are
+printed.
 
 1. Card: its name and power limit (nvidia-smi) and the kernels' build time.
 2. Kernels vs their plain PyTorch versions on the card, at the main path's
@@ -303,6 +305,39 @@ phase exits non-zero before the result lines are printed.
    them a router lane iteration (topk: none), and a generate reads the
    host at most the routing loops' iterations + 2 times a layer a step
    plus once a sampled step.
+11. Training on the card (``repro_torch.train``). (a) mixtral-8x22b at full
+   width cut to TRAIN_LAYERS layer (2.907B f32 params; params, grads and
+   both AdamW moments 46.5 GB), bf16 compute, ``remat="full"``, the
+   config's chunked attention, B 1 x S 4,096 (train_4k's sequence; its
+   global batch 256 cut to 1) from the token pipeline, ``loss_chunk`` 512,
+   AdamW (TRAIN_OPT); ``topk`` then ``mwu`` on the same seeded weights,
+   one model at a time. Per router: the first step's loss equals
+   ``chunked_ce_loss`` of the batch under ``inference_mode`` (rel 1e-6);
+   the router runs in the forward and again in the recompute, and the
+   step's launches are the router's kernels for those LP solves (mwu:
+   search and step direction once, softmax twice, axpy three times a lane
+   iteration; topk: none), the recompute's LP equal to the forward's bit
+   for bit, every layer's forward LP held card vs CPU as phase 9 (a) holds
+   it in f64 over the whole budget (solved apart in f32, printed: at these
+   logits rounding parts the f32 search at its first iteration), and its
+   f32 solve again over the whole budget with every kernel call held
+   against its plain version on the call's own inputs
+   (``router_f32_held``); TRAIN_STEPS steps on the batch drive the loss
+   below the first step's (every loss printed), finite; one step at B 2 in
+   two microbatches has the mean of its halves' losses (rel 1e-6); the
+   launch counts are reset after every check's own solves, and each
+   counted block's launches equal its training LPs' lane iterations; the first
+   step again from a new model of the same seed gives the same loss, grad
+   norm and sha256 of every parameter. Prints ms a step (CUDA events,
+   median of the steps after the first) and tokens/s, the peak memory
+   beside its reckoning (``train_memory_reckoning``), host reads a step, a
+   profiled step's split (weight casts, expert bmm, attention, the router's
+   kernels and the router's span, the vocab side: CE and the embedding,
+   the optimizer, the rest) and idle share against that step's own time,
+   and the tokens mwu routes to other experts than topk. (b) ``Trainer``
+   on mixtral-8x22b-mwu reduced(), TRAINER_STEPS steps with a checkpoint
+   every TRAINER_EVERY, against the run interrupted after TRAINER_STOP and
+   restarted from its checkpoint: the final parameters bit for bit.
 
 The line before the last is ``{"kernels": [...]}``, one entry per kernel;
 the last is ``{"ok": true, "device": {...}}``. The flash entry takes row
@@ -313,8 +348,9 @@ launches under ``mixtral_f32``; the axpy and the searches take
 the row of the form the main path launches (device step, step form), and
 each MWU kernel's masked row goes into its entry's ``masked`` field. Every
 entry's launches add phase 6's (``serving_launches``), phase 8's, (a)'s
-and both ranks' of (b) (``dist_launches``), and phase 9's two forwards'
-and phase 10's runs (``moe_launches``); the MWU kernels the router launches carry its rows at
+and both ranks' of (b) (``dist_launches``), phase 9's two forwards'
+and phase 10's runs (``moe_launches``), and every train step of phase 11
+(``train_launches``); the MWU kernels the router launches carry its rows at
 its shapes under ``router``. The script exits non-zero
 without a result when no CUDA device is present or when it is run outside
 the repository.
@@ -323,6 +359,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import hashlib
 import json
 import subprocess
@@ -1602,11 +1639,15 @@ def binary_solves(failures: list) -> dict:
 # -- phase 5 -----------------------------------------------------------------
 def _device_kernels(prof) -> list[tuple[float, int, str]]:
     """(device ms, calls, name) of each kernel, device-side events only: the
-    operators that launched them carry the same device time again."""
+    operators that launched them carry the same device time again. The
+    device-side copies of the script's own profiler ranges (the profiler
+    lists a range on the device too, spanning its kernels) are left out."""
     from torch.autograd import DeviceType
 
+    ranges = (ATTENTION_RANGE, ATTN_RANGE, ADAMW_RANGE)
     return sorted(((e.self_device_time_total / 1e3, e.count, e.key) for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0), reverse=True)
+                   if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0 and e.key not in ranges),
+                  reverse=True)
 
 
 def _scan_event_ms(rg, run) -> list[float]:
@@ -2572,14 +2613,17 @@ def replace_moe(cfg, **kw):
     return replace(cfg, moe=replace(cfg.moe, **kw))
 
 
-def router_checks(moe, logits: torch.Tensor, res_card, cfg, layer: int, failures: list) -> dict:
+def router_checks(moe, logits: torch.Tensor, res_card, cfg, layer: int, failures: list,
+                  hold_f32: bool = True) -> dict:
     """(a) for one layer: the layer's routing LP on the card vs the same LP on
     the CPU (the kernels' plain versions). In f64 (the same operators at
     f64) over the whole budget: x within 1e-4, the same iterations, probes
     and status, the same routes past the margin. In f32, the forward's own
     LP: over its first ROUTER_F32_ITERS iterations x within 1e-4 and the
-    same probes; over the whole budget (``res_card``, the forward's own
-    solve) printed: rounding decides it (ROUTER_F32_ITERS's note)."""
+    same probes (printed only, where ``hold_f32`` is False: phase 11's
+    logits, whose f32 search parts card from CPU at its first iteration);
+    over the whole budget (``res_card``, the forward's own solve) printed:
+    rounding decides it (ROUTER_F32_ITERS's note)."""
     from repro_torch.core import solve_lanes
 
     m = cfg.moe
@@ -2611,10 +2655,13 @@ def router_checks(moe, logits: torch.Tensor, res_card, cfg, layer: int, failures
     same3 = (card3.iters.tolist(), card3.ls_probes.tolist()) == (cpu3.iters.tolist(), cpu3.ls_probes.tolist())
     out["f32_first"] = dict(iters=ROUTER_F32_ITERS, max_abs_dx=dx3, probes=[int(card3.ls_probes[0]),
                                                                            int(cpu3.ls_probes[0])])
-    check(failures, dx3 <= ROUTER_X_TOL and same3,
-          f"(a) layer {layer}, f32: the forward's routing LP on the card vs the CPU over its first "
-          f"{ROUTER_F32_ITERS} iterations: x max |diff| {dx3:.3g} (bar {ROUTER_X_TOL}), probes "
-          f"{out['f32_first']['probes']}")
+    what = (f"(a) layer {layer}, f32: the forward's routing LP on the card vs the CPU over its first "
+            f"{ROUTER_F32_ITERS} iterations: x max |diff| {dx3:.3g} (bar {ROUTER_X_TOL}), probes "
+            f"{out['f32_first']['probes']}")
+    if hold_f32:
+        check(failures, dx3 <= ROUTER_X_TOL and same3, what)
+    else:
+        print(f"  {what} (not a check here: rounding decides it)", flush=True)
     # f32 over the whole budget: printed
     probs, cpu16 = moe.routing_lp(logits.cpu(), m.top_k, cap, m.mwu_iters)
     x_card = res_card.x.cpu().reshape(probs.shape)
@@ -3275,6 +3322,535 @@ def moe_decode(K, model, card: str, seed: int, failures: list) -> dict:
     info["launches"] = total
     return info
 
+# -- phase 11 ----------------------------------------------------------------
+TRAIN_LAYERS = 1  # mixtral-8x22b's 56 layers cut to 1: 2.907B f32 params, 46.5 GB with grads and AdamW moments
+TRAIN_STEPS = 8  # (a): steps on one fixed batch
+TRAIN_LOSS_CHUNK = 512
+TRAIN_LOSS_REL = 1e-6  # (a): the first step's loss vs chunked_ce_loss of the same batch under inference_mode
+TRAIN_OPT = dict(lr=1e-3, warmup_steps=2, total_steps=1000)
+TRAINER_STEPS, TRAINER_EVERY, TRAINER_STOP = 8, 2, 5  # (b): 8 steps, a checkpoint every 2, interrupted after 5
+ATTN_RANGE = "phase11::chunked_attention"
+ADAMW_RANGE = "phase11::adamw"
+
+
+def train_memory_reckoning(cfg, B: int, S: int) -> dict:
+    """Phase 11 (a)'s peak, reckoned from the config before the run: params,
+    grads and both moments in f32; the bf16 expert weights the recompute
+    casts and saves for its products; the chunked attention's saved tensors
+    (per block pair the masked scores and exp in f32, exp in bf16); the MoE
+    layer's dispatched and hidden activations; the loss chunks' f32 logits
+    (saved by logsumexp and the gather)."""
+    from repro_torch.models.layers import moe
+
+    m, E = cfg.moe, cfg.moe.n_experts
+    n = cfg.n_params()
+    qb = min(cfg.attn_chunk, S)
+    pairs = (-(-S // qb)) ** 2
+    _, cap = moe.dispatch_shape(cfg, B * S)
+    parts = dict(
+        state=16 * n,  # param, grad, mu, nu
+        expert_casts=3 * E * cfg.d_model * m.d_ff * 2,
+        attention=pairs * B * cfg.n_heads * qb * qb * (4 + 4 + 2),
+        moe_acts=E * cap * (2 * cfg.d_model + 4 * m.d_ff) * 2,
+        loss_logits=B * S * cfg.padded_vocab * (4 + 4 + 2),
+    )
+    parts["total"] = sum(parts.values())
+    return {k: v / 1e9 for k, v in parts.items()}
+
+
+def _under(e, name: str) -> bool:
+    while e is not None:
+        if e.name == name:
+            return True
+        e = e.cpu_parent
+    return False
+
+
+def _split_train_step(prof, model) -> dict:
+    """Phase 11 (a): one profiled train step's device time by part. Every
+    operator's own kernels (``self_device_time_total``) go to one part:
+    weight casts (a copy of a parameter's shape, both ways), expert bmm
+    (a bmm with d_ff among its dims), attention (inside the chunked
+    attention's range, the forward and the recompute, and the other bmm
+    calls: its backward's products), the optimizer (its range), the vocab
+    side (an operator with the padded vocab among its dims: the loss's head
+    product, logsumexp and gather, the embedding's gather and their
+    backward); the router's kernels are the ``rt::`` launches; the rest is
+    what is left of the busy time."""
+    from torch.autograd import DeviceType
+
+    kernels = _device_kernels(prof)
+    busy = sum(k[0] for k in kernels)
+    router = sum(k[0] for k in kernels if "rt::" in k[2])
+    shapes = {tuple(p.shape) for p in model.parameters()}
+    f, V = model.cfg.moe.d_ff, model.cfg.padded_vocab
+    parts = dict(weight_cast_ms=0.0, expert_bmm_ms=0.0, attention_ms=0.0, optimizer_ms=0.0, vocab_ms=0.0)
+    for e in prof.events():
+        if e.device_type != DeviceType.CPU or e.self_device_time_total <= 0:
+            continue
+        ms, dims = e.self_device_time_total / 1e3, [tuple(s) for s in (e.input_shapes or []) if s]
+        if _under(e, ADAMW_RANGE):
+            parts["optimizer_ms"] += ms
+        elif e.name == "aten::copy_" and any(s in shapes for s in dims):
+            parts["weight_cast_ms"] += ms
+        elif e.name == "aten::bmm" and any(f in s for s in dims):
+            parts["expert_bmm_ms"] += ms
+        elif e.name == "aten::bmm" or _under(e, ATTN_RANGE):
+            parts["attention_ms"] += ms
+        elif any(V in s for s in dims):
+            parts["vocab_ms"] += ms
+    parts["router_kernel_ms"] = router
+    parts["rest_ms"] = busy - sum(parts.values())
+    return dict(device_busy_ms=busy, **parts)
+
+
+def _ranged(fn, name: str):
+    def ranged(*a, **kw):
+        with torch.profiler.record_function(name):
+            return fn(*a, **kw)
+    return ranged
+
+
+def _param_digests(model) -> list[str]:
+    """sha256 of every parameter's bytes, in the model's order (hashed on
+    host threads; hashlib releases the GIL on large buffers)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(8) as pool:
+        return list(pool.map(sha256, model.parameters()))
+
+
+def _to_cpu(a):
+    if isinstance(a, torch.Tensor):
+        return a.detach().cpu()
+    return type(a)(_to_cpu(b) for b in a) if isinstance(a, (tuple, list)) else a
+
+
+def _bar_err(got, plain) -> float:
+    """max |kernel - plain| / (1 + |plain|): the f32 bar's measure (phase 2)."""
+    got, plain = torch.as_tensor(got).detach().cpu().double(), torch.as_tensor(plain).double()
+    return float(((got - plain).abs() / (1 + plain.abs())).max()) if plain.numel() else 0.0
+
+
+def _newton_next(a: float, p, tiny: float) -> float:
+    """The Newton search's next alpha from probe ``p`` at ``a`` (``newton_search_loop``'s step)."""
+    from repro_torch.kernels.linesearch_probe.ref import fmax, fmin
+
+    fp = fmin((p.dphi * p.psi - p.phi * p.dpsi) / fmax(p.psi * p.psi, tiny), -tiny)
+    return fmax(fmin(fmax(a - (p.f - 1.0) / fp, a * 0.125), a * 8.0), 1e-12)
+
+
+def router_f32_held(K, moe, logits: torch.Tensor, res_fwd, cfg, layer: int, failures: list) -> dict:
+    """Phase 11 (a), mwu: the forward's f32 routing LP solved again on the
+    card over the whole budget, every kernel call held against its plain
+    version on the call's own inputs (copied to the CPU before the launch),
+    so that card and CPU never drift apart: softmax weights, step direction
+    and axpy within ROUTER_X_TOL (phase 2's f32 bar, |kernel - plain| <= bar
+    (1 + |plain|)); each search launch bit for bit equal to its oracle, the
+    host loop over the probe kernel, and each of that loop's probes within
+    the bar of the plain probe at the same alpha; the solve's x equal to the
+    forward's. Where the plain search on the same inputs takes another
+    number of probes, the first probe at which the two sides part is
+    printed: a comparison of the loop decided otherwise (f >= 1, min z >=
+    1, Newton's |alpha' - alpha| <= ls_eps alpha) or Newton's next alpha
+    further apart than ls_eps alpha; the first iteration's probes are
+    printed with f, min z and Newton's next alpha from either side."""
+    from repro_torch.core import mwu, smoothing, stepsize
+    from repro_torch.kernels.linesearch_probe.ref import linesearch_probe2_ref, newton_search_loop, two_sided_probe_fn
+
+    m = cfg.moe
+    _, cap = moe.dispatch_shape(cfg, logits.shape[0] * logits.shape[1])
+    errs = dict(softmax_weights=[], step_direction=[], axpy_reduce=[], probe=[])
+    searches = []
+    saved = dict(softmax=smoothing.softmax_weights, step=mwu.step_direction, axpy=mwu.axpy_reduce,
+                 search=stepsize.newton_search)
+
+    def softmax(v, eta, sign=1.0, keep=None):
+        plain = saved["softmax"](_to_cpu(v), eta, sign, _to_cpu(keep))
+        got = saved["softmax"](v, eta, sign, keep)
+        errs["softmax_weights"].append(max(_bar_err(got[0], plain[0]), _bar_err(got[1], plain[1])))
+        return got
+
+    def step(h, x, scale, g=None, gather=None):
+        plain = saved["step"](_to_cpu(h), _to_cpu(x), scale, _to_cpu(g), _to_cpu(gather))
+        got = saved["step"](h, x, scale, g, gather)
+        errs["step_direction"].append(max(_bar_err(got[0], plain[0]), _bar_err(got[1], plain[1])))
+        return got
+
+    def axpy(y, dy, alpha, *, out=None, red=None, keep=None):
+        plain = saved["axpy"](_to_cpu(y).clone(), _to_cpu(dy), _to_cpu(alpha), keep=_to_cpu(keep))
+        got = saved["axpy"](y, dy, alpha, out=out, red=red, keep=keep)
+        errs["axpy_reduce"].append(max(_bar_err(a, b) for a, b in zip(got, plain)))
+        return got
+
+    def search(y, dy, z, dz, eta, ls_eps, alpha0=None, *, d_max=None, out=None, p_keep=None, c_keep=None):
+        a0, tiny = float(alpha0), torch.finfo(y.dtype).tiny
+        cpu_in, pk, ck = [_to_cpu(t) for t in (y, dy, z, dz)], _to_cpu(p_keep), _to_cpu(c_keep)
+        buf, raw = torch.empty(6, dtype=y.dtype, device=y.device), []
+
+        def card_sweep(a):
+            got = K.linesearch_probe2(y, dy, z, dz, a, eta, out=buf, p_keep=p_keep, c_keep=c_keep).tolist()
+            raw.append(got)
+            return got
+
+        def cpu_sweep(a):
+            got = linesearch_probe2_ref(*cpu_in, a, eta, pk, ck)
+            if raw:
+                errs["probe"].append(_bar_err(raw[-1], got))
+            return got.tolist()
+
+        log = []
+        on_card, on_cpu = two_sided_probe_fn(card_sweep, eta, tiny), two_sided_probe_fn(cpu_sweep, eta, tiny)
+
+        def probe(a):
+            pair = (on_card(a), on_cpu(a))
+            log.append((a, *pair))
+            return pair[0]
+
+        loop = newton_search_loop(probe, tiny, ls_eps, a0)
+        plain = newton_search_loop(two_sided_probe_fn(
+            lambda a: linesearch_probe2_ref(*cpu_in, a, eta, pk, ck).tolist(), eta, tiny), tiny, ls_eps, a0)
+        got = saved["search"](y, dy, z, dz, eta, ls_eps, alpha0, d_max=d_max, out=out, p_keep=p_keep, c_keep=c_keep)
+        rec = got.tolist()
+        parting = None
+        for j, (a, c, p) in enumerate(log):
+            nc, npl = _newton_next(a, c, tiny), _newton_next(a, p, tiny)
+            tests = dict(f_ge_1=[c.f >= 1, p.f >= 1], min_z_ge_1=[c.min_z >= 1, p.min_z >= 1],
+                         converged=[abs(nc - a) <= ls_eps * a, abs(npl - a) <= ls_eps * a])
+            otherwise = [k for k, (on, off) in tests.items() if on != off]
+            if abs(nc - npl) > ls_eps * a:  # the next probes further apart than the search's own width
+                otherwise.append("next_alpha")
+            if otherwise:
+                parting = dict(probe=j, alpha=a, f=[c.f, p.f], min_z=[c.min_z, p.min_z], next_alpha=[nc, npl],
+                               ls_eps=ls_eps, decided_otherwise=otherwise)
+                break
+        searches.append(dict(kernel=rec[:3], loop=list(loop), plain=list(plain), parting=parting,
+                             probes=[dict(alpha=a, f=[c.f, p.f], min_z=[c.min_z, p.min_z],
+                                          next_alpha=[_newton_next(a, c, tiny), _newton_next(a, p, tiny)])
+                                     for a, c, p in log]))
+        return got
+
+    smoothing.softmax_weights, mwu.step_direction, mwu.axpy_reduce = softmax, step, axpy
+    stepsize.newton_search = search
+    try:
+        _, res = moe.routing_lp(logits, m.top_k, cap, m.mwu_iters)
+    finally:
+        smoothing.softmax_weights, mwu.step_direction, mwu.axpy_reduce = saved["softmax"], saved["step"], saved["axpy"]
+        stepsize.newton_search = saved["search"]
+    same_x = torch.equal(res.x, res_fwd.x)
+    worst = {k: max(v, default=0.0) for k, v in errs.items()}
+    oracle = all(s["kernel"][0] == s["loop"][0] and s["kernel"][1:] == [float(s["loop"][1]), float(s["loop"][2])]
+                 for s in searches)
+    parted = [i for i, s in enumerate(searches) if s["plain"][1] != s["loop"][1]]
+    out = dict(iters=len(searches), calls={k: len(v) for k, v in errs.items()}, max_err=worst, bar=ROUTER_X_TOL,
+               search_equals_loop=oracle, same_x_as_forward=same_x,
+               probes=[[int(s["kernel"][1]), int(s["plain"][1])] for s in searches], parted_at=parted,
+               first_parting=next((dict(iteration=i, **searches[i]["parting"]) for i in parted
+                                   if searches[i]["parting"]), None))
+    print(f"  (a) layer {layer}, f32, each kernel call held on its own inputs: {json.dumps(out)}", flush=True)
+    if searches:
+        print(f"  (a) layer {layer}, f32, iteration 0's probes, card / plain at the same alpha (thresholds: f 1, "
+              f"min z 1; next_alpha: Newton's step from each): {json.dumps(searches[0]['probes'])}", flush=True)
+    check(failures, all(v <= ROUTER_X_TOL for v in worst.values()) and all(errs.values()) and oracle and same_x,
+          f"(a) layer {layer}, f32: the forward's routing LP over {len(searches)} iterations, every kernel against "
+          f"its plain version on the same inputs: max errors {json.dumps(worst)} (bar {ROUTER_X_TOL} (1 + |plain|)); "
+          f"each search launch equal to the host loop over the probe kernel bit for bit ({oracle}); x equal to the "
+          f"forward's ({same_x})")
+    return out
+
+
+class _LPIters:
+    """Wraps ``moe.routing_lp`` until ``restore``: ``iters`` lists each
+    solve's lane iterations as the device tensor it returned, read after
+    the block (nothing else of a call is kept: a recompute's logits would
+    hold its whole graph)."""
+
+    def __init__(self, moe):
+        self.moe, self.inner, self.iters = moe, moe.routing_lp, []
+
+        def counted(*a, **kw):
+            probs, res = self.inner(*a, **kw)
+            self.iters.append(res.iters)
+            return probs, res
+        moe.routing_lp = counted
+
+    def restore(self) -> None:
+        self.moe.routing_lp = self.inner
+
+
+def _lp_launches(K, total: dict, lps: _LPIters, what: str, failures: list) -> dict:
+    """The launch counts since the last reset, added into ``total``, held
+    to the routing LPs that ``lps`` saw: a lane iteration launches the
+    search and the step direction once, softmax weights twice, axpy three
+    times; nothing else launches."""
+    got = _take_launches(K, total)
+    iters = [int(t.sum()) for t in lps.iters]
+    n = sum(iters)
+    want = dict(newton_search=n, step_direction=n, softmax_weights=2 * n, axpy_reduce=3 * n)
+    ok = all(got.get(k, 0) == want.get(k, 0) for k in set(got) | set(want))
+    check(failures, ok, f"{what}: launches {json.dumps(got)}; want {json.dumps(want)} ({len(iters)} routing LPs, "
+                        f"iterations {iters})")
+    return got
+
+
+def train_router(K, cfg, router: str, card: str, total: dict, failures: list) -> dict:
+    """Phase 11 (a), one router: a fresh model from seed 0 and fresh AdamW
+    state; steps on one fixed batch (the first counted, timed, held to the
+    inference loss; the rest timed with CUDA events; one profiled); one
+    step at B 2 in two microbatches; then the first step again from a new
+    model of the same seed, which must repeat bit for bit. Launches of every
+    step go into ``total``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import shapes
+    from repro_torch.data import TokenPipeline
+    from repro_torch.models import Model
+    from repro_torch.models.layers import attention as att
+    from repro_torch.models.layers import moe
+    from repro_torch.train import AdamWConfig, chunked_ce_loss, make_train_state, make_train_step
+    from repro_torch.train import step as step_mod
+
+    cfg = replace_moe(cfg, router=router)
+    S = shapes.SHAPES["train_4k"].seq_len
+    opt = AdamWConfig(**TRAIN_OPT)
+    pipe = TokenPipeline(cfg.vocab_size, S, 1, seed=0)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in pipe.batch_at(0).items()}
+    batch2 = {k: torch.from_numpy(v).cuda() for k, v in TokenPipeline(cfg.vocab_size, S, 2, seed=1).batch_at(0).items()}
+    route_name = "mwu_route" if router == "mwu" else "topk_route"
+    out = dict(router=router)
+
+    def first_step():
+        """A new model from seed 0 and its first step, counted."""
+        t0 = time.perf_counter()
+        model = Model(cfg, device="cuda", seed=0)
+        state = make_train_state(model)
+        step_fn = make_train_step(model, opt, 1, TRAIN_LOSS_CHUNK)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        with torch.inference_mode():
+            loss_inf = float(chunked_ce_loss(model, batch, TRAIN_LOSS_CHUNK))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launch_counts()
+        spans = _Spans(moe, (route_name, "routing_lp"), keep=(route_name, "routing_lp"))
+        try:
+            with counted_reads() as reads:
+                t0 = time.perf_counter()
+                state, m = step_fn(state, batch)
+                torch.cuda.synchronize()
+                first_s = time.perf_counter() - t0
+        finally:
+            spans.restore()
+        launches = _take_launches(K, total)
+        first = dict(init_s=init_s, first_step_s=first_s, loss_inference=loss_inf, loss=float(m["loss"]),
+                     grad_norm=float(m["grad_norm"]), lr=m["lr"], host_reads=reads[0], launches=launches,
+                     max_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+        return model, state, step_fn, first, spans
+
+    model, state, step_fn, first, spans = first_step()
+    out["first"] = first
+    print(f"  {router}: first step {json.dumps(first)}", flush=True)
+    rel = abs(first["loss"] - first["loss_inference"]) / abs(first["loss_inference"])
+    check(failures, rel <= TRAIN_LOSS_REL,
+          f"(a) {router}: the first step's loss {first['loss']!r} vs chunked_ce_loss under inference_mode "
+          f"{first['loss_inference']!r}: relative {rel:.3g} (bar {TRAIN_LOSS_REL})")
+    check(failures, np.isfinite(first["loss"]) and np.isfinite(first["grad_norm"]),
+          f"(a) {router}: loss {first['loss']:.6g} and grad norm {first['grad_norm']:.6g} finite")
+    # the router in the forward and the recompute (remat="full"): each layer's route twice
+    calls, L = spans.calls[route_name], cfg.n_layers
+    check(failures, len(calls) == 2 * L,
+          f"(a) {router}: the router ran {len(calls)} times in the step (the forward and the recompute of "
+          f"{L} layer(s): {2 * L})")
+    out["routes"] = [idx.cpu() for _, (idx, _) in calls[:L]]  # the forward's, layer by layer
+    out["router_ms"] = spans.ms(route_name)
+    lp = [res for _, (_, res) in spans.calls["routing_lp"]]
+    iters = [int(r.iters.sum()) for r in lp]
+    n = sum(iters)
+    want = dict(newton_search=n, step_direction=n, softmax_weights=2 * n, axpy_reduce=3 * n)
+    ok = all(first["launches"][name] == want.get(name, 0) for name in first["launches"])
+    check(failures, ok and (router == "topk" or (len(lp) == 2 * cfg.n_layers and n > 0)),
+          f"(a) {router}: launches in the first step {json.dumps(first['launches'])}; want {json.dumps(want)} "
+          f"({len(lp)} routing LPs, the forward's and the recompute's, iterations {iters})")
+    if router == "mwu":
+        # the forward runs the layers in order, the backward recomputes them in reverse
+        fwd, rec = spans.calls["routing_lp"][:L], spans.calls["routing_lp"][L:][::-1]
+        same = all(torch.equal(a[0], b[0]) and torch.equal(r.x, s.x) for (a, (_, r)), (b, (_, s)) in zip(fwd, rec))
+        check(failures, same, "(a) mwu: the recompute's routing LP saw the forward's logits and gave its x bit for bit")
+        check(failures, first["host_reads"] <= sum(i + 2 for i in iters) + 2,
+              f"(a) mwu: {first['host_reads']} host reads in the step (the routing loops' iterations + 2 a solve, "
+              f"+ 2: {sum(i + 2 for i in iters) + 2})")
+        t_a = time.perf_counter()
+        # card vs CPU solved apart: in f64 over the whole budget; in f32
+        # printed, since these logits' f32 solves part at the first
+        # iteration (tools/router_lp_parts.py prints it by iteration budget).
+        # The f32 kernels are held call by call on the same inputs instead
+        out["router_lp"] = [router_checks(moe, a[0].detach(), res, cfg, i, failures, hold_f32=False)
+                            for i, (a, (_, res)) in enumerate(fwd)]
+        out["router_f32_held"] = [router_f32_held(K, moe, a[0].detach(), res, cfg, i, failures)
+                                  for i, (a, (_, res)) in enumerate(fwd)]
+        print(f"  (a) mwu: the LPs card vs CPU in {time.perf_counter() - t_a:.1f} s", flush=True)
+        del fwd, rec
+    del spans, calls, lp
+    K.reset_launch_counts()  # the checks' own solves are not training launches
+    digests = _param_digests(model)
+
+    # the rest of the steps on the same batch, each between CUDA events
+    losses, step_ms = [first["loss"]], []
+    lps = _LPIters(moe)
+    try:
+        for _ in range(TRAIN_STEPS - 1):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            state, m = step_fn(state, batch)
+            end.record()
+            end.synchronize()
+            step_ms.append(start.elapsed_time(end))
+            losses.append(float(m["loss"]))
+    finally:
+        lps.restore()
+    out["steps_launches"] = _lp_launches(K, total, lps, f"(a) {router}: steps 2-{TRAIN_STEPS}", failures)
+    med = float(np.median(step_ms))
+    out.update(losses=losses, step_ms=step_ms, ms_per_step=med, tokens_per_s=S / (med / 1e3),
+               grad_norms_finite=bool(np.isfinite(float(m["grad_norm"]))))
+    print(f"  {router} on {card}: {json.dumps(dict(losses=losses, step_ms=step_ms, ms_per_step=med))}", flush=True)
+    check(failures, all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"(a) {router}: {TRAIN_STEPS} steps on one batch: loss {losses[0]:.6g} -> {losses[-1]:.6g}")
+
+    # one profiled step: the split, the idle share against its own time
+    spans, lps = _Spans(moe, (route_name,)), _LPIters(moe)
+    sdpa, update = att._sdpa_chunked, step_mod.adamw_update
+    att._sdpa_chunked, step_mod.adamw_update = _ranged(sdpa, ATTN_RANGE), _ranged(update, ADAMW_RANGE)
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], record_shapes=True) as prof:
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            state, m = step_fn(state, batch)
+            end.record()
+            end.synchronize()
+    finally:
+        att._sdpa_chunked, step_mod.adamw_update = sdpa, update
+        lps.restore()
+        spans.restore()
+    _lp_launches(K, total, lps, f"(a) {router}: the profiled step", failures)
+    split = _split_train_step(prof, model)
+    span = start.elapsed_time(end)
+    split.update(step_ms=span, device_idle_share=1.0 - split["device_busy_ms"] / span,
+                 router_span_ms=sum(spans.ms(route_name)))
+    out["profile"] = split
+    print(f"  {router}: a profiled step on {card}: {json.dumps(split)}", flush=True)
+    for ms, count, key in _device_kernels(prof)[:12]:
+        print(f"    {ms:10.2f} ms {count:7d} x  {key[:110]}", flush=True)
+    del prof
+    check(failures, split["rest_ms"] >= 0, f"(a) {router}: the profiled step's parts do not overlap (rest "
+                                           f"{split['rest_ms']:.2f} ms >= 0)")
+
+    # B 2 in two microbatches: the loss is the mean of the two halves' losses
+    with torch.inference_mode():
+        halves = [float(chunked_ce_loss(model, {k: v[i:i + 1] for k, v in batch2.items()}, TRAIN_LOSS_CHUNK))
+                  for i in range(2)]
+    K.reset_launch_counts()  # the halves' forwards are not training launches
+    lps = _LPIters(moe)
+    try:
+        state, m = make_train_step(model, opt, 2, TRAIN_LOSS_CHUNK)(state, batch2)
+    finally:
+        lps.restore()
+    out["microbatch_launches"] = _lp_launches(K, total, lps, f"(a) {router}: B 2 in 2 microbatches", failures)
+    mb_loss, mean = float(m["loss"]), (halves[0] + halves[1]) / 2
+    out["microbatches"] = dict(loss=mb_loss, halves=halves, grad_norm=float(m["grad_norm"]))
+    check(failures, abs(mb_loss - mean) <= TRAIN_LOSS_REL * abs(mean) and np.isfinite(float(m["grad_norm"])),
+          f"(a) {router}: B 2 in 2 microbatches: loss {mb_loss!r} vs the halves' mean {mean!r} (relative "
+          f"{abs(mb_loss - mean) / abs(mean):.3g}, bar {TRAIN_LOSS_REL}); grad norm {float(m['grad_norm']):.6g}")
+    del model, state, step_fn, m
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the first step again, from a new model of the same seed
+    model, state, _, again, spans = first_step()
+    del spans
+    digests2 = _param_digests(model)
+    same = (again["loss"], again["grad_norm"], digests2) == (first["loss"], first["grad_norm"], digests)
+    check(failures, same, f"(a) {router}: the first step twice from the same state: loss {again['loss']!r} / "
+                          f"{first['loss']!r}, grad norm {again['grad_norm']!r} / {first['grad_norm']!r}, "
+                          f"{sum(a == b for a, b in zip(digests, digests2))} of {len(digests)} parameters' sha256 "
+                          f"equal")
+    out["repeat"] = dict(loss=again["loss"], grad_norm=again["grad_norm"], params_equal=digests2 == digests)
+    del model, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def trainer_restart(K, total: dict, failures: list) -> dict:
+    """Phase 11 (b): ``Trainer`` on the card at mixtral-8x22b-mwu reduced(),
+    TRAINER_STEPS steps with a checkpoint every TRAINER_EVERY, against the
+    same run interrupted after TRAINER_STOP steps and restarted from its
+    checkpoint: the final parameters bit for bit."""
+    import tempfile
+
+    from repro_torch.configs import get
+    from repro_torch.train import Trainer, TrainerConfig
+
+    cfg = get("mixtral-8x22b-mwu").reduced()
+    t0 = time.perf_counter()
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        def trainer(steps, where):
+            tc = TrainerConfig(steps=steps, ckpt_every=TRAINER_EVERY, seq_len=64, global_batch=4,
+                               ckpt_dir=str(Path(tmp) / where), log_every=100)
+            t = Trainer(cfg, tc, device="cuda")
+            t.run()
+            return t
+
+        K.reset_launch_counts()
+        runs["whole"] = trainer(TRAINER_STEPS, "whole")
+        runs["interrupted"] = trainer(TRAINER_STOP, "cut")
+        runs["restarted"] = trainer(TRAINER_STEPS, "cut")
+        launches = _take_launches(K, total)
+    a, b = runs["whole"], runs["restarted"]
+    same = all(torch.equal(p, q) for p, q in zip(a.model.parameters(), b.model.parameters()))
+    info = dict(steps=TRAINER_STEPS, interrupted_after=TRAINER_STOP, params_equal=same,
+                loss=[a.last_metrics["loss"], b.last_metrics["loss"]], launches=launches,
+                seconds=time.perf_counter() - t0)
+    print(f"  (b) Trainer {cfg.name}: {json.dumps(info)}", flush=True)
+    check(failures, same and b.final_state.step == TRAINER_STEPS,
+          f"(b) the run interrupted after {TRAINER_STOP} steps and restarted from its checkpoint ends with the "
+          f"uninterrupted run's parameters bit for bit ({same}), at step {b.final_state.step}")
+    check(failures, launches.get("newton_search", 0) > 0, f"(b) the router's kernels ran: {json.dumps(launches)}")
+    return info
+
+
+def train_phase(K, card: str, failures: list) -> dict:
+    """Phase 11: (a) mixtral-8x22b at full width, one layer, both routers;
+    (b) the Trainer's restart. Returns the numbers and the launches."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get, shapes
+
+    base = get("mixtral-8x22b")
+    cfg = replace(base, n_layers=TRAIN_LAYERS)
+    S = shapes.SHAPES["train_4k"].seq_len
+    reckon = train_memory_reckoning(cfg, 1, S)
+    print(f"  {cfg.name}: {cfg.n_layers} of {base.n_layers} layers, {cfg.n_params() / 1e9:.3f}B f32 params, "
+          f"{cfg.dtype} compute, remat {cfg.remat}, attention {cfg.attn_impl}; B 1 x S {S} (train_4k's sequence; "
+          f"its global batch 256 cut to 1); reckoned peak {json.dumps(reckon)} GB; "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated before the phase", flush=True)
+    total: dict = {}
+    info = dict(reckoned_peak_gb=reckon)
+    for router in ("topk", "mwu"):
+        info[router] = train_router(K, cfg, router, card, total, failures)
+        end_phase(f"11 (a) {router}", failures)
+    routes = [int((_route_sets(a) != _route_sets(b)).any(-1).sum())
+              for a, b in zip(info["topk"].pop("routes"), info["mwu"].pop("routes"))]
+    info["tokens_routed_otherwise"] = routes
+    print(f"  (a) tokens mwu routes to other experts than topk in the first forward, a layer: {routes}", flush=True)
+    for r in ("topk", "mwu"):
+        print(f"  (a) {r}: peak {info[r]['first']['max_memory_gb']:.2f} GB (reckoned {reckon['total']:.2f}); "
+              f"{info[r]['ms_per_step']:.2f} ms a step, {info[r]['tokens_per_s']:.1f} tokens/s", flush=True)
+    info["trainer"] = trainer_restart(K, total, failures)
+    info["launches"] = total
+    return info
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n-users", type=int, default=480_189, help="users of the full-size bmatch graph")
@@ -3380,6 +3956,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     print(f"  phase 10: {time.perf_counter() - t10:.1f} s", flush=True)
     end_phase("10", failures)
+
+    print(f"== phase 11: training on the card: {TRAIN_LAYERS} layer of mixtral-8x22b at full width, both routers; "
+          "the Trainer's restart", flush=True)
+    t11 = time.perf_counter()
+    train11 = train_phase(K, smi, failures)
+    print(f"  phase 11: {time.perf_counter() - t11:.1f} s", flush=True)
+    end_phase("11", failures)
     print(f"  total {time.perf_counter() - t_start:.1f} s", flush=True)
 
     # one entry per kernel: for the MWU kernels their float64 row at the
@@ -3403,11 +3986,14 @@ def main() -> int:
             launches = {"linesearch_probe": binary_launches, "binary_search": binary_launches,
                         "incidence_gather": small_launches}.get(name, info["launches"])[name]
         moe_launches = moe9["topk"]["launches"][name] + moe9["mwu"]["launches"][name] + decode10["launches"][name]
-        launches += serve["launches"][name] + ident["launches"][name] + dist8["launches"][name] + moe_launches
+        train_launches = train11["launches"].get(name, 0)
+        launches += (serve["launches"][name] + ident["launches"][name] + dist8["launches"][name] + moe_launches
+                     + train_launches)
         masked = min((m for m in rows if name in MASKED_FORM and m["name"] == name and m["dtype"] == "float64"
                       and m.get("form") == MASKED_FORM[name]), key=lambda m: m["shape"][0], default=None)
         kernels.append(dict(name=name, route="cuda", source=source, replaces=replaces, launches=launches,
                             serving_launches=serve["launches"][name], moe_launches=moe_launches,
+                            train_launches=train_launches,
                             dist_launches=dict(identity=ident["launches"][name], ranks=dist8["launches"][name]),
                             **{k: r.get(k) for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                                      "library_ms", "call_ms", "plain_call_ms", "shape", "dtype", "bar",

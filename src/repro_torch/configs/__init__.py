@@ -1,8 +1,8 @@
 """Per-architecture configs of the LM plane, copied from ``repro.configs``.
 
 The same ten architectures with the same numbers, ``reduced()`` and the
-registry (``get``, ``ARCH_IDS``, the ``-mwu`` suffix). The jax-only shape
-cells of ``repro/configs/shapes.py`` are not ported.
+registry (``get``, ``ARCH_IDS``, the ``-mwu`` suffix); ``shapes`` holds the
+input-shape cells (``SHAPES``, ``input_specs``, ``concrete_inputs``).
 """
 from .base import ModelConfig, MoEConfig, SSMConfig
 from .registry import ARCH_IDS, all_configs, get

@@ -7,6 +7,10 @@ layout with strides (query head h reads kv head h // (Hq // Hkv)), so
 nothing is transposed, repeated or padded. CPU tensors take the plain
 version in ``ref.py``.
 
+No backward: an input that requires grad, with grad enabled, raises
+``NotImplementedError`` (the CUDA launch would return an output with no
+``grad_fn``, cutting attention out of the gradient).
+
 ``positions`` is accepted and not read, as in the reference: key and query
 positions are their indices 0..S-1. ``block_q``/``block_k`` were the TPU's
 VMEM tiling; the CUDA kernel picks its own tiles and ignores them.
@@ -47,7 +51,13 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window) -> None:
 
 
 def flash_attention(q, k, v, positions=None, *, causal=True, window=None, block_q=512, block_k=512):
-    """q: (B,S,Hq,dh), k/v: (B,S,Hkv,dh) -> (B,S,Hq,dh) in q's dtype."""
+    """q: (B,S,Hq,dh), k/v: (B,S,Hkv,dh) -> (B,S,Hq,dh) in q's dtype.
+    Forward only, on both devices: raises ``NotImplementedError`` where grad
+    is enabled and an input requires it (the CUDA kernel has no backward,
+    nor has the reference's Pallas kernel; training runs ``chunked``)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise NotImplementedError("flash_attention has no backward (nor has the reference's Pallas kernel): "
+                                  "train with attn_impl='chunked' or 'dense'")
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window)
     _check(q, k, v, window)

@@ -29,6 +29,12 @@ promises no order. The combine sums each token's k rows in a fixed order
 (no ``index_add_``, whose atomics would make a bf16 forward differ from
 run to run). Sort, rank, scatter and the expert products (batched
 matmuls) are plain tensor ops, as the reference leaves them to XLA.
+
+Training: the gradient reaches the router weights through the gates (the
+softmax probs at the chosen experts), with either router; the routing
+itself is an integer plan, and the MWU LP takes the probs detached (its
+kernels run outside autograd; ``routing_ops`` refuses probs that require
+grad).
 """
 from __future__ import annotations
 
@@ -160,7 +166,12 @@ def topk_route(logits: torch.Tensor, k: int):
 def routing_ops(probs: torch.Tensor, k: int, capacity: int) -> tuple[LinOp, LinOp]:
     """(P, C) of one token group's routing LP: probs (T, E), the router's
     softmax; every constant in probs' dtype (f32 in the forward, as the
-    reference builds it: ``BoxRows.colmax`` is f32, so the loop runs in f32)."""
+    reference builds it: ``BoxRows.colmax`` is f32, so the loop runs in f32).
+    probs must not require grad: the MWU kernels are launches outside
+    autograd, and the reference's LP sees ``stop_gradient(probs)``."""
+    if probs.requires_grad:
+        raise ValueError("routing_ops: the routing LP takes detached affinities (probs.detach()); the MWU kernels "
+                         "would cut the autograd graph silently")
     T, E = probs.shape
     affin = probs.reshape(-1)  # objective weights
     P = VStack(ops=(ExpertCapRows(inv_cap=torch.full((E,), 1.0 / capacity, dtype=probs.dtype, device=probs.device),
@@ -181,18 +192,23 @@ def router_options(mwu_iters: int) -> MWUOptions:
 def routing_lp(logits: torch.Tensor, k: int, capacity: int, mwu_iters: int = 16):
     """The routing LP of each token group, solved at a fixed budget.
 
-    logits: (G, T, E). Returns (probs (G, T, E) f32, the ``MWUResult`` of
-    one ``solve_lanes`` call with one lane a group: ``x`` (G, T*E)).
+    logits: (G, T, E). Returns (probs (G, T, E) f32, differentiable where
+    the logits are, the ``MWUResult`` of one ``solve_lanes`` call with one
+    lane a group: ``x`` (G, T*E), outside autograd). The LP sees the probs
+    detached (reference ``moe.py:156``).
     """
     probs = torch.softmax(logits.float(), dim=-1)
-    lanes = [(*routing_ops(p, k, capacity), None, None) for p in probs]
-    return probs, solve_lanes(lanes, router_options(mwu_iters))
+    affin = probs.detach()
+    lanes = [(*routing_ops(p, k, capacity), None, None) for p in affin]
+    with torch.no_grad():
+        return probs, solve_lanes(lanes, router_options(mwu_iters))
 
 
 def round_plan(x: torch.Tensor, probs: torch.Tensor, k: int, dtype):
     """Per-token top k of the fractional plan x (..., T, E), ties broken by
-    affinity; gates from the router probs at the chosen experts."""
-    _, idx = _top(x + 1e-6 * probs, k)
+    affinity; gates from the router probs at the chosen experts (the
+    gradient flows through the gates only, reference ``moe.py:172-177``)."""
+    _, idx = _top(x + 1e-6 * probs.detach(), k)
     gate = torch.gather(probs, -1, idx)
     return idx, _gates(gate, dtype)
 

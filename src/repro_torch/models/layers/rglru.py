@@ -90,9 +90,19 @@ def _conv(params, x: torch.Tensor, window):
 def _scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """h_t = a_t h_{t-1} + b_t along dim 1 from h_{-1} = 0, in ceil(log2 S)
     doubling steps: after the step of offset o, (a, b) at t combine the
-    elements t - 2o + 1 .. t (Hillis-Steele)."""
+    elements t - 2o + 1 .. t (Hillis-Steele). Where autograd records
+    (training), the same products are joined with ``torch.cat`` in place
+    of written into preallocated halves (``out=`` has no backward)."""
     S = a.shape[1]
     off = 1
+    if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+        while off < S:
+            nb = torch.cat([b[:, :off], torch.addcmul(b[:, off:], a[:, off:], b[:, :-off])], dim=1)
+            if 2 * off < S:
+                a = torch.cat([a[:, :off], a[:, off:] * a[:, :-off]], dim=1)
+            b = nb
+            off *= 2
+        return b
     while off < S:
         nb = torch.empty_like(b)
         nb[:, :off] = b[:, :off]

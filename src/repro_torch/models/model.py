@@ -10,9 +10,19 @@ and decode of two block kinds, the layer's kind coming from ``cfg.pattern()``:
 
 The layers are the reference's in its order: ``reps`` repetitions of the
 pattern unit, then the tail. The model holds one block module per layer; a
-Python loop replaces ``lax.scan``, and there is no rematerialization (the
-forward runs under ``torch.inference_mode``). ``audio_frames`` consumes
-precomputed (B, S, d_model) frames, as in the reference.
+Python loop replaces ``lax.scan``. The parameters are trainable
+(``requires_grad``); a forward with grad enabled and ``cfg.remat ==
+"full"`` runs each repetition of the pattern unit under
+``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` over the
+scanned stack), the tail layers without it. Inference callers run under
+``torch.inference_mode``, so nothing is saved for a backward.
+``audio_frames`` consumes precomputed (B, S, d_model) frames, as in the
+reference.
+
+Training: ``decayed()`` gives the reference's weight-decay rule by
+parameter name (its stacked leaves are all decayed, see
+``repro_torch.train.optimizer``); ``repro_torch.train.load_jax_train_state``
+carries a reference ``TrainState`` across on ``_by_name``'s unstacking.
 
 Serving: ``init_caches`` gives one cache a layer (a ``KVCache`` for attn,
 an ``RGLRUState`` for rglru) in ``DecodeCaches``, with the position as a
@@ -27,11 +37,14 @@ Not ported yet (ROADMAP queue 1 item 15.3): the ``ssm`` block kind and the
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .common import Dtypes, dense_init
 from .layers import attention as att
@@ -54,7 +67,7 @@ def _groups(kind: str, cfg) -> tuple:
 
 
 def _params(d: dict) -> nn.ParameterDict:
-    return nn.ParameterDict({k: nn.Parameter(v, requires_grad=False) for k, v in d.items()})
+    return nn.ParameterDict({k: nn.Parameter(v) for k, v in d.items()})
 
 
 class DecodeCaches(NamedTuple):
@@ -103,13 +116,12 @@ class Model(nn.Module):
         gen = torch.Generator(device=device).manual_seed(seed)
         dtp, V, d = self.dt.param, cfg.padded_vocab, cfg.d_model
         if cfg.modality == "audio_frames":
-            self.frame_proj = nn.Parameter(dense_init(gen, (d, d), dtp, device), requires_grad=False)
-        self.embedding = nn.Parameter(dense_init(gen, (V, d), dtp, device, scale=float(np.sqrt(d))),
-                                      requires_grad=False)
+            self.frame_proj = nn.Parameter(dense_init(gen, (d, d), dtp, device))
+        self.embedding = nn.Parameter(dense_init(gen, (V, d), dtp, device, scale=float(np.sqrt(d))))
         self.blocks = nn.ModuleList(Block(kind, cfg, gen, dtp, device) for kind in pattern)
         self.final_norm = _params(norms.norm_init(d, cfg.norm_type, dtp, device))
         if not cfg.tie_embeddings:
-            self.lm_head = nn.Parameter(dense_init(gen, (d, V), dtp, device), requires_grad=False)
+            self.lm_head = nn.Parameter(dense_init(gen, (d, V), dtp, device))
 
     # ------------------------------------------------------------------
 
@@ -136,7 +148,8 @@ class Model(nn.Module):
         ct = self.dt.compute
         if self.cfg.modality == "audio_frames":
             return batch["frames"].to(ct) @ self.frame_proj.to(ct)
-        return self.embedding.to(ct)[batch["tokens"]]
+        # F.embedding's backward sums a repeated token's rows in a fixed order (indexing's does not on the CPU)
+        return F.embedding(batch["tokens"], self.embedding.to(ct))
 
     def logits(self, x: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
@@ -147,14 +160,41 @@ class Model(nn.Module):
             out = out.masked_fill(pad, -1e30)
         return out
 
-    def forward(self, batch: dict) -> torch.Tensor:
-        """Full-sequence forward -> final-norm hidden states (B, S, d)."""
+    def _unit(self, r: int, x, positions):
+        """Repetition r of the pattern unit: layers r*k .. r*k + k - 1."""
+        k = len(self.pattern_unit)
+        for blk in self.blocks[r * k:(r + 1) * k]:
+            x, _ = self._apply_block(blk, x, positions)
+        return x
+
+    def forward(self, batch: dict, remat: bool | None = None) -> torch.Tensor:
+        """Full-sequence forward -> final-norm hidden states (B, S, d).
+        ``remat`` (default ``cfg.remat == "full"``) recomputes each
+        repetition of the pattern unit in the backward; it applies only
+        where grad is enabled."""
         cfg = self.cfg
         x = self.embed(batch)
         positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
-        for blk in self.blocks:
+        unit = self._unit
+        if (cfg.remat == "full" if remat is None else remat) and torch.is_grad_enabled():
+            unit = functools.partial(checkpoint, self._unit, use_reentrant=False)
+        for r in range(self.reps):
+            x = unit(r, x, positions)
+        for blk in self.blocks[self.reps * len(self.pattern_unit):]:
             x, _ = self._apply_block(blk, x, positions)
         return norms.apply_norm(self.final_norm, x, cfg.norm_type, cfg.norm_eps)
+
+    def decayed(self) -> dict:
+        """Parameter name -> whether AdamW decays it, by the reference's
+        rule (ndim >= 2) on the reference's leaf: every parameter of the
+        first ``reps * k`` layers (stacked there, so at least 2-D), else the
+        parameter's own ndim."""
+        n_stacked = self.reps * len(self.pattern_unit)
+        out = {}
+        for name, p in self.named_parameters():
+            where = name.split(".")
+            out[name] = (where[0] == "blocks" and int(where[1]) < n_stacked) or p.dim() >= 2
+        return out
 
     # ------------------------------------------------------------------
     # serving
@@ -197,50 +237,63 @@ class Model(nn.Module):
         return self._final_logits(x[:, -1:]), DecodeCaches(layers=tuple(layers), pos=S)
 
 
-def _fill(target, src, name: str) -> None:
-    """Copy a numpy array into a parameter, or each entry of a dict into a ParameterDict."""
-    if isinstance(target, nn.ParameterDict):
-        if set(target.keys()) != set(src.keys()):
-            raise ValueError(f"{name}: keys {sorted(src)} do not match the model's {sorted(target.keys())}")
-        for k in target.keys():
-            _fill(target[k], src[k], f"{name}.{k}")
-        return
-    arr = np.asarray(src)
-    if tuple(arr.shape) != tuple(target.shape):
-        raise ValueError(f"{name}: shape {arr.shape} does not match the model's {tuple(target.shape)}")
-    with torch.no_grad():
-        target.copy_(torch.tensor(arr))
-
-
-def load_jax_params(model: Model, params: dict) -> Model:
-    """Fill ``model`` with the reference's parameters, given as the nested
-    dict of ``repro.models.Model.init`` with numpy arrays as leaves.
+def _by_name(model: Model, tree: dict, what: str = "") -> dict:
+    """A tree shaped as the reference's params (``repro.models.Model.init``'s
+    nested dict) -> {the model's parameter name: its leaf}.
 
     The reference stacks layer ``r*k + j`` (repetition r, pattern position
-    j of k) at index r of ``params["blocks"][f"b{j}"]``, and the remainder
-    layers under ``params["tail"][f"t{j}"]``; this unstacks them into the
-    model's one block per layer. Values are cast to the model's param dtype.
-    """
+    j of k) at index r of ``tree["blocks"][f"b{j}"]``, and the remainder
+    layers under ``tree["tail"][f"t{j}"]``; this unstacks them into the
+    model's one block per layer."""
+    out = {}
     k = len(model.pattern_unit)
     for i, blk in enumerate(model.blocks):
         if i < model.reps * k:
             r, j = divmod(i, k)
-            layer = {grp: {n: a[r] for n, a in leaves.items()} for grp, leaves in params["blocks"][f"b{j}"].items()}
+            layer = {grp: {n: a[r] for n, a in leaves.items()} for grp, leaves in tree["blocks"][f"b{j}"].items()}
         else:
-            layer = params["tail"][f"t{i - model.reps * k}"]
-        groups = blk.groups
-        if set(layer) != set(groups):
-            raise ValueError(f"layer {i}: groups {sorted(layer)} are not those of an {blk.kind} block")
-        for grp in groups:
-            _fill(getattr(blk, grp), layer[grp], f"layer {i}.{grp}")
+            layer = tree["tail"][f"t{i - model.reps * k}"]
+        if set(layer) != set(blk.groups):
+            raise ValueError(f"{what}layer {i}: groups {sorted(layer)} are not those of an {blk.kind} block")
+        for grp in blk.groups:
+            names = set(getattr(blk, grp).keys())
+            if set(layer[grp]) != names:
+                raise ValueError(f"{what}layer {i}.{grp}: keys {sorted(layer[grp])} do not match the model's "
+                                 f"{sorted(names)}")
+            out.update({f"blocks.{i}.{grp}.{n}": layer[grp][n] for n in names})
     # the reference's top-level key -> the model's attribute
     top = {"embed": "embedding", "final_norm": "final_norm"}
     if model.cfg.modality == "audio_frames":
         top["frame_proj"] = "frame_proj"
     if not model.cfg.tie_embeddings:
         top["lm_head"] = "lm_head"
-    if set(params) != set(top) | {"blocks", "tail"}:
-        raise ValueError(f"top-level keys {sorted(params)} do not match the model's {sorted(top)} + blocks, tail")
+    if set(tree) != set(top) | {"blocks", "tail"}:
+        raise ValueError(f"{what}top-level keys {sorted(tree)} do not match the model's {sorted(top)} + blocks, tail")
     for key, attr in top.items():
-        _fill(getattr(model, attr), params[key], key)
+        target = getattr(model, attr)
+        if not isinstance(target, nn.ParameterDict):
+            out[attr] = tree[key]
+            continue
+        if set(tree[key]) != set(target.keys()):
+            raise ValueError(f"{what}{key}: keys {sorted(tree[key])} do not match the model's {sorted(target.keys())}")
+        out.update({f"{attr}.{n}": a for n, a in tree[key].items()})
+    return out
+
+
+def _checked(arr, target: torch.Tensor, name: str) -> np.ndarray:
+    arr = np.asarray(arr)
+    if tuple(arr.shape) != tuple(target.shape):
+        raise ValueError(f"{name}: shape {arr.shape} does not match the model's {tuple(target.shape)}")
+    return arr
+
+
+def load_jax_params(model: Model, params: dict) -> Model:
+    """Fill ``model`` with the reference's parameters, given as the nested
+    dict of ``repro.models.Model.init`` with numpy arrays as leaves, each
+    layer unstacked (``_by_name``). Values are cast to the model's param
+    dtype."""
+    own = dict(model.named_parameters())
+    with torch.no_grad():
+        for name, arr in _by_name(model, params).items():
+            own[name].copy_(torch.tensor(_checked(arr, own[name], name)))
     return model

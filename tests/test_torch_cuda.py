@@ -1541,3 +1541,93 @@ def test_engine_launches_on_card(cuda):
     n = sum(iters)
     want = dict(newton_search=n, step_direction=n, softmax_weights=2 * n, axpy_reduce=3 * n)
     assert counts == {name: want.get(name, 0) for name in counts}, (counts, want)
+
+
+# -- training ----------------------------------------------------------------
+def _train_batch(cfg, device, B=2, S=32):
+    from repro_torch.data import TokenPipeline
+
+    return {k: torch.from_numpy(v).to(device) for k, v in TokenPipeline(cfg.vocab_size, S, B, seed=0).batch_at(0).items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["minitron-4b", "mixtral-8x22b", "recurrentgemma-9b"])
+def test_train_step_card_matches_cpu(cuda, arch):
+    """A reduced train step on the card against the same step on the CPU, f32
+    with TF32 off: the loss within rel 1e-5, every gradient within 1e-4 of its
+    tensor's largest CPU entry (sums in other orders), then the AdamW step's
+    parameters within 2 lr where the CPU gradient is below 1e-4 of its
+    tensor's largest entry (the first step is ~lr sign(g)) and 1e-4 lr plus 2
+    ulp elsewhere; the card's step repeats bit for bit."""
+    from repro_torch.train import AdamWConfig, chunked_ce_loss, make_train_state, make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    opt = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=10)
+    cfg = get(arch).reduced()
+    cpu = Model(cfg, device="cpu", seed=3)
+    init = {n: p.detach().clone() for n, p in cpu.named_parameters()}
+    loss_cpu = chunked_ce_loss(cpu, _train_batch(cfg, "cpu"))
+    loss_cpu.backward()
+    grads = {n: p.grad.clone() for n, p in cpu.named_parameters()}
+    make_train_step(cpu, opt)(make_train_state(cpu), _train_batch(cfg, "cpu"))
+    runs = []
+    for _ in range(2):
+        card = Model(cfg, device=cuda)
+        with torch.no_grad():
+            for n, p in card.named_parameters():
+                p.copy_(init[n])
+        loss = chunked_ce_loss(card, _train_batch(cfg, cuda))
+        loss.backward()
+        g = {n: p.grad.cpu() for n, p in card.named_parameters()}
+        _, m = make_train_step(card, opt)(make_train_state(card), _train_batch(cfg, cuda))
+        runs.append((loss.item(), g, float(m["loss"]), {n: p.detach().cpu() for n, p in card.named_parameters()}))
+    assert runs[0][0] == runs[1][0] and runs[0][2] == runs[1][2]
+    assert all(torch.equal(runs[0][3][n], runs[1][3][n]) for n in init)
+    loss, g, _, after = runs[0]
+    torch.testing.assert_close(loss, loss_cpu.item(), rtol=1e-5, atol=0)
+    lr = 5e-4  # lr_at(opt, 0)
+    for n, p in cpu.named_parameters():
+        scale = grads[n].abs().max().clamp(min=1e-30)
+        assert ((g[n] - grads[n]).abs() <= 1e-4 * scale).all(), n
+        small = grads[n].abs() <= 1e-4 * scale
+        bar = torch.where(small, 2 * lr * 1.1, 1e-4 * lr) + 2 * torch.finfo(torch.float32).eps * p.detach().abs() + 1e-9
+        assert ((after[n] - p.detach()).abs() <= bar).all(), n
+
+
+@pytest.mark.cuda
+def test_mwu_train_step_repeats_and_launches_on_card(cuda):
+    """mixtral-8x22b-mwu reduced with remat="full" on the card: the router's
+    LP runs in the forward and again in the recompute, so one step launches
+    the router's kernels for two LP solves a layer (search and step
+    direction once, softmax twice, axpy three times a lane iteration, no
+    flash); two steps from the same state give the same loss and
+    parameters bit for bit."""
+    from repro_torch.models.layers import moe
+    from repro_torch.train import AdamWConfig, make_train_state, make_train_step
+
+    cfg = replace(get("mixtral-8x22b-mwu").reduced(), remat="full", dtype="bfloat16")
+    iters = []
+    lp = moe.routing_lp
+
+    def counting(*a, **kw):
+        probs, res = lp(*a, **kw)
+        iters.append(int(res.iters.sum()))
+        return probs, res
+
+    moe.routing_lp = counting
+    runs = []
+    try:
+        for _ in range(2):
+            model = Model(cfg, device=cuda, seed=5)
+            iters.clear()
+            K.reset_launch_counts()
+            _, m = make_train_step(model, AdamWConfig())(make_train_state(model), _train_batch(cfg, cuda))
+            counts = K.launch_counts()
+            runs.append((float(m["loss"]), [p.detach().cpu() for p in model.parameters()]))
+    finally:
+        moe.routing_lp = lp
+    assert runs[0][0] == runs[1][0] and all(torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))
+    assert len(iters) == 2 * cfg.n_layers
+    n = sum(iters)
+    want = dict(newton_search=n, step_direction=n, softmax_weights=2 * n, axpy_reduce=3 * n)
+    assert counts == {name: want.get(name, 0) for name in counts}, (counts, want)

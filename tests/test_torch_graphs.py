@@ -134,7 +134,8 @@ def test_import_without_jax():
         "from dataclasses import replace\n"
         "cfg = replace(repro_torch.configs.get('hubert-xlarge').reduced(), attn_impl='pallas')\n"
         "m = repro_torch.models.Model(cfg, device='cpu')\n"
-        "x = m.logits(m({'frames': torch.zeros(1, 20, cfg.d_model)}))\n"
+        "with torch.inference_mode():\n"
+        "    x = m.logits(m({'frames': torch.zeros(1, 20, cfg.d_model)}))\n"
         "assert x.shape == (1, 20, cfg.padded_vocab) and bool(torch.isfinite(x).all())\n"
         "mc = repro_torch.configs.get('mixtral-8x22b-mwu').reduced()\n"
         "mm = repro_torch.models.Model(mc, device='cpu')\n"

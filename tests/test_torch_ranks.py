@@ -33,13 +33,27 @@ dist.init_process_group("gloo", init_method="file://" + sys.argv[3], rank=RANK, 
                         timeout=datetime.timedelta(seconds=float(sys.argv[4])))
 """
 
+# what every rank runs last: a barrier, so that no rank tears its groups
+# down while a peer still connects or talks on them, then its groups
+# destroyed, its output flushed, and os._exit, which skips the interpreter's
+# exit. Without them a rank that had finished and reported aborted now and
+# then at exit (SIGABRT, "terminate called without an active exception", no
+# Python frame left) when other rank groups ran beside it; a failure inside
+# the rank's code still exits non-zero before this.
+EPILOGUE = """
+dist.barrier()
+dist.destroy_process_group()
+sys.stdout.flush(); sys.stderr.flush()
+import os; os._exit(0)
+"""
+
 
 def run_ranks(code: str, world: int = 4, timeout: float = 240.0) -> list:
-    """Run ``code`` (after :data:`PRELUDE`) in ``world`` processes over gloo;
+    """Run ``code`` (after :data:`PRELUDE`, before :data:`EPILOGUE`) in ``world`` processes over gloo;
     returns each rank's report, the JSON object its last stdout line holds.
     The ranks are killed, and the test fails, past ``timeout`` seconds, so a
     rank left waiting in a collective fails instead of hanging the suite."""
-    prog = PRELUDE + textwrap.dedent(code) + "\ndist.destroy_process_group()\n"
+    prog = PRELUDE + textwrap.dedent(code) + EPILOGUE
     env = dict(os.environ, PYTHONPATH=SRC, OMP_NUM_THREADS="1")
     with tempfile.TemporaryDirectory() as tmp:
         init = os.path.join(tmp, "init")
