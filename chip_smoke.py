@@ -11,9 +11,11 @@ and MQA local attention at head dim 256), graph-LP serving
 3's step rules, Figure 3's MPCSolver baseline), the distributed solve
 (``repro_torch.dist``), mixtral-8x22b's MoE forward with the paper's
 MWU LP router inside it, mixtral-8x22b's decode (the KV cache, prefill
-and the serving engine, ``repro_torch.serve``) and mixtral-8x22b's training
-(``repro_torch.train``: the train step, AdamW, checkpoints, the Trainer), in
-eleven phases; any failed phase exits non-zero before the result lines are
+and the serving engine, ``repro_torch.serve``), mixtral-8x22b's training
+(``repro_torch.train``: the train step, AdamW, checkpoints, the Trainer),
+and the last two configs, mamba2-1.3b (the Mamba-2 SSD block) and
+internvl2-26b (the vision_text modality), forward, decode and training, in
+twelve phases; any failed phase exits non-zero before the result lines are
 printed.
 
 1. Card: its name and power limit (nvidia-smi) and the kernels' build time.
@@ -30,7 +32,8 @@ printed.
    f32, (c) mixtral-8x22b's (B 1, S 6144, 48 over 8 heads, d 128,
    causal, window 4096) in bf16 and f32 (phase 10 (a)'s prefill), and (d) recurrentgemma-9b's at phase 5
    (b)'s shape (B 2, S 8192, 16 over 1 heads, d 256, causal, window 2048)
-   in bf16 and f32, with the
+   in bf16 and f32, and (e) internvl2-26b's at phase 12 (d)'s forward (B 1,
+   S 32768, 48 over 8 heads, d 128, causal) in bf16, with the
    card's name and power limit. Within bar means |kernel - plain| <= bar * (1 + |plain|)
    elementwise (tests/test_kernels.py's atol = rtol). At these sizes every
    call is bound by the device, so the plain version is timed eagerly (its
@@ -338,13 +341,48 @@ printed.
    on mixtral-8x22b-mwu reduced(), TRAINER_STEPS steps with a checkpoint
    every TRAINER_EVERY, against the run interrupted after TRAINER_STOP and
    restarted from its checkpoint: the final parameters bit for bit.
+12. The ssm block kind and the vision_text modality, bf16 over f32 params
+   unless a check says f32 (then with TF32 off). (a) mamba2-1.3b at full
+   width and depth (48 layers, 1.34B random params, nothing cut), B 1 x S
+   32,768 (prefill_32k's sequence, its batch of 32 cut to 1): ms a forward
+   (median of 5), tokens/s, the SSD's share (CUDA events around each
+   ``_ssd_chunked``), a profiled split (the SSD's intra-chunk dual, chunk
+   states, scan across chunks and state read-out, the conv, the norms,
+   matmuls, weight casts, the rest) and the idle share against the profiled
+   run's own time; layer 0's ``_ssd_chunked`` on the forward's own inputs
+   against a sequential f64 recurrence, relative L2 SSD_LOOP_BAR. (b)
+   decode on (a)'s model at B 128 (decode_32k's batch) after a prompt of 512
+   (a step's work and state, 2 MB a sequence a layer, do not depend on the
+   context's length, so the 32,768-token context is cut to 512): ms a step
+   over 32 greedy steps (CUDA events), tokens/s, the SSD step's share, a
+   profiled step; B 1 steps (long_500k's per-step cost: its 524,288-token
+   prefill does not fit the reference's algorithm in one call); f32 at B 4,
+   the prefill and 16 steps against the forward's last row (relative L2
+   DECODE_BAR); ``Engine.generate`` at 4 slots. (c) mamba2-1.3b training at
+   full width and depth, B 1 x S 4,096 (train_4k's global batch of 256 cut
+   to 1), remat full, AdamW: ms a step (median of 7), tokens/s, the peak
+   beside ``lm_train_reckoning``; the first step repeats bit for bit from a
+   new model of the same seed, and the loss falls. (d) internvl2-26b at full
+   width, 48 layers cut to VLM_LAYERS (the whole model, 79.4 GB of f32
+   params, does not fit), flash attention: a forward over 1,024 patches and
+   31,744 tokens (prefill_32k's sequence, batch cut to 1), ms, tokens/s and
+   a profiled split, against the same module's chunked forward (relative L2
+   5e-2), flash once a layer; prefill of B 4 x (1,024 patches + 512 tokens)
+   and 32 text-only steps (ms a step, tokens/s), and in f32 the prefill and
+   8 steps against the forward (relative L2 DECODE_BAR). (e) internvl2-26b
+   cut to VLM_TRAIN_LAYERS layers, B 1 x S 4,096 (1,024 patches, 3,072
+   tokens, loss_mask 0 over the patches), chunked attention (flash has no
+   backward): ms a step, tokens/s, peak beside its reckoning, the first
+   step bit for bit again. No kernel of the port but flash runs in phase 12.
 
 The line before the last is ``{"kernels": [...]}``, one entry per kernel;
 the last is ``{"ok": true, "device": {...}}``. The flash entry takes row
 (a) in bf16 and the launches of both phase 5 forwards, and row (d) in bf16
 with phase 5 (b)'s and (c)'s launches under ``recurrentgemma``, row (c) with phase 9's and
 phase 10's bf16 launches under ``mixtral``, row (c) f32 with phase 10 (a)'s f32
-launches under ``mixtral_f32``; the axpy and the searches take
+launches under ``mixtral_f32``, row (e) with phase 12 (d)'s launches (its
+forward, bf16 prefill, f32 prefill and forward) under ``internvl2``; the
+axpy and the searches take
 the row of the form the main path launches (device step, step form), and
 each MWU kernel's masked row goes into its entry's ``masked`` field. Every
 entry's launches add phase 6's (``serving_launches``), phase 8's, (a)'s
@@ -1123,7 +1161,9 @@ FLASH_CASES = [  # tag, B, S, Hq, Hkv, d, causal, window, dtype
     ("c", 1, 6144, 48, 8, 128, True, 4096, torch.float32),  # phase 10 (a)'s f32 prefill
     ("d", 2, 8192, 16, 1, 256, True, 2048, torch.bfloat16),  # recurrentgemma-9b at phase 5 (b)'s batch
     ("d", 2, 8192, 16, 1, 256, True, 2048, torch.float32),
+    ("e", 1, 32768, 48, 8, 128, True, None, torch.bfloat16),  # internvl2-26b at phase 12 (d)'s forward
 ]
+PLAIN_SCORES_BYTES = 8e9  # above this many bytes of f32 scores the plain version runs a query head at a time
 
 
 def flash_ptxas(failures: list) -> None:
@@ -1190,7 +1230,13 @@ def flash_rows(K, card: str, failures: list) -> list[dict]:
             return K.flash_attention(q, k, v, causal=causal, window=window)
 
         def plain():
-            return flash_attention_plain(q, k, v, causal=causal, window=window)
+            if B * Hq * S * S * 4 <= PLAIN_SCORES_BYTES:
+                return flash_attention_plain(q, k, v, causal=causal, window=window)
+            # (e): the scores of all 48 heads would take 206 GB; the same function a query head at a time
+            g = Hq // Hkv
+            return torch.cat([flash_attention_plain(q[:, :, h:h + 1], k[:, :, h // g:h // g + 1],
+                                                    v[:, :, h // g:h // g + 1], causal=causal, window=window)
+                              for h in range(Hq)], dim=2)
 
         mask = None
         if window is not None:
@@ -1226,7 +1272,7 @@ def flash_rows(K, card: str, failures: list) -> list[dict]:
         nbytes = 2 * B * S * (Hq + Hkv) * d * size
         f32 = dtype == torch.float32  # the f32 kernel's 3xTF32: 3x the flops on the TF32 tensor cores
         b_ms, b_by = bound(nbytes, 3 * flops, "tf32") if f32 else bound(nbytes, flops, dtype)
-        plain_ms = call_ms(plain, 3)
+        plain_ms = call_ms(plain, 3 if B * Hq * S * S * 4 <= PLAIN_SCORES_BYTES else 1)
         r = dict(name="flash_attention", case=tag, dtype=str(dtype).removeprefix("torch."),
                  shape=[B, S, Hq, Hkv, d], causal=causal, window=window, max_abs_err=err, bar=bar, within_bar=ok,
                  rel_l2=rel, ms=device_ms(kernel, 20), plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
@@ -1246,7 +1292,7 @@ def flash_rows(K, card: str, failures: list) -> list[dict]:
                   f"{r['library_ms']:.4f} ms; bound {b_ms:.4f} ms at 3xTF32 (3 x {flops:.4g} flops over "
                   f"{PEAK_OPS_PER_S['tf32'] / 1e12:.0f} TFLOP/s, {b_ms / r['ms']:.0%} of it), {fma_ms:.4f} ms at "
                   f"f32 FMA ({PEAK_OPS_PER_S[dtype] / 1e12:.0f} TFLOP/s, {fma_ms / r['ms']:.0%})", flush=True)
-        elif tag == "d":
+        elif tag in ("d", "e"):
             print(f"  bf16 ({tag}) on {card}: kernel {r['ms']:.4f} ms ({r['tflops']:.1f} TFLOP/s), SDPA "
                   f"{r['library_ms']:.4f} ms; bound {b_ms:.4f} ms ({flops:.4g} flops over "
                   f"{PEAK_OPS_PER_S[dtype] / 1e12:.0f} TFLOP/s, {b_ms / r['ms']:.0%} of it); tiles {config}",
@@ -1650,27 +1696,27 @@ def _device_kernels(prof) -> list[tuple[float, int, str]]:
                   reverse=True)
 
 
-def _scan_event_ms(rg, run) -> list[float]:
-    """Device ms of each ``rg._scan`` call in one ``run()`` of the model, from
-    CUDA events recorded around it on the stream: the scans of the real
+def _event_spans(mod, name: str, run) -> list[float]:
+    """Device ms of each call of ``mod.<name>`` in one ``run()`` of the model,
+    from CUDA events recorded around it on the stream: the calls of the real
     forward, unprofiled. (The profiler attributes kernels to the operators
-    of a ``record_function`` range around the scan, but it listed more of
-    them under each range than one scan launches.)"""
-    spans, scan = [], rg._scan
+    of a ``record_function`` range around a call, but it listed more of
+    them under each range than one RG-LRU scan launches.)"""
+    spans, fn = [], getattr(mod, name)
 
-    def timed(a, b):
+    def timed(*a, **kw):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        h = scan(a, b)
+        out = fn(*a, **kw)
         end.record()
         spans.append((start, end))
-        return h
+        return out
 
-    rg._scan = timed
+    setattr(mod, name, timed)
     try:
         run()
     finally:
-        rg._scan = scan
+        setattr(mod, name, fn)
     torch.cuda.synchronize()
     return [start.elapsed_time(end) for start, end in spans]
 
@@ -1888,7 +1934,7 @@ def hybrid_forward(K, card: str, failures: list) -> dict:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], record_shapes=True) as prof:
             run()
             torch.cuda.synchronize()
-        scan_spans = _scan_event_ms(rg, run)
+        scan_spans = _event_spans(rg, "_scan", run)
     kernels = _device_kernels(prof)
     busy = sum(k[0] for k in kernels)
     flash = [k for k in kernels if "rt::flash" in k[2]]
@@ -3851,6 +3897,637 @@ def train_phase(K, card: str, failures: list) -> dict:
     return info
 
 
+# -- phase 12 ----------------------------------------------------------------
+SSM_TOKENS = 32_768  # (a): prefill_32k's sequence; its global batch of 32 cut to 1
+SSD_LOOP_BAR = 1e-4  # (a): layer 0's _ssd_chunked vs a sequential f64 recurrence, relative L2
+SSM_DECODE_B = 128  # (b): decode_32k's batch
+SSM_DECODE_PROMPT = 512  # (b): a step's work and state do not depend on the context: 32,768 cut to 512
+SSM_DECODE_STEPS = 32
+SSM_CHECK_B, SSM_CHECK_STEPS = 4, 16  # (b): the f32 check, prefill of SSM_DECODE_PROMPT then steps vs the forward
+SSM_LONG_STEPS = 8  # (b): long_500k's per-step cost, B 1
+LM12_TRAIN_STEPS = 8  # (c): steps on one batch; ms a step is the median of the 7 after the first
+VLM_LAYERS = 4  # (d): internvl2-26b's 48 layers cut to 4 (2.70B f32 params, 10.8 GB)
+VLM_DECODE_B, VLM_DECODE_TEXT, VLM_DECODE_STEPS = 4, 512, 32  # (d): after a prefill of the patches and the text
+VLM_CHECK_STEPS = 8  # (d): the f32 check's decode steps
+VLM_TRAIN_LAYERS = 2  # (e): cut to 2 (1.92B f32 params, ~31 GB with grads and moments)
+VLM_TRAIN_STEPS = 5  # (e): ms a step is the median of the 4 after the first
+# the splits' parts timed with CUDA events: (part, module attribute), the SSD's parts inside "ssd"
+PHASE12_PARTS = {"ssd": "_ssd_chunked", "ssd_intra": "_ssd_intra", "ssd_states": "_ssd_states",
+                 "ssd_scan": "_ssd_scan", "ssd_out": "_ssd_out", "ssd_step": "_ssd_step", "conv": "_causal_conv",
+                 "norm": "apply_norm"}
+
+
+def _part_spans(run, *mods) -> dict:
+    """Device ms of each PHASE12_PARTS function of ``mods`` (those a module
+    has) summed over its calls in one ``run()``, from CUDA events recorded
+    around each call on the stream (as phase 5 (b) times the RG-LRU scan)."""
+    part = {attr: key for key, attr in PHASE12_PARTS.items()}
+    saved = [(mod, attr, getattr(mod, attr)) for mod in mods for attr in part if hasattr(mod, attr)]
+    spans = []
+
+    def timed(fn, key):
+        def call(*a, **kw):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*a, **kw)
+            end.record()
+            spans.append((key, start, end))
+            return out
+        return call
+
+    for mod, attr, fn in saved:
+        setattr(mod, attr, timed(fn, part[attr]))
+    try:
+        run()
+    finally:
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
+    torch.cuda.synchronize()
+    out = {}
+    for key, start, end in spans:
+        out[key] = out.get(key, 0.0) + start.elapsed_time(end)
+    return out
+
+
+def _split(run, model, *mods) -> tuple[dict, list]:
+    """A run's device time by part: the PHASE12_PARTS of ``mods`` from CUDA
+    events (``_part_spans``, one run; the SSD's rest is its span less its
+    parts'); from a profiled run, the busy time, flash, the matmuls by
+    kernel name (f32 ones: the SSD's einsums, inside its span; the others:
+    the projections, attention's and the MLP's products, the LM head) and
+    the weight casts (``_weight_cast_ms``); the rest is what is left of the
+    busy time. The idle share is against the profiled run's own time (CUDA
+    events around it). Returns the split and the profiled kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    spans = _part_spans(run, *mods)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], record_shapes=True) as prof:
+        start.record()
+        run()
+        end.record()
+        torch.cuda.synchronize()
+    kernels = _device_kernels(prof)
+    busy = sum(k[0] for k in kernels)
+    gemm = [k for k in kernels if any(w in k[2].lower() for w in ("gemm", "nvjet", "xmma", "cutlass"))]
+    f32_gemm = sum(k[0] for k in gemm if "f32" in k[2] or "sgemm" in k[2])
+    split = {f"{k}_ms": v for k, v in spans.items()}
+    if "ssd" in spans:
+        split["ssd_rest_ms"] = spans["ssd"] - sum(spans.get(k, 0.0) for k in ("ssd_intra", "ssd_states", "ssd_scan",
+                                                                            "ssd_out"))
+    split.update(f32_matmul_ms=f32_gemm, matmul_ms=sum(k[0] for k in gemm) - f32_gemm,
+                 weight_cast_ms=_weight_cast_ms(prof, model),
+                 flash_ms=sum(k[0] for k in kernels if "rt::flash" in k[2]))
+    outside = ("ssd", "ssd_step", "conv", "norm", "matmul", "weight_cast", "flash")
+    split["rest_ms"] = busy - sum(split.get(f"{k}_ms", 0.0) for k in outside)
+    split.update(device_busy_ms=busy, run_ms=start.elapsed_time(end))
+    split["device_idle_share"] = 1.0 - busy / split["run_ms"]
+    return split, kernels
+
+
+def _step_events(fn, n: int) -> list[float]:
+    """Device ms of each of n calls of fn() between CUDA events."""
+    marks = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)) for _ in range(n)]
+    for start, end in marks:
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return [start.elapsed_time(end) for start, end in marks]
+
+
+def _rel_l2(a, b) -> float:
+    a, b = a.double(), b.double()
+    return ((a - b).norm() / b.norm()).item()
+
+
+def lm_train_reckoning(cfg, B: int, S: int) -> dict:
+    """Phase 12 (c)/(e)'s peak, reckoned from the config before the run:
+    params, grads and both moments in f32 (16 bytes a parameter), then the
+    larger of what the backward holds and what AdamW's plain passes hold.
+    The backward holds each remat unit's bf16 input; one layer's recompute
+    (its bf16 weights; an ssm layer's f32 (B, nc, H, Q, Q) decays and
+    scores, two saved and two gradients; an attn layer's chunked attention,
+    per block pair the masked scores and exp in f32 and exp in bf16, and
+    its MLP's three d_ff activations); the loss chunks' f32 logits (saved by
+    logsumexp and the gather) and the bf16 casts of the embedding and head.
+    AdamW holds ~4 temporaries of the largest parameter."""
+    d, V, L = cfg.d_model, cfg.padded_vocab, cfg.n_layers
+    n = cfg.n_params()
+    head = V * d * (1 if cfg.tie_embeddings else 2)
+    layer = (n - head) // L
+    parts = dict(state=16 * n, layer_inputs=L * B * S * d * 2, layer_weights_bf16=2 * layer,
+                 loss_logits=B * S * V * (4 + 4 + 2), vocab_casts=2 * head)
+    if cfg.family == "ssm":
+        s = cfg.ssm
+        Q = min(s.chunk, S)
+        parts["ssd"] = 4 * B * (-(-S // Q)) * s.n_heads(d) * Q * Q * 4
+    else:
+        qb = min(cfg.attn_chunk, S)
+        parts["attention"] = (-(-S // qb)) ** 2 * B * cfg.n_heads * qb * qb * (4 + 4 + 2)
+        parts["mlp_acts"] = 3 * B * S * cfg.d_ff * 2
+    backward = sum(v for k, v in parts.items() if k != "state")
+    parts["adamw_temporaries"] = 4 * 4 * max(V * d, layer // 3)
+    parts["total"] = parts["state"] + max(backward, parts["adamw_temporaries"])
+    return {k: v / 1e9 for k, v in parts.items()}
+
+
+def ssm_forward(K, card: str, failures: list) -> tuple[dict, object]:
+    """Phase 12 (a): mamba2-1.3b's forward at full width and depth, B 1 x S
+    SSM_TOKENS, bf16 over f32 params; the SSD's share (CUDA events around
+    each ``_ssd_chunked``), a profiled split, and layer 0's SSD against a
+    sequential f64 recurrence. Returns the numbers and the model."""
+    from repro_torch.configs import get
+    from repro_torch.models import Model
+    from repro_torch.models.layers import mamba2 as m2
+    from repro_torch.models.layers import norms
+
+    cfg = get("mamba2-1.3b")
+    s, B, S, V = cfg.ssm, 1, SSM_TOKENS, cfg.vocab_size
+    H, Q = s.n_heads(cfg.d_model), s.chunk
+    t0 = time.perf_counter()
+    model = Model(cfg, device="cuda", seed=0)
+    tokens = torch.randint(0, V, (B, S), generator=torch.Generator(device="cuda").manual_seed(1), device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"  (a) {cfg.name}: {cfg.n_layers} ssm layers, d_model {cfg.d_model}, d_inner {s.d_inner(cfg.d_model)}, "
+          f"{H} heads of {s.head_dim}, d_state {s.d_state}, chunk {Q}, vocab {cfg.vocab_size} (tied); "
+          f"{n_params / 1e9:.3f}B f32 params ({torch.cuda.memory_allocated() / 1e9:.1f} GB on the card), init "
+          f"{init_s:.1f} s; tokens {B} x {S}; the SSD's (B, nc, H, Q, Q) f32 tensors "
+          f"{B * (S // Q) * H * Q * Q * 4 / 1e9:.2f} GB each", flush=True)
+
+    def run():
+        h = model({"tokens": tokens})
+        return h, model.logits(h[:, -1:])
+
+    with torch.inference_mode():
+        run()  # warm-up: cuBLAS handles and heuristics
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        h, logits = run()
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        launches = K.launch_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        walls = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        wall_ms = 1e3 * float(np.median(walls))
+        finite = bool(torch.isfinite(h).all()) and bool(torch.isfinite(logits[..., :V]).all())
+        shape_ok = list(h.shape) == [B, S, cfg.d_model] and list(logits.shape) == [B, 1, cfg.padded_vocab]
+        del h, logits
+        ssd_spans = _event_spans(m2, "_ssd_chunked", run)
+        split, kernels = _split(run, model, m2, norms)
+        # layer 0's SSD inputs at this shape, from the forward's own activations
+        seen, chunked = [], m2._ssd_chunked
+
+        def record(*a):
+            seen.append(a)
+            return chunked(*a)
+
+        m2._ssd_chunked = record
+        try:
+            model._apply_block(model.blocks[0], model.embed({"tokens": tokens}))
+        finally:
+            m2._ssd_chunked = chunked
+        loop = ssd_vs_recurrence(*seen[0], failures)
+        del seen
+    ssd_ms = sum(ssd_spans)
+    info = dict(config=cfg.name, batch=B, tokens=S, layers=cfg.n_layers, params=n_params, init_s=init_s,
+                first_forward_s=first_s, wall_ms=wall_ms, wall_ms_runs=[1e3 * w for w in walls],
+                tokens_per_s=B * S / (wall_ms * 1e-3), max_memory_gb=peak_gb, launches=launches,
+                ssd_calls=len(ssd_spans), ssd_ms=ssd_ms, ssd_share=ssd_ms / wall_ms, profile=split,
+                ssd_vs_recurrence=loop)
+    print(f"  (a) on {card}: " + json.dumps(info), flush=True)
+    for ms, count, key in kernels[:12]:
+        print(f"    {ms:10.2f} ms {count:7d} x  {key[:110]}", flush=True)
+    check(failures, all(n == 0 for n in launches.values()), f"(a) no kernel of the port in the forward ({launches})")
+    check(failures, len(ssd_spans) == cfg.n_layers,
+          f"(a) the timed forward ran the SSD {len(ssd_spans)} times ({cfg.n_layers} layers): {ssd_ms:.2f} ms, "
+          f"{ssd_ms / wall_ms:.1%} of the forward")
+    check(failures, finite and shape_ok, f"(a) hidden states and last-position logits finite ({finite}), shapes "
+                                         f"as expected ({shape_ok})")
+    return info, model
+
+
+def ssd_vs_recurrence(x, dt, A, Bm, Cm, chunk: int, failures: list) -> dict:
+    """Phase 12 (a): ``_ssd_chunked`` (f32, TF32 off) on layer 0's inputs
+    against the sequential recurrence h_t = exp(dt_t A) h_{t-1} + dt_t B_t ⊗ x_t,
+    y_t = C_t . h_t in f64, token by token over the whole sequence: y and
+    the final state within SSD_LOOP_BAR relative L2."""
+    from repro_torch.models.layers import mamba2 as m2
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        y, h = m2._ssd_chunked(x, dt, A, Bm, Cm, chunk)
+        t0 = time.perf_counter()
+        xd, dtd, Bd, Cd = (t[0].double() for t in (x, dt, Bm, Cm))  # B 1
+        S, H, P = xd.shape
+        G, N = Bd.shape[1], Bd.shape[2]
+        decay = torch.exp(-torch.exp(A.double()) * dtd).view(S, G, H // G, 1, 1)
+        dx = (xd * dtd[..., None]).view(S, G, H // G, 1, P)
+        Bd, Cd = Bd.view(S, G, 1, N, 1), Cd.view(S, G, 1, 1, N)
+        hd = torch.zeros(G, H // G, N, P, dtype=torch.float64, device=x.device)
+        ref = torch.empty(S, G, H // G, 1, P, dtype=torch.float64, device=x.device)
+        for t in range(S):
+            hd.mul_(decay[t]).addcmul_(Bd[t], dx[t])
+            torch.matmul(Cd[t], hd, out=ref[t])
+        torch.cuda.synchronize()
+        loop_s = time.perf_counter() - t0
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    rel_y = _rel_l2(y[0], ref.view(S, H, P))
+    rel_h = _rel_l2(h[0], hd.view(H, N, P))
+    out = dict(shape=[1, S, H, P], d_state=N, groups=G, chunk=chunk, rel_l2_y=rel_y, rel_l2_state=rel_h,
+               max_abs_y=ref.abs().max().item(), loop_s=loop_s)
+    check(failures, rel_y <= SSD_LOOP_BAR and rel_h <= SSD_LOOP_BAR,
+          f"(a) layer 0's _ssd_chunked (f32) vs a sequential f64 recurrence over {S} tokens, H {H}, P {P}, N {N}: "
+          f"relative L2 y {rel_y:.3g}, final state {rel_h:.3g} (bar {SSD_LOOP_BAR}); the loop {loop_s:.1f} s")
+    return out
+
+
+def ssm_decode(K, model, card: str, failures: list) -> dict:
+    """Phase 12 (b) on (a)'s model: prefill B SSM_DECODE_B x SSM_DECODE_PROMPT,
+    SSM_DECODE_STEPS greedy steps in bf16 (CUDA events), a profiled step and
+    the SSD step's share; B 1 steps (long_500k's per-step cost); the f32
+    check at B SSM_CHECK_B against the forward; ``Engine.generate`` at 4
+    slots."""
+    from dataclasses import replace
+
+    from repro_torch.models.common import Dtypes
+    from repro_torch.models.layers import mamba2 as m2
+    from repro_torch.models.layers import norms
+    from repro_torch.serve import Engine, ServeConfig
+
+    cfg, V = model.cfg, model.cfg.vocab_size
+    Bd, P, n = SSM_DECODE_B, SSM_DECODE_PROMPT, SSM_DECODE_STEPS
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  (b) {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated before; B {Bd}: the SSM state "
+          f"{Bd * cfg.n_layers * m2.init_ssm_state(cfg, 1, device='meta').ssm.numel() * 4 / 1e9:.2f} GB", flush=True)
+    prompt = torch.randint(0, V, (Bd, P), generator=torch.Generator(device="cuda").manual_seed(4), device="cuda")
+    out = {}
+    with torch.inference_mode():
+        K.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, caches = model.prefill({"tokens": prompt}, P + n)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        state_gb = sum(c.ssm.nbytes + c.conv.nbytes for c in caches.layers) / 1e9
+        box = [lg, caches]
+
+        def step():
+            cur = torch.argmax(box[0][:, -1, :V], dim=-1, keepdim=True)
+            box[0], box[1] = model.decode_step(box[1], cur)
+
+        steps = _step_events(step, n)
+        ssd_spans = _event_spans(m2, "_ssd_step", step)
+        split, kernels = _split(step, model, m2, norms)
+        finite = bool(torch.isfinite(box[0][..., :V]).all())
+        del box, lg, caches
+        torch.cuda.empty_cache()
+        step_ms = float(np.median(steps))
+        out.update(batch=Bd, prompt=P, prefill_ms=1e3 * prefill_s, state_gb=state_gb, decode_steps=n,
+                   decode_ms_per_step=step_ms, decode_ms_runs=steps, decode_tokens_per_s=Bd * 1e3 / step_ms,
+                   ssd_step_ms=sum(ssd_spans), ssd_step_share=sum(ssd_spans) / step_ms, profiled_step=split)
+
+        # long_500k's per-step cost: B 1 (a step's work does not depend on the context's length)
+        lg, caches = model.prefill({"tokens": prompt[:1]}, P + SSM_LONG_STEPS)
+        box = [lg, caches]
+        long_steps = _step_events(step, SSM_LONG_STEPS)
+        out.update(long_b1_ms_per_step=float(np.median(long_steps)), long_b1_ms_runs=long_steps)
+        del box, lg, caches
+
+        # the f32 check (TF32 off): prefill and SSM_CHECK_STEPS steps vs the forward's last row
+        cfg32 = replace(cfg, dtype="float32")
+        tf32 = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        model.cfg, model.dt = cfg32, Dtypes(cfg32)
+        try:
+            p4 = prompt[:SSM_CHECK_B]
+            lg, caches = model.prefill({"tokens": p4}, P + SSM_CHECK_STEPS)
+            toks = []
+            for _ in range(SSM_CHECK_STEPS):
+                toks.append(torch.argmax(lg[:, -1, :V], dim=-1, keepdim=True))
+                lg, caches = model.decode_step(caches, toks[-1])
+            del caches
+            full = model.logits(model({"tokens": torch.cat([p4] + toks, dim=1)})[:, -1:])
+        finally:
+            model.cfg, model.dt = cfg, Dtypes(cfg)
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+        rel = _rel_l2(lg[..., :V], full[..., :V])
+        finite32 = bool(torch.isfinite(lg[..., :V]).all()) and bool(torch.isfinite(full[..., :V]).all())
+        del lg, full
+        out["rel_l2_f32_last_step_vs_forward"] = rel
+
+    # the serving engine at 4 slots, bf16, phase 10's prompt lengths
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(1, V, m).astype(np.int32) for m in SERVE_LENGTHS]
+    eng = Engine(cfg, ServeConfig(max_len=SERVE_MAX_LEN, slots=4), device="cuda")
+    eng.load(model)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gen = eng.generate(prompts, max_new=SERVE_NEW)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    launches_all = K.launch_counts()
+    engine_steps = max(SERVE_LENGTHS) + SERVE_NEW - 1
+    out.update(engine=dict(slots=4, prompts=list(SERVE_LENGTHS), new=SERVE_NEW, decode_steps=engine_steps,
+                           wall_s=gen_s, ms_per_step=1e3 * gen_s / engine_steps,
+                           generated_tokens_per_s=4 * SERVE_NEW / gen_s), launches=launches_all)
+    print(f"  (b) on {card}: " + json.dumps(out), flush=True)
+    for ms, count, key in kernels[:8]:
+        print(f"    {ms:10.3f} ms {count:5d} x  {key[:110]}", flush=True)
+    check(failures, finite and finite32 and rel <= DECODE_BAR,
+          f"(b) f32 (TF32 off): the last of {SSM_CHECK_STEPS} decode steps after a prefill of {SSM_CHECK_B} x {P} "
+          f"vs the last row of a forward over {P + SSM_CHECK_STEPS} tokens: relative L2 {rel:.4g} (bar {DECODE_BAR})")
+    check(failures, len(ssd_spans) == cfg.n_layers,
+          f"(b) a decode step ran the SSD step {len(ssd_spans)} times ({cfg.n_layers} layers)")
+    check(failures, [len(g) for g in gen] == [SERVE_NEW] * 4 and all(0 <= t < V for g in gen for t in g),
+          f"(b) Engine.generate: {SERVE_NEW} tokens a prompt, in the vocab")
+    check(failures, all(v == 0 for v in launches_all.values()), f"(b) no kernel of the port launched ({launches_all})")
+    return out
+
+
+def lm_train(K, cfg, batch: dict, steps: int, card: str, what: str, failures: list, *mods) -> dict:
+    """Phase 12 (c)/(e): a fresh model of ``cfg`` from seed 0 and fresh AdamW
+    state (TRAIN_OPT), ``steps`` steps on ``batch`` (the first counted and
+    timed on the host, the rest between CUDA events), one more step's split
+    (``_split`` over the parts of ``mods``: their spans in the forward and
+    the recompute), then the first step again from a new model of the same
+    seed, which must give the same loss, grad norm and sha256 of every
+    parameter."""
+    from repro_torch.models import Model
+    from repro_torch.train import AdamWConfig, make_train_state, make_train_step
+
+    opt = AdamWConfig(**TRAIN_OPT)
+    B, S = batch["targets"].shape
+    reckon = lm_train_reckoning(cfg, B, S)
+    print(f"  {what} {cfg.name}: {cfg.n_layers} layers at full width, {cfg.n_params() / 1e9:.3f}B f32 params, "
+          f"{cfg.dtype} compute, remat {cfg.remat}, attention {cfg.attn_impl}; B {B} x S {S}; reckoned peak "
+          f"{json.dumps(reckon)} GB; {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated before", flush=True)
+
+    def first_step():
+        t0 = time.perf_counter()
+        model = Model(cfg, device="cuda", seed=0)
+        state = make_train_state(model)
+        step_fn = make_train_step(model, opt, 1, TRAIN_LOSS_CHUNK)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        state, m = step_fn(state, batch)
+        torch.cuda.synchronize()
+        return model, state, step_fn, dict(init_s=init_s, first_step_s=time.perf_counter() - t0,
+                                           loss=float(m["loss"]), grad_norm=float(m["grad_norm"]))
+
+    model, state, step_fn, first = first_step()
+    digests = _param_digests(model)
+    box, seen = [state], []
+
+    def step():
+        box[0], m = step_fn(box[0], batch)
+        seen.append(m["loss"])
+
+    step_ms = _step_events(step, steps - 1)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    launches = K.launch_counts()
+    losses = [first["loss"]] + [float(x) for x in seen]
+    split, kernels = _split(step, model, *mods)
+    del model, state, step_fn, box
+    gc.collect()
+    torch.cuda.empty_cache()
+    model, state, _, again = first_step()
+    same = _param_digests(model) == digests and (again["loss"], again["grad_norm"]) == (first["loss"],
+                                                                                        first["grad_norm"])
+    del model, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    ms = float(np.median(step_ms))
+    out = dict(config=cfg.name, layers=cfg.n_layers, batch=B, seq=S, first=first, losses=losses, ms_per_step=ms,
+               ms_runs=step_ms, tokens_per_s=B * S / (ms * 1e-3), max_memory_gb=peak, reckoned_peak_gb=reckon,
+               launches=launches, repeats_bit_for_bit=same, profiled_step=split)
+    print(f"  {what} on {card}: " + json.dumps(out), flush=True)
+    for kms, count, key in kernels[:8]:
+        print(f"    {kms:10.2f} ms {count:7d} x  {key[:110]}", flush=True)
+    check(failures, same, f"{what} the first step from a new model of the same seed repeats bit for bit (loss "
+                          f"{again['loss']!r} | {first['loss']!r}, sha256 of every parameter)")
+    check(failures, bool(np.isfinite(losses).all()) and losses[-1] < losses[0],
+          f"{what} {steps} steps on one batch: losses finite and falling, {losses[0]:.4f} -> {losses[-1]:.4f}")
+    check(failures, all(v == 0 for v in launches.values()), f"{what} no kernel of the port launched ({launches})")
+    return out
+
+
+def vlm_forward(K, card: str, failures: list) -> dict:
+    """Phase 12 (d): internvl2-26b at full width, VLM_LAYERS layers, flash
+    attention (``pallas``), bf16 over f32 params: the forward over
+    n_vision_patches patches and the text of SSM_TOKENS positions against
+    the same module's chunked forward; then prefill and text-only decode."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get
+    from repro_torch.models import Model
+    from repro_torch.models.layers import norms
+
+    base = get("internvl2-26b")
+    cfg = replace(base, n_layers=VLM_LAYERS, attn_impl="pallas")
+    B, S, npt, V, L = 1, SSM_TOKENS, cfg.n_vision_patches, cfg.vocab_size, cfg.n_layers
+    t0 = time.perf_counter()
+    model = Model(cfg, device="cuda", seed=0)
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    batch = {"patches": torch.randn(B, npt, cfg.d_model, generator=gen, device="cuda") * 0.02,
+             "tokens": torch.randint(0, V, (B, S - npt), generator=gen, device="cuda")}
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"  (d) {cfg.name}: {L} of {base.n_layers} layers at full width, d_model {cfg.d_model}, {cfg.n_heads} "
+          f"heads over {cfg.n_kv_heads} of d {cfg.d_head}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}; "
+          f"{n_params / 1e9:.3f}B f32 params ({torch.cuda.memory_allocated() / 1e9:.1f} GB on the card), init "
+          f"{init_s:.1f} s; {npt} patches and {S - npt} tokens", flush=True)
+
+    def run():
+        h = model(batch)
+        return h, model.logits(h[:, -1:])
+
+    with torch.inference_mode():
+        run()  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        h, logits = run()
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        launches = K.launch_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        walls = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        wall_ms = 1e3 * float(np.median(walls))
+        finite = bool(torch.isfinite(h).all()) and bool(torch.isfinite(logits[..., :V]).all())
+        model.cfg = replace(cfg, attn_impl="chunked")  # the same module: no second copy of the weights
+        h_ref, logits_ref = run()
+        model.cfg = cfg
+        rel_h, rel_logits = _rel_l2(h, h_ref), _rel_l2(logits[..., :V], logits_ref[..., :V])
+        del h, logits, h_ref, logits_ref
+        split, kernels = _split(run, model, norms)
+        K.reset_launch_counts()
+    info = dict(config=cfg.name, layers=L, batch=B, patches=npt, tokens=S, params=n_params, init_s=init_s,
+                first_forward_s=first_s, wall_ms=wall_ms, wall_ms_runs=[1e3 * w for w in walls],
+                tokens_per_s=B * S / (wall_ms * 1e-3), max_memory_gb=peak_gb, launches=launches,
+                rel_l2_hidden_vs_chunked=rel_h, rel_l2_logits_vs_chunked=rel_logits, profile=split)
+    print(f"  (d) on {card}: " + json.dumps(info), flush=True)
+    for ms, count, key in kernels[:10]:
+        print(f"    {ms:10.2f} ms {count:7d} x  {key[:110]}", flush=True)
+    check(failures, launches["flash_attention"] == L and all(v == 0 for k, v in launches.items()
+                                                             if k != "flash_attention"),
+          f"(d) flash_attention launched {launches['flash_attention']} times in one forward ({L} layers), no other "
+          f"kernel of the port ({launches})")
+    check(failures, finite and rel_h <= LOGITS_REL_L2_BAR and rel_logits <= LOGITS_REL_L2_BAR,
+          f"(d) vs the chunked-attention forward: relative L2 hidden {rel_h:.4g}, last logits {rel_logits:.4g} "
+          f"(bar {LOGITS_REL_L2_BAR}), finite {finite}")
+    info["decode"] = vlm_decode(K, model, card, failures)
+    info["flash_launches"] = launches["flash_attention"] + info["decode"]["flash_launches"]
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return info
+
+
+def vlm_decode(K, model, card: str, failures: list) -> dict:
+    """Phase 12 (d)'s decode on its model: prefill VLM_DECODE_B x (patches +
+    VLM_DECODE_TEXT tokens), VLM_DECODE_STEPS text-only greedy steps in bf16
+    (CUDA events); then in f32 with TF32 off the prefill and VLM_CHECK_STEPS
+    steps against the forward's last row."""
+    from dataclasses import replace
+
+    from repro_torch.models.common import Dtypes
+
+    cfg, V, L = model.cfg, model.cfg.vocab_size, model.cfg.n_layers
+    Bd, T, n, npt = VLM_DECODE_B, VLM_DECODE_TEXT, VLM_DECODE_STEPS, cfg.n_vision_patches
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    prompt = {"patches": torch.randn(Bd, npt, cfg.d_model, generator=gen, device="cuda") * 0.02,
+              "tokens": torch.randint(0, V, (Bd, T), generator=gen, device="cuda")}
+    with torch.inference_mode():
+        K.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, caches = model.prefill(prompt, npt + T + n)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        prefill_launches = K.launch_counts()
+        K.reset_launch_counts()
+        box = [lg, caches]
+
+        def step():
+            cur = torch.argmax(box[0][:, -1, :V], dim=-1, keepdim=True)
+            box[0], box[1] = model.decode_step(box[1], cur)
+
+        steps = _step_events(step, n)
+        decode_launches = K.launch_counts()
+        finite = bool(torch.isfinite(box[0][..., :V]).all())
+        del box, lg, caches
+        cfg32 = replace(cfg, dtype="float32")
+        tf32 = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        model.cfg, model.dt = cfg32, Dtypes(cfg32)
+        try:
+            K.reset_launch_counts()
+            lg, caches = model.prefill(prompt, npt + T + VLM_CHECK_STEPS)
+            toks = []
+            for _ in range(VLM_CHECK_STEPS):
+                toks.append(torch.argmax(lg[:, -1, :V], dim=-1, keepdim=True))
+                lg, caches = model.decode_step(caches, toks[-1])
+            del caches
+            full = model.logits(model({"patches": prompt["patches"],
+                                       "tokens": torch.cat([prompt["tokens"]] + toks, dim=1)})[:, -1:])
+            f32_launches = K.launch_counts()
+            K.reset_launch_counts()
+        finally:
+            model.cfg, model.dt = cfg, Dtypes(cfg)
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+    rel = _rel_l2(lg[..., :V], full[..., :V])
+    finite32 = bool(torch.isfinite(lg[..., :V]).all()) and bool(torch.isfinite(full[..., :V]).all())
+    del lg, full
+    step_ms = float(np.median(steps))
+    out = dict(batch=Bd, patches=npt, text=T, prefill_ms=1e3 * prefill_s, decode_steps=n, decode_ms_per_step=step_ms,
+               decode_ms_runs=steps, decode_tokens_per_s=Bd * 1e3 / step_ms, rel_l2_f32_last_step_vs_forward=rel,
+               launches=dict(prefill=prefill_launches, decode=decode_launches, f32=f32_launches),
+               flash_launches=prefill_launches["flash_attention"] + f32_launches["flash_attention"],
+               flash_f32_launches=f32_launches["flash_attention"])
+    print(f"  (d) decode on {card}: " + json.dumps(out), flush=True)
+    check(failures, finite and finite32 and rel <= DECODE_BAR,
+          f"(d) f32 (TF32 off): the last of {VLM_CHECK_STEPS} text-only steps after a prefill of {Bd} x ({npt} patches "
+          f"+ {T} tokens) vs the last row of the forward: relative L2 {rel:.4g} (bar {DECODE_BAR})")
+    check(failures, prefill_launches["flash_attention"] == L and f32_launches["flash_attention"] == 2 * L
+          and all(v == 0 for v in decode_launches.values()),
+          f"(d) the prefill launched flash {prefill_launches['flash_attention']} times ({L} layers), the f32 prefill "
+          f"and forward {f32_launches['flash_attention']} (2 x {L}), the decode steps no kernel ({decode_launches})")
+    return out
+
+
+def lm_phase(K, card: str, failures: list) -> dict:
+    """Phase 12: mamba2-1.3b (a) forward, (b) decode, (c) training;
+    internvl2-26b (d) forward and decode, (e) training. Returns the numbers
+    and every kernel's launches in its counted runs."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get, shapes
+    from repro_torch.data import TokenPipeline
+    from repro_torch.models.layers import mamba2 as m2
+    from repro_torch.models.layers import norms
+
+    info = {}
+    t = time.perf_counter()
+    info["ssm_forward"], model = ssm_forward(K, card, failures)
+    end_phase("12 (a)", failures)
+    info["ssm_decode"] = ssm_decode(K, model, card, failures)
+    end_phase("12 (b)", failures)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  (a), (b): {time.perf_counter() - t:.1f} s", flush=True)
+
+    S = shapes.SHAPES["train_4k"].seq_len  # train_4k's sequence; its global batch of 256 cut to 1
+    cfg = get("mamba2-1.3b")
+    batch = {k: torch.from_numpy(v).cuda() for k, v in TokenPipeline(cfg.vocab_size, S, 1, seed=0).batch_at(0).items()}
+    info["ssm_train"] = lm_train(K, cfg, batch, LM12_TRAIN_STEPS, card, "(c)", failures, m2, norms)
+    end_phase("12 (c)", failures)
+    print(f"  (c): {time.perf_counter() - t:.1f} s", flush=True)
+
+    info["vlm_forward"] = vlm_forward(K, card, failures)
+    end_phase("12 (d)", failures)
+    print(f"  (d): {time.perf_counter() - t:.1f} s", flush=True)
+
+    cfg = replace(get("internvl2-26b"), n_layers=VLM_TRAIN_LAYERS)
+    npt = cfg.n_vision_patches
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    batch = {"patches": torch.randn(1, npt, cfg.d_model, generator=gen, device="cuda") * 0.02,
+             "tokens": torch.randint(0, cfg.vocab_size, (1, S - npt), generator=gen, device="cuda"),
+             "targets": torch.randint(0, cfg.vocab_size, (1, S), generator=gen, device="cuda"),
+             "loss_mask": torch.ones(1, S, device="cuda")}
+    batch["loss_mask"][:, :npt] = 0.0  # no loss on the patches' positions
+    info["vlm_train"] = lm_train(K, cfg, batch, VLM_TRAIN_STEPS, card, "(e)", failures, norms)
+    end_phase("12 (e)", failures)
+    info["flash_launches"] = info["vlm_forward"]["flash_launches"]
+    print(f"  (e): {time.perf_counter() - t:.1f} s", flush=True)
+    return info
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n-users", type=int, default=480_189, help="users of the full-size bmatch graph")
@@ -3963,6 +4640,13 @@ def main() -> int:
     train11 = train_phase(K, smi, failures)
     print(f"  phase 11: {time.perf_counter() - t11:.1f} s", flush=True)
     end_phase("11", failures)
+
+    print("== phase 12: mamba2-1.3b (the ssm block kind) and internvl2-26b (vision_text) forward, decode and "
+          "training", flush=True)
+    t12 = time.perf_counter()
+    lm12 = lm_phase(K, smi, failures)
+    print(f"  phase 12: {time.perf_counter() - t12:.1f} s", flush=True)
+    end_phase("12", failures)
     print(f"  total {time.perf_counter() - t_start:.1f} s", flush=True)
 
     # one entry per kernel: for the MWU kernels their float64 row at the
@@ -3979,7 +4663,8 @@ def main() -> int:
     for name, (source, replaces) in K.KERNELS.items():
         if name == "flash_attention":
             r = next(r for r in rows if r["name"] == name and r["case"] == "a" and r["dtype"] == "bfloat16")
-            launches = enc["launches"][name] + hybrid["launches"][name] + hybrid["decode"]["launches"][name]
+            launches = (enc["launches"][name] + hybrid["launches"][name] + hybrid["decode"]["launches"][name]
+                        + lm12["flash_launches"])
         else:
             r = max((r for r in rows if r["name"] == name and r["dtype"] == "float64"
                      and r.get("form") in (None, MAIN_FORM.get(name))), key=lambda r: r["shape"][0])
@@ -4011,6 +4696,13 @@ def main() -> int:
             kernels[-1]["recurrentgemma"] = dict(launches=rg_launches, **{k: d.get(k) for k in (
                 "shape", "dtype", "max_abs_err", "rel_l2", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                 "config")})
+            e = next(r for r in rows if r["name"] == name and r["case"] == "e")
+            vlm = lm12["vlm_forward"]
+            kernels[-1]["internvl2"] = dict(
+                launches=lm12["flash_launches"], forward=vlm["launches"][name],
+                prefill=vlm["decode"]["launches"]["prefill"][name], f32=vlm["decode"]["flash_f32_launches"],
+                **{k: e.get(k) for k in ("shape", "dtype", "max_abs_err", "rel_l2", "ms", "plain_ms", "bound_ms",
+                                         "bound_by", "library_ms", "config")})
             f32_launches = decode10["prefill_decode"]["flash_f32"]
             for key, dtype, n in (("mixtral", "bfloat16", moe_launches - f32_launches),
                                   ("mixtral_f32", "float32", f32_launches)):

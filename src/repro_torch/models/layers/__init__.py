@@ -1,1 +1,1 @@
-"""Layers of the port's model plane: norms, rope, mlp, moe, attention, rglru."""
+"""Layers of the port's model plane: norms, rope, mlp, moe, attention, mamba2, rglru."""

@@ -84,7 +84,7 @@ def _conv(params, x: torch.Tensor, window):
     w = params["conv_w"].to(x.dtype)
     S = x.shape[1]
     out = sum(xp[:, i:i + S] * w[i] for i in range(K))
-    return out + params["conv_b"].to(x.dtype), xp[:, -(K - 1):]
+    return out + params["conv_b"].to(x.dtype), xp[:, -(K - 1):].clone()  # a view would keep all of xp alive
 
 
 def _scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

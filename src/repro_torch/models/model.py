@@ -1,11 +1,14 @@
 """Model assembly: embeddings -> block stack -> final norm -> logits.
 
 Port of ``repro.models.model.Model`` for the full-sequence forward, prefill
-and decode of two block kinds, the layer's kind coming from ``cfg.pattern()``:
+and decode of the reference's three block kinds, the layer's kind coming
+from ``cfg.pattern()``:
 
   "attn"  - norm -> attention -> residual, norm -> (mlp | moe) -> residual
-            (dense, encoder and GQA decoders; the MoE decoders mixtral and
-            dbrx, with either router; recurrentgemma's MQA local attention);
+            (dense, encoder, GQA and vision-language decoders; the MoE
+            decoders mixtral and dbrx, with either router; recurrentgemma's
+            MQA local attention);
+  "ssm"   - norm -> mamba2 -> residual (mamba2: no ln2, no mlp);
   "rglru" - norm -> rglru -> residual, norm -> mlp -> residual (recurrentgemma).
 
 The layers are the reference's in its order: ``reps`` repetitions of the
@@ -16,8 +19,10 @@ Python loop replaces ``lax.scan``. The parameters are trainable
 ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` over the
 scanned stack), the tail layers without it. Inference callers run under
 ``torch.inference_mode``, so nothing is saved for a backward.
-``audio_frames`` consumes precomputed (B, S, d_model) frames, as in the
-reference.
+Modalities, as the reference's stubs: ``audio_frames`` consumes
+precomputed (B, S, d_model) frames; ``vision_text`` consumes precomputed
+(B, n_patches, d_model) ``patches``, cast to the compute dtype and put
+before the text tokens' embeddings (a decode step is text only).
 
 Training: ``decayed()`` gives the reference's weight-decay rule by
 parameter name (its stacked leaves are all decayed, see
@@ -25,15 +30,12 @@ parameter name (its stacked leaves are all decayed, see
 carries a reference ``TrainState`` across on ``_by_name``'s unstacking.
 
 Serving: ``init_caches`` gives one cache a layer (a ``KVCache`` for attn,
-an ``RGLRUState`` for rglru) in ``DecodeCaches``, with the position as a
-host int, so a decode step reads nothing from the device but what its MoE
-router reads. ``prefill`` runs a prompt from position 0 and fills the
-caches; ``decode_step`` runs one token a sequence (through MoE: one token
-routed a sequence a step). Both return the last position's logits and new
-caches, and leave the given ones as they were.
-
-Not ported yet (ROADMAP queue 1 item 15.3): the ``ssm`` block kind and the
-``vision_text`` modality; ``Model(...)`` raises ``NotImplementedError``.
+an ``SSMState`` for ssm, an ``RGLRUState`` for rglru) in ``DecodeCaches``,
+with the position as a host int, so a decode step reads nothing from the
+device but what its MoE router reads. ``prefill`` runs a prompt from
+position 0 and fills the caches; ``decode_step`` runs one token a sequence
+(through MoE: one token routed a sequence a step). Both return the last
+position's logits and new caches, and leave the given ones as they were.
 """
 from __future__ import annotations
 
@@ -48,6 +50,7 @@ from torch.utils.checkpoint import checkpoint
 
 from .common import Dtypes, dense_init
 from .layers import attention as att
+from .layers import mamba2 as m2
 from .layers import mlp as mlpmod
 from .layers import moe as moemod
 from .layers import norms
@@ -55,14 +58,16 @@ from .layers import rglru as rg
 
 __all__ = ["Model", "DecodeCaches", "load_jax_params"]
 
-_LATER = "ROADMAP queue 1 item 15.3"
-_MIXER_INIT = {"attn": att.attention_init, "rglru": rg.rglru_init}
+_MIXER_INIT = {"attn": att.attention_init, "ssm": m2.mamba2_init, "rglru": rg.rglru_init}
 
 
 def _groups(kind: str, cfg) -> tuple:
     """A block's parameter groups, in the reference's names: ln1, the mixer
-    (``attn`` or ``rglru``), ln2, and the feed-forward, ``moe`` in place of
-    ``mlp`` in an attn block of an MoE config (reference ``model.py:79-85``)."""
+    (``attn``, ``ssm`` or ``rglru``), then ln2 and the feed-forward, ``moe``
+    in place of ``mlp`` in an attn block of an MoE config; an ssm block has
+    no ln2 and no feed-forward (reference ``model.py:75-92``)."""
+    if kind == "ssm":
+        return ("ln1", "ssm")
     return ("ln1", kind, "ln2", "moe" if kind == "attn" and cfg.moe is not None else "mlp")
 
 
@@ -73,14 +78,14 @@ def _params(d: dict) -> nn.ParameterDict:
 class DecodeCaches(NamedTuple):
     """One cache a layer, in the model's layer order, and the position of the next token."""
 
-    layers: tuple  # KVCache (attn) or RGLRUState (rglru), one a layer
+    layers: tuple  # KVCache (attn), SSMState (ssm) or RGLRUState (rglru), one a layer
     pos: int  # tokens decoded so far (host int)
 
 
 class Block(nn.Module):
     """One layer of kind ``kind``: the groups of ``_groups(kind, cfg)`` (ln1,
-    the mixer ``attn`` or ``rglru``, ln2, ``mlp`` or ``moe``), each a dict of
-    parameters."""
+    the mixer ``attn``, ``ssm`` or ``rglru``, then, but for ssm, ln2 and
+    ``mlp`` or ``moe``), each a dict of parameters."""
 
     def __init__(self, kind: str, cfg, gen: torch.Generator, dtype, device):
         super().__init__()
@@ -88,6 +93,8 @@ class Block(nn.Module):
         self.groups = _groups(kind, cfg)
         self.ln1 = _params(norms.norm_init(cfg.d_model, cfg.norm_type, dtype, device))
         setattr(self, kind, _params(_MIXER_INIT[kind](gen, cfg, dtype, device)))
+        if kind == "ssm":
+            return
         self.ln2 = _params(norms.norm_init(cfg.d_model, cfg.norm_type, dtype, device))
         ffn = self.groups[-1]
         init = moemod.moe_init if ffn == "moe" else mlpmod.mlp_init
@@ -101,11 +108,6 @@ class Model(nn.Module):
     def __init__(self, cfg, device="cuda", seed: int = 0):
         super().__init__()
         pattern = cfg.pattern()
-        if set(pattern) - set(_MIXER_INIT):
-            raise NotImplementedError(f"{cfg.name}: block kinds {sorted(set(pattern) - set(_MIXER_INIT))} are not "
-                                      f"ported yet ({_LATER})")
-        if cfg.modality not in ("text", "audio_frames"):
-            raise NotImplementedError(f"{cfg.name}: modality {cfg.modality!r} is not ported yet ({_LATER})")
         self.cfg = cfg
         self.dt = Dtypes(cfg)
         # the reference's layout of layers: reps repetitions of the pattern unit, then the tail
@@ -133,6 +135,12 @@ class Model(nn.Module):
         h = norms.apply_norm(blk.ln1, x, cfg.norm_type, cfg.norm_eps)
         if blk.kind == "attn":
             a, new_cache = att.attention_apply(blk.attn, h, cfg, positions=positions, cache=cache, start=start)
+        elif blk.kind == "ssm":
+            if cache is not None and x.shape[1] == 1:
+                a, new_cache = m2.mamba2_decode(blk.ssm, h, cfg, cache)
+            else:
+                a, new_cache = m2.mamba2_apply(blk.ssm, h, cfg, state=cache, start=start)
+            return x + a, new_cache
         elif cache is not None and x.shape[1] == 1:
             a, new_cache = rg.rglru_decode(blk.rglru, h, cfg, cache)
         else:
@@ -144,12 +152,17 @@ class Model(nn.Module):
         return x + mlpmod.mlp_apply(blk.mlp, h, cfg), new_cache
 
     def embed(self, batch: dict) -> torch.Tensor:
-        """batch: {'tokens': (B, S) int} or {'frames': (B, S, d_model)}."""
+        """batch: {'tokens': (B, S) int}, {'frames': (B, S, d_model)}, or for
+        vision_text {'tokens': (B, S_text)} with optional {'patches': (B,
+        n_patches, d_model)}, put before the tokens (a decode step has none)."""
         ct = self.dt.compute
         if self.cfg.modality == "audio_frames":
             return batch["frames"].to(ct) @ self.frame_proj.to(ct)
         # F.embedding's backward sums a repeated token's rows in a fixed order (indexing's does not on the CPU)
-        return F.embedding(batch["tokens"], self.embedding.to(ct))
+        x = F.embedding(batch["tokens"], self.embedding.to(ct))
+        if self.cfg.modality == "vision_text" and "patches" in batch:
+            x = torch.cat([batch["patches"].to(ct), x], dim=1)
+        return x
 
     def logits(self, x: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
@@ -202,12 +215,14 @@ class Model(nn.Module):
 
     def init_caches(self, batch: int, max_len: int) -> DecodeCaches:
         """Empty caches for ``batch`` sequences of up to ``max_len`` positions:
-        KV caches in the compute dtype, rglru states as the reference's."""
-        dev = self.embedding.device
-        layers = tuple(att.init_kv_cache(self.cfg, batch, max_len, dtype=self.dt.compute, device=dev)
-                       if blk.kind == "attn" else rg.init_rglru_state(self.cfg, batch, device=dev)
-                       for blk in self.blocks)
-        return DecodeCaches(layers=layers, pos=0)
+        KV caches in the compute dtype, ssm and rglru states as the
+        reference's (f32; a prefill leaves the conv windows in the compute
+        dtype, as the reference's does)."""
+        cfg, dev = self.cfg, self.embedding.device
+        make = {"attn": lambda: att.init_kv_cache(cfg, batch, max_len, dtype=self.dt.compute, device=dev),
+                "ssm": lambda: m2.init_ssm_state(cfg, batch, device=dev),
+                "rglru": lambda: rg.init_rglru_state(cfg, batch, device=dev)}
+        return DecodeCaches(layers=tuple(make[blk.kind]() for blk in self.blocks), pos=0)
 
     def _final_logits(self, x):
         cfg = self.cfg
@@ -229,9 +244,10 @@ class Model(nn.Module):
         positions. Returns (last-token logits (B, 1, V), caches)."""
         x = self.embed(batch)
         B, S = x.shape[0], x.shape[1]
-        caches = self.init_caches(B, max_len)
+        empty = list(self.init_caches(B, max_len).layers)
         layers = []
-        for blk, cache in zip(self.blocks, caches.layers):
+        for i, blk in enumerate(self.blocks):
+            cache, empty[i] = empty[i], None  # each empty cache is freed once its layer has filled a new one
             x, c = self._apply_block(blk, x, cache=cache, start=0)
             layers.append(c)
         return self._final_logits(x[:, -1:]), DecodeCaches(layers=tuple(layers), pos=S)

@@ -1631,3 +1631,152 @@ def test_mwu_train_step_repeats_and_launches_on_card(cuda):
     n = sum(iters)
     want = dict(newton_search=n, step_direction=n, softmax_weights=2 * n, axpy_reduce=3 * n)
     assert counts == {name: want.get(name, 0) for name in counts}, (counts, want)
+
+
+# -- the ssm block kind and the vision_text modality ---------------------------
+@pytest.mark.cuda
+@pytest.mark.parametrize("G, S", [(1, 300), (2, 77)])
+def test_ssm_ssd_card_matches_cpu(cuda, G, S):
+    """_ssd_chunked on the card against the same code on the CPU, f32 with
+    TF32 off (chunk 64: S 300 pads the last chunk, S 77 two chunks): y and
+    the final state within 1e-5 of their scale."""
+    from repro_torch.models.layers import mamba2 as m2
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator().manual_seed(S)
+    x = torch.randn(2, S, 8, 16, generator=gen)
+    dt = torch.rand(2, S, 8, generator=gen) * 0.5 + 0.05
+    A = torch.log(torch.rand(8, generator=gen) * 4 + 0.5)
+    Bm, Cm = (torch.randn(2, S, G, 32, generator=gen) for _ in range(2))
+    want = m2._ssd_chunked(x, dt, A, Bm, Cm, chunk=64)
+    got = m2._ssd_chunked(*(t.to(cuda) for t in (x, dt, A, Bm, Cm)), chunk=64)
+    for g, w in zip(got, want):
+        scale = w.abs().max()
+        torch.testing.assert_close(g.cpu() / scale, w / scale, atol=1e-5, rtol=0)
+
+
+@pytest.mark.cuda
+def test_ssm_layer_and_decode_card_match_cpu(cuda):
+    """mamba2_apply over 40 tokens with a fresh state, then 8 mamba2_decode
+    steps, on the card against the CPU at f32 with TF32 off (reduced widths,
+    chunk 8): outputs and states within 1e-5 of their scale."""
+    from repro_torch.models.layers import mamba2 as m2
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get("mamba2-1.3b").reduced()
+    p = m2.mamba2_init(torch.Generator().manual_seed(0), cfg, torch.float32, "cpu")
+    x = torch.randn(2, 48, cfg.d_model, generator=torch.Generator().manual_seed(1)) * 0.3
+    runs = []
+    for dev in ("cpu", cuda):
+        pd = {k: v.to(dev) for k, v in p.items()}
+        out, state = m2.mamba2_apply(pd, x[:, :40].to(dev), cfg, state=m2.init_ssm_state(cfg, 2, device=dev), start=0)
+        outs = [out]
+        for t in range(40, 48):
+            o, state = m2.mamba2_decode(pd, x[:, t:t + 1].to(dev), cfg, state)
+            outs.append(o)
+        runs.append([torch.cat(outs, dim=1), state.conv, state.ssm])
+    for g, w in zip(runs[1], runs[0]):
+        scale = w.abs().max().clamp(min=1.0)
+        torch.testing.assert_close(g.cpu() / scale, w / scale, atol=1e-5, rtol=0)
+
+
+@pytest.mark.cuda
+def test_ssm_model_decode_matches_forward_on_card(cuda):
+    """mamba2 reduced on the card, f32 with TF32 off: a prefill of 40 tokens
+    and 8 decode steps, each step's logits within 5e-3 of the forward over
+    all the tokens (tests/test_layers.py's bar); the bf16 run repeats bit
+    for bit."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get("mamba2-1.3b").reduced()
+    toks = torch.randint(0, cfg.vocab_size, (2, 48), generator=torch.Generator().manual_seed(2)).to(cuda)
+    model = Model(cfg, device=cuda, seed=1)
+    with torch.inference_mode():
+        full = model.logits(model({"tokens": toks}))
+        lg, caches = model.prefill({"tokens": toks[:, :40]}, 64)
+        outs = []
+        for t in range(40, 48):
+            outs.append(lg)
+            lg, caches = model.decode_step(caches, toks[:, t:t + 1])
+        torch.testing.assert_close(torch.cat(outs + [lg], dim=1), full[:, 39:], atol=5e-3, rtol=5e-3)
+        bf = Model(replace(cfg, dtype="bfloat16"), device=cuda, seed=1)
+        runs = []
+        for _ in range(2):
+            lg, caches = bf.prefill({"tokens": toks[:, :40]}, 64)
+            for t in range(40, 48):
+                lg, caches = bf.decode_step(caches, toks[:, t:t + 1])
+            runs.append(lg)
+    assert torch.equal(runs[0], runs[1]) and bool(torch.isfinite(runs[0]).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "internvl2-26b"], ids=["ssm", "vlm"])
+def test_ssm_vlm_train_step_card_matches_cpu(cuda, arch):
+    """A reduced train step of mamba2 (the ssm stack) and internvl2 (patches
+    before the tokens) on the card against the CPU, f32 with TF32 off: the
+    loss within rel 1e-5, every gradient finite and within 1e-4 of its
+    tensor's largest CPU entry; the card's step repeats bit for bit."""
+    from repro_torch.train import AdamWConfig, chunked_ce_loss, make_train_state, make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get(arch).reduced()
+    batch = _train_batch(cfg, "cpu")
+    if cfg.modality == "vision_text":
+        n = cfg.n_vision_patches
+        batch["patches"] = torch.randn(2, n, cfg.d_model, generator=torch.Generator().manual_seed(3)) * 0.1
+        batch["tokens"] = batch["tokens"][:, n:]
+    cpu = Model(cfg, device="cpu", seed=3)
+    init = {n: p.detach().clone() for n, p in cpu.named_parameters()}
+    loss_cpu = chunked_ce_loss(cpu, batch)
+    loss_cpu.backward()
+    runs = []
+    for _ in range(2):
+        card = Model(cfg, device=cuda)
+        with torch.no_grad():
+            for n, p in card.named_parameters():
+                p.copy_(init[n])
+        cb = {k: v.to(cuda) for k, v in batch.items()}
+        loss = chunked_ce_loss(card, cb)
+        loss.backward()
+        g = {n: p.grad.cpu() for n, p in card.named_parameters()}
+        make_train_step(card, AdamWConfig())(make_train_state(card), cb)
+        runs.append((loss.item(), g, [p.detach().cpu() for p in card.parameters()]))
+    assert runs[0][0] == runs[1][0] and all(torch.equal(a, b) for a, b in zip(runs[0][2], runs[1][2]))
+    torch.testing.assert_close(runs[0][0], loss_cpu.item(), rtol=1e-5, atol=0)
+    for n, p in cpu.named_parameters():
+        scale = p.grad.abs().max().clamp(min=1e-30)
+        assert bool(torch.isfinite(runs[0][1][n]).all()), n
+        assert ((runs[0][1][n] - p.grad).abs() <= 1e-4 * scale).all(), n
+
+
+@pytest.mark.cuda
+def test_vlm_prefill_flash_matches_chunked_on_card(cuda):
+    """internvl2 reduced at f32 with TF32 off: a prefill of 8 patches and 40
+    tokens with ``pallas`` (flash once a layer) against ``chunked``, the same
+    weights: the last logits and every cache within 1e-4 of their scale;
+    then three text-only decode steps on each."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = replace(get("internvl2-26b").reduced(), attn_impl="pallas")
+    model = Model(cfg, device=cuda, seed=1)
+    gen = torch.Generator().manual_seed(2)
+    prompt = {"patches": (torch.randn(2, cfg.n_vision_patches, cfg.d_model, generator=gen) * 0.02).to(cuda),
+              "tokens": torch.randint(0, cfg.vocab_size, (2, 40), generator=gen).to(cuda)}
+    more = torch.randint(0, cfg.vocab_size, (2, 3), generator=gen).to(cuda)
+    out = {}
+    for impl in ("pallas", "chunked"):
+        model.cfg = replace(cfg, attn_impl=impl)
+        K.reset_launch_counts()
+        with torch.inference_mode():
+            lg, caches = model.prefill(prompt, 64)
+            assert caches.pos == 48
+            steps = []
+            for t in range(3):
+                st, caches = model.decode_step(caches, more[:, t:t + 1])
+                steps.append(st)
+        assert K.launch_counts()["flash_attention"] == (cfg.n_layers if impl == "pallas" else 0)
+        out[impl] = [lg, torch.cat(steps, dim=1)] + [x for c in caches.layers for x in c]
+    for a, b in zip(out["pallas"], out["chunked"]):
+        if a.dtype.is_floating_point:
+            scale = b.abs().max().clamp(min=1.0)
+            torch.testing.assert_close(a / scale, b / scale, atol=1e-4, rtol=0)
+        else:
+            assert torch.equal(a, b)

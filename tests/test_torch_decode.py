@@ -47,8 +47,9 @@ TOL = 1e-5
 TIE_NUDGE = 1e-12  # relative nudge of ls_eps that breaks the refinement's exact tie
 B, STEPS = 2, 12
 PROMPT = 40  # past the reduced window 16 and attn_chunk 16
-DECODE_ARCHS = ["yi-34b", "mixtral-8x22b", "recurrentgemma-9b"]
-FORWARD_BAR = {"yi-34b": 2e-3, "mixtral-8x22b": 5e-3, "recurrentgemma-9b": 5e-3}  # tests/test_layers.py:33-73
+DECODE_ARCHS = ["yi-34b", "mixtral-8x22b", "recurrentgemma-9b", "mamba2-1.3b"]
+FORWARD_BAR = {"yi-34b": 2e-3, "mixtral-8x22b": 5e-3, "recurrentgemma-9b": 5e-3, "mamba2-1.3b": 5e-3,
+               "internvl2-26b": 2e-3}  # tests/test_layers.py:33-73 (internvl2: the dense bar)
 
 
 def _no_drop(cfg):
@@ -269,6 +270,74 @@ def test_prefill_then_decode_matches_forward_past_window():
     assert sorted(slots.tolist()) == list(range(PROMPT - 16, PROMPT))
     assert sorted(caches.layers[0].slot_pos.tolist()) == list(range(PROMPT + 4 - 16, PROMPT + 4))
     assert float((lg - full).norm() / full.norm()) <= 1e-3
+
+
+def _vlm_prompt(cfg, n_text: int, seed: int = 6):
+    """internvl2's prompt: n_vision_patches patches (N(0, 0.02^2), as configs/shapes.py makes them) and
+    n_text tokens."""
+    rng = np.random.default_rng(seed)
+    return {"patches": (rng.standard_normal((B, cfg.n_vision_patches, cfg.d_model)) * 0.02).astype(np.float32),
+            "tokens": rng.integers(0, cfg.vocab_size, (B, n_text)).astype(np.int32)}
+
+
+def test_vision_text_prefill_and_decode_match_reference():
+    """internvl2: a prefill of 8 patches and 32 tokens (past attn_chunk 16),
+    then three text-only decode steps, against the reference's prefill and
+    decode_step: the logits and every layer's cache at 1e-5."""
+    ref, params, model = _setup("internvl2-26b")
+    cfg = model.cfg
+    prompt = _vlm_prompt(cfg, PROMPT - cfg.n_vision_patches)
+    more = _tokens(cfg, 3, seed=7)
+    want, ref_caches = ref.prefill(params, {k: jnp.asarray(v) for k, v in prompt.items()}, 64)
+    ref_step = jax.jit(ref.decode_step)
+    with torch.inference_mode():
+        got, caches = model.prefill({k: torch.tensor(v) for k, v in prompt.items()}, 64)
+        assert got.shape == (B, 1, cfg.padded_vocab) and caches.pos == PROMPT
+        _close(got, want)
+        _close_caches(caches, ref, ref_caches)
+        for t in range(3):
+            want, ref_caches = ref_step(params, ref_caches, jnp.asarray(more[:, t:t + 1]))
+            got, caches = model.decode_step(caches, torch.tensor(more[:, t:t + 1]))
+            _close(got, want, what=f"step {t}")
+    _close_caches(caches, ref, ref_caches)
+
+
+def test_vision_text_decode_matches_forward():
+    """internvl2: prefill with patches, then text-only decode steps; each
+    step's logits against the port's forward over the patches and all the
+    tokens (the dense bar)."""
+    _, _, model = _setup("internvl2-26b")
+    cfg = model.cfg
+    prompt = {k: torch.tensor(v) for k, v in _vlm_prompt(cfg, 4).items()}
+    more = torch.tensor(_tokens(cfg, STEPS, seed=8))
+    with torch.inference_mode():
+        full = model.logits(model({"patches": prompt["patches"], "tokens": torch.cat([prompt["tokens"], more], 1)}))
+        lg, caches = model.prefill(prompt, 32)
+        outs = [lg]
+        for t in range(STEPS - 1):
+            lg, caches = model.decode_step(caches, more[:, t:t + 1])
+            outs.append(lg)
+    n = cfg.n_vision_patches + 4
+    bar = FORWARD_BAR["internvl2-26b"]
+    np.testing.assert_allclose(torch.cat(outs, dim=1).numpy(), full[:, n - 1:n + STEPS - 1].numpy(), atol=bar,
+                               rtol=bar)
+
+
+def test_ssm_decode_leaves_caches_unchanged():
+    """mamba2: a step returns new states (conv window in the compute dtype,
+    f32 SSM state) and leaves the given ones as they were."""
+    _, _, model = _setup("mamba2-1.3b")
+    toks = torch.tensor(_tokens(model.cfg, PROMPT + 1))
+    with torch.inference_mode():
+        _, caches = model.prefill({"tokens": toks[:, :PROMPT]}, 64)
+        before = [[t.clone() for t in c] for c in caches.layers]
+        a, ca = model.decode_step(caches, toks[:, PROMPT:])
+        b, _ = model.decode_step(caches, toks[:, PROMPT:])
+    assert torch.equal(a, b) and ca.pos == PROMPT + 1
+    for c, new, saved in zip(caches.layers, ca.layers, before):
+        assert type(c).__name__ == "SSMState" and int(new.pos) == PROMPT + 1
+        assert all(torch.equal(t, s) for t, s in zip(c, saved))
+        assert c.ssm.dtype == torch.float32 and c.conv.dtype == model.dt.compute
 
 
 # ----------------------------------------------------------------------

@@ -36,6 +36,7 @@ TOL = 1e-5
 S = 40  # > attn_chunk 16 of the reduced configs: the pallas / chunked paths run
 ARCHS = ["hubert-xlarge", "minitron-4b", "starcoder2-15b", "qwen1.5-32b", "recurrentgemma-9b"]
 MOE_ARCHS = ["mixtral-8x22b", "dbrx-132b", "mixtral-8x22b-mwu", "dbrx-132b-mwu"]
+SSM_VLM_ARCHS = ["mamba2-1.3b", "internvl2-26b"]
 
 
 def _hubert_cut(get_fn):
@@ -163,13 +164,18 @@ def test_attention_with_cache(arch):
 
 
 def _batch(cfg, B=2):
+    """S positions: frames, tokens, or for vision_text n_vision_patches patches before S - n tokens."""
     rng = np.random.default_rng(4)
     if cfg.modality == "audio_frames":  # N(0, 0.02^2) frames, as configs/shapes.py makes them
         return {"frames": (rng.standard_normal((B, S, cfg.d_model)) * 0.02).astype(np.float32)}
+    if cfg.modality == "vision_text":
+        n = cfg.n_vision_patches
+        return {"patches": (rng.standard_normal((B, n, cfg.d_model)) * 0.02).astype(np.float32),
+                "tokens": rng.integers(0, cfg.vocab_size, (B, S - n)).astype(np.int32)}
     return {"tokens": rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)}
 
 
-@pytest.mark.parametrize("arch", ARCHS + ["hubert-cut", "rg-cut"] + MOE_ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + ["hubert-cut", "rg-cut"] + MOE_ARCHS + SSM_VLM_ARCHS)
 def test_model_forward_logits(arch):
     """Model.forward + logits with the reference's parameters, attn_impl pallas."""
     rcfg, cfg = _cfgs(arch)
@@ -273,10 +279,61 @@ def test_rglru_block_forward():
     _close(got, ref)
 
 
-@pytest.mark.parametrize("arch", ["mamba2-1.3b", "internvl2-26b"])
-def test_model_unported_kinds_raise(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Model(get(arch).reduced(), device="cpu")
+@pytest.mark.parametrize("arch", ARCH_IDS + ["dbrx-132b-mwu", "mixtral-8x22b-mwu"])
+def test_model_builds_every_config(arch):
+    """Every in-repo config builds at its reduced size, with the reference's
+    parameter groups a layer and the same parameter count."""
+    rcfg, cfg = ref_get(arch).reduced(), get(arch).reduced()
+    model = Model(cfg, device="cpu")
+    params = jax.eval_shape(RefModel(rcfg, fsdp=False).init, jax.random.PRNGKey(0))
+    assert sum(p.numel() for p in model.parameters()) == sum(int(np.prod(a.shape)) for a in jax.tree.leaves(params))
+    assert [blk.kind for blk in model.blocks] == list(cfg.pattern())
+
+
+def test_load_jax_params_ssm_layers():
+    """mamba2 with a tail (3 layers over a 2-layer unit): each layer has ln1
+    and ssm only, holding the reference's leaves (the stacked ones at their
+    repetition, the tail's as they are); its block runs norm -> mamba2 ->
+    residual as the reference's Model._apply_block; attn groups where the
+    model has an ssm block are refused."""
+    from repro.models.model import Model as RefModelCls
+
+    rcfg, cfg = (replace(c, n_layers=3, block_pattern=("ssm", "ssm")) for c in _cfgs("mamba2-1.3b"))
+    params = _np_tree(RefModel(rcfg, fsdp=False).init(jax.random.PRNGKey(11)))
+    model = load_jax_params(Model(cfg, device="cpu"), params)
+    layers = [params["blocks"]["b0"], params["blocks"]["b1"], params["tail"]["t0"]]
+    for i, (blk, layer) in enumerate(zip(model.blocks, layers)):
+        assert blk.groups == ("ln1", "ssm") and not hasattr(blk, "ln2") and not hasattr(blk, "mlp")
+        assert set(layer) == {"ln1", "ssm"}
+        for name, leaf in layer["ssm"].items():
+            ref = leaf[0] if i < 2 else leaf
+            np.testing.assert_array_equal(blk.ssm[name].detach().numpy(), ref, err_msg=f"layer {i} ssm.{name}")
+    x = np.random.default_rng(12).standard_normal((2, S, cfg.d_model)).astype(np.float32)
+    ref, _ = RefModelCls(rcfg, fsdp=False)._apply_block("ssm", jax.tree.map(jnp.asarray, layers[2]), jnp.asarray(x),
+                                                       jnp.arange(S))
+    got, state = model._apply_block(model.blocks[2], _t(x), torch.arange(S))
+    assert state is None
+    _close(got, ref)
+    rparams = _np_tree(RefModel(_cfgs("minitron-4b")[0], fsdp=False).init(jax.random.PRNGKey(0)))
+    params["tail"]["t0"] = jax.tree.map(lambda a: a[0], rparams["blocks"]["b0"])
+    with pytest.raises(ValueError, match="layer 2"):
+        load_jax_params(model, params)
+
+
+def test_vision_text_embed_puts_patches_first():
+    """vision_text: the patches, cast to the compute dtype, then the tokens'
+    embeddings; without patches (a decode step) the tokens alone."""
+    rcfg, cfg = _cfgs("internvl2-26b")
+    params = _np_tree(RefModel(rcfg, fsdp=False).init(jax.random.PRNGKey(1)))
+    batch = _batch(cfg)
+    ref = RefModel(rcfg, fsdp=False).embed(params, {k: jnp.asarray(v) for k, v in batch.items()})
+    model = load_jax_params(Model(cfg, device="cpu"), params)
+    got = model.embed({k: _t(v) for k, v in batch.items()})
+    np.testing.assert_array_equal(got.detach().numpy(), np.asarray(ref))
+    assert got.shape == (2, S, cfg.d_model)
+    np.testing.assert_array_equal(got[:, :cfg.n_vision_patches].detach().numpy(), batch["patches"])
+    text = model.embed({"tokens": _t(batch["tokens"])})
+    assert torch.equal(text, got[:, cfg.n_vision_patches:])
 
 
 def test_model_random_init():

@@ -50,7 +50,7 @@ def _engines(arch: str, sc: dict):
     return ref, eng
 
 
-@pytest.mark.parametrize("arch", ["yi-34b", "mixtral-8x22b", "recurrentgemma-9b"])
+@pytest.mark.parametrize("arch", ["yi-34b", "mixtral-8x22b", "recurrentgemma-9b", "mamba2-1.3b", "internvl2-26b"])
 def test_greedy_generate_matches_reference(arch):
     """Three prompts of unequal length in slots of 2 (two groups), 8 new
     tokens each, greedy: the port's tokens are the reference's up to the

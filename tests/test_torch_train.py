@@ -59,17 +59,22 @@ LOSS_TOL = 1e-5
 GRAD_TOL = 1e-5
 MOMENT_TOL = 1e-6
 ULP2 = 2 * float(np.finfo(np.float32).eps)
-NOT_PORTED = ["mamba2-1.3b", "internvl2-26b"]  # ROADMAP queue 1 item 15.3
-TRAIN_ARCHS = [a for a in ARCH_IDS if a not in NOT_PORTED] + ["mixtral-8x22b-mwu", "dbrx-132b-mwu"]
+TRAIN_ARCHS = ARCH_IDS + ["mixtral-8x22b-mwu", "dbrx-132b-mwu"]
 OPT = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=10)
 
 
 def tiny_batch(cfg, B=2, S=32, seed=0) -> dict:
-    """tests/test_substrate.py's batch, as numpy."""
+    """tests/test_substrate.py's batch, as numpy: for vision_text the
+    patches and then the tokens of the S positions, as configs/shapes.py's
+    input_specs lays them out (targets and loss_mask over all S)."""
     rng = np.random.default_rng(seed)
     batch = {}
     if cfg.modality == "audio_frames":
         batch["frames"] = (rng.standard_normal((B, S, cfg.d_model)) * 0.1).astype(np.float32)
+    elif cfg.modality == "vision_text":
+        npt = cfg.n_vision_patches
+        batch["patches"] = (rng.standard_normal((B, npt, cfg.d_model)) * 0.1).astype(np.float32)
+        batch["tokens"] = rng.integers(0, cfg.vocab_size, (B, S - npt)).astype(np.int32)
     else:
         batch["tokens"] = rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
     batch["targets"] = rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
@@ -205,13 +210,15 @@ def test_lr_at_matches_reference(step):
     np.testing.assert_allclose(float(got), float(ref), rtol=1e-6)
 
 
-@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "minitron-4b", "mixtral-8x22b"])
+@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "minitron-4b", "mixtral-8x22b", "mamba2-1.3b"])
 def test_decay_rule_is_the_reference_leaf_rule(arch):
     """Stacked leaves (the first reps * k layers) are all decayed, 1-D ones
     too; the tail's and the top level's 1-D leaves are not. Configs with a
     tail: recurrentgemma's 5 layers over its 3-layer unit, the others with a
-    2-layer unit over 3 layers."""
-    kw = dict(n_layers=5) if arch == "recurrentgemma-9b" else dict(n_layers=3, block_pattern=("attn", "attn"))
+    2-layer unit over 3 layers (mamba2's of ssm layers, whose A_log, D,
+    dt_bias, conv_b and norm_scale are 1-D)."""
+    kind = "ssm" if arch == "mamba2-1.3b" else "attn"
+    kw = dict(n_layers=5) if arch == "recurrentgemma-9b" else dict(n_layers=3, block_pattern=(kind, kind))
     _, params, model = _pair(arch, **kw)
     assert model.reps * len(model.pattern_unit) < len(model.blocks)  # a tail exists
     rule = jax.tree.map(lambda a: np.full(a.shape, a.ndim >= 2), params)
@@ -253,10 +260,22 @@ def test_train_step_loss_and_grads_match_reference(arch, monkeypatch):
     assert all(p.grad is None for p in model.parameters())
 
 
-@pytest.mark.parametrize("arch", NOT_PORTED)
-def test_not_ported_archs_raise(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Model(get(arch).reduced(), device="cpu")
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "internvl2-26b"])
+def test_grads_finite_and_reach_every_parameter(arch):
+    """The ssm stack (exp of the segment sums, masked before the exp) and
+    the vision_text batch: every gradient finite, every parameter reached
+    (internvl2's patches bypass the embedding, its tokens do not), and
+    the loss over the patches' positions counts (their targets and mask)."""
+    _, _, model = _pair(arch)
+    batch = tiny_batch(model.cfg)
+    loss = chunked_ce_loss(model, _t(batch))
+    loss.backward()
+    for name, p in model.named_parameters():
+        assert p.grad is not None and bool(torch.isfinite(p.grad).all()) and bool(p.grad.any()), name
+    if model.cfg.modality == "vision_text":
+        batch["loss_mask"][:, :model.cfg.n_vision_patches] = 0.0
+        with torch.inference_mode():
+            assert abs(float(chunked_ce_loss(model, _t(batch))) - loss.item()) > 1e-6
 
 
 def _ref_state_after(rm, params, batch, steps=1):
@@ -311,7 +330,7 @@ def _assert_first_step_close(model, ref_params, grads):
         assert (np.abs(got - want) <= bar).all(), (name, float(np.abs(got - want).max()))
 
 
-@pytest.mark.parametrize("arch", ["minitron-4b", "mixtral-8x22b"])
+@pytest.mark.parametrize("arch", ["minitron-4b", "mixtral-8x22b", "mamba2-1.3b", "internvl2-26b"])
 def test_train_step_update_matches_reference(arch):
     """The whole first step against the reference's, from the same params.
     The first AdamW step is lr * (m / (|m| + eps')) per entry, ~lr * sign(g):
@@ -329,7 +348,7 @@ def test_train_step_update_matches_reference(arch):
     _assert_first_step_close(model, rstate.params, grads)
 
 
-@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "mixtral-8x22b-mwu"])
+@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "mixtral-8x22b-mwu", "mamba2-1.3b", "internvl2-26b"])
 def test_remat_full_equals_none_bit_for_bit(arch):
     """remat="full" (each repetition recomputed in the backward, the mwu LP
     solved again) gives the loss and every gradient of remat="none" bit for
@@ -441,11 +460,13 @@ def test_chunked_loss_does_not_mask_pad_vocab():
     assert abs(got - with_mask) > 1e-3
 
 
-def test_load_jax_train_state_round_trip():
+@pytest.mark.parametrize("arch, kw", [("recurrentgemma-9b", dict(n_layers=5)), ("mamba2-1.3b", {}),
+                                      ("internvl2-26b", {})])
+def test_load_jax_train_state_round_trip(arch, kw):
     """The reference's state after two steps, loaded: every parameter and
     moment equals its reference leaf (unstacked), count and step are ints;
     a moment of the wrong shape is refused by name."""
-    rm, params, model = _pair("recurrentgemma-9b", n_layers=5)
+    rm, params, model = _pair(arch, **kw)
     batch = tiny_batch(model.cfg)
     rstate = _ref_state_after(rm, params, batch, steps=2)
     state = load_jax_train_state(model, jax.tree.map(np.asarray, rstate))
