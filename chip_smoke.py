@@ -15,7 +15,8 @@ and the serving engine, ``repro_torch.serve``), mixtral-8x22b's training
 (``repro_torch.train``: the train step, AdamW, checkpoints, the Trainer),
 and the last two configs, mamba2-1.3b (the Mamba-2 SSD block) and
 internvl2-26b (the vision_text modality), forward, decode and training, in
-twelve phases; any failed phase exits non-zero before the result lines are
+twelve phases, and in a thirteenth the dry run (``repro_torch.launch``) held
+against the card; any failed phase exits non-zero before the result lines are
 printed.
 
 1. Card: its name and power limit (nvidia-smi) and the kernels' build time.
@@ -333,7 +334,7 @@ printed.
    step again from a new model of the same seed gives the same loss, grad
    norm and sha256 of every parameter. Prints ms a step (CUDA events,
    median of the steps after the first) and tokens/s, the peak memory
-   beside its reckoning (``train_memory_reckoning``), host reads a step, a
+   beside the dry run's reckoning (``reckoned``), host reads a step, a
    profiled step's split (weight casts, expert bmm, attention, the router's
    kernels and the router's span, the vocab side: CE and the embedding,
    the optimizer, the rest) and idle share against that step's own time,
@@ -361,7 +362,7 @@ printed.
    DECODE_BAR); ``Engine.generate`` at 4 slots. (c) mamba2-1.3b training at
    full width and depth, B 1 x S 4,096 (train_4k's global batch of 256 cut
    to 1), remat full, AdamW: ms a step (median of 7), tokens/s, the peak
-   beside ``lm_train_reckoning``; the first step repeats bit for bit from a
+   beside the dry run's reckoning; the first step repeats bit for bit from a
    new model of the same seed, and the loss falls. (d) internvl2-26b at full
    width, 48 layers cut to VLM_LAYERS (the whole model, 79.4 GB of f32
    params, does not fit), flash attention: a forward over 1,024 patches and
@@ -374,6 +375,23 @@ printed.
    tokens, loss_mask 0 over the patches), chunked attention (flash has no
    backward): ms a step, tokens/s, peak beside its reckoning, the first
    step bit for bit again. No kernel of the port but flash runs in phase 12.
+13. The dry run held against the card (``dryrun_phase``), the card's name
+   and power limit on its first line. (a) ``launch.dryrun``'s cells of the
+   configs phases 9-12 run (mixtral-8x22b and -mwu, mamba2-1.3b,
+   internvl2-26b) at every shape on (16, 16) and (2, 16, 16), and the MWU
+   cell on both, in DRYRUN_WORKERS spawned processes on the host (meta
+   tensors over a fake process group of 512 ranks): each ``ok`` or the
+   reference's skip reason, a line each (per-device GB, TFLOP, the three
+   roofline terms, the bottleneck). (b) The dry run's count (``run_cell`` on
+   a (1, 1) mesh, ``reckoned``) of phase 9's topk forward, phase 11's topk
+   training step, phase 12's forwards (a), (d) and training steps (c), (e),
+   against the op counter (``utils.opcount``) around one more of the same
+   run on the card: FLOPs and HBM bytes within COUNT_REL; the reckoned
+   peaks of phase 11 (both routers) and 12 (c), (e) within PEAK_REL of
+   their ``max_memory_allocated`` less what was allocated before the
+   model. (c) Each run's roofline lower bound (``roofline_terms``) against
+   its phase's own measured ms: a share over 1 fails; the MFU and its bound
+   are printed. The phase prints its seconds.
 
 The line before the last is ``{"kernels": [...]}``, one entry per kernel;
 the last is ``{"ok": true, "device": {...}}``. The flash entry takes row
@@ -547,6 +565,26 @@ def counted_reads():
     finally:
         for name, method in saved.items():
             setattr(torch.Tensor, name, method)
+
+
+def counted_on_card(fn) -> dict:
+    """The op counts (``repro_torch.utils.opcount``) of one ``fn()`` on the
+    card: what phase 13 (b) holds the dry run's count of the same run to."""
+    from repro_torch.utils.opcount import OpCounter
+
+    with OpCounter() as c:
+        fn()
+    torch.cuda.synchronize()
+    return c.report.as_dict()
+
+
+def reckoned(cfg, B: int, S: int, step: str) -> dict:
+    """The dry run's record of a phase's run (``launch.dryrun.run_cell`` on a
+    (1, 1) mesh, on meta): ``step`` ("forward", "train") of ``cfg`` at B x S."""
+    from repro_torch.configs.shapes import ShapeCell
+    from repro_torch.launch import dryrun
+
+    return dryrun.run_cell(cfg, ShapeCell(f"{step} {B}x{S}", S, B, step), "one card", mesh={"data": 1, "model": 1})
 
 
 def bound(nbytes: int, ops: int, rate) -> tuple[float, str]:
@@ -1143,15 +1181,6 @@ def binary_rows(K, n: int, dtype, eta: float, failures: list, p_keep=None, m: in
     return [r]
 
 
-def scored_pairs(S: int, causal: bool, window) -> int:
-    """(query, key) pairs that attention scores: S^2 bidirectional, S(S+1)/2
-    causal, the band for a window."""
-    q = np.arange(S)
-    lo = np.maximum(0, q - window + 1) if window else np.zeros(S, np.int64)
-    hi = q if causal else np.full(S, S - 1)
-    return int((hi - lo + 1).sum())
-
-
 FLASH_CASES = [  # tag, B, S, Hq, Hkv, d, causal, window, dtype
     ("a", 16, 1500, 16, 16, 80, False, None, torch.bfloat16),  # hubert-xlarge
     ("a", 16, 1500, 16, 16, 80, False, None, torch.float32),
@@ -1213,7 +1242,7 @@ def flash_rows(K, card: str, failures: list) -> list[dict]:
     nvidia-smi's name and power limit, printed beside each f32 row."""
     import torch.nn.functional as F
 
-    from repro_torch.kernels.flash_attention.ops import bf16_config
+    from repro_torch.kernels.flash_attention.ops import bf16_config, scored_pairs
     from repro_torch.kernels.flash_attention.ref import flash_attention_plain
 
     flash_ptxas(failures)
@@ -2906,6 +2935,7 @@ def moe_forward(K, card: str, failures: list):
                 torch.cuda.synchronize()
                 walls.append(time.perf_counter() - t0)
             wall_s = float(np.median(walls))
+            counted = counted_on_card(run) if router == "topk" else None  # phase 13 (b)
             digests = [sha256(h.view(torch.int16)), sha256(h2.view(torch.int16))]  # the bf16 bits
             del h2
             logits = model.logits(h[:, -1:])
@@ -2941,6 +2971,7 @@ def moe_forward(K, card: str, failures: list):
                                  other_ms=busy - mm_ms - flash_ms - router_kernel_ms - dispatch_ms - cast_ms,
                                  device_idle_share=1.0 - busy / (1e3 * wall_s)))
         print(f"  {router} on {card}: " + json.dumps(info), flush=True)
+        info["counted"] = counted
         for ms, count, key in kernels[:14]:
             print(f"    {ms:10.2f} ms {count:7d} x  {key[:110]}", flush=True)
         check(failures, finite and list(h.shape) == [B, S, cfg.d_model],
@@ -3379,31 +3410,6 @@ ATTN_RANGE = "phase11::chunked_attention"
 ADAMW_RANGE = "phase11::adamw"
 
 
-def train_memory_reckoning(cfg, B: int, S: int) -> dict:
-    """Phase 11 (a)'s peak, reckoned from the config before the run: params,
-    grads and both moments in f32; the bf16 expert weights the recompute
-    casts and saves for its products; the chunked attention's saved tensors
-    (per block pair the masked scores and exp in f32, exp in bf16); the MoE
-    layer's dispatched and hidden activations; the loss chunks' f32 logits
-    (saved by logsumexp and the gather)."""
-    from repro_torch.models.layers import moe
-
-    m, E = cfg.moe, cfg.moe.n_experts
-    n = cfg.n_params()
-    qb = min(cfg.attn_chunk, S)
-    pairs = (-(-S // qb)) ** 2
-    _, cap = moe.dispatch_shape(cfg, B * S)
-    parts = dict(
-        state=16 * n,  # param, grad, mu, nu
-        expert_casts=3 * E * cfg.d_model * m.d_ff * 2,
-        attention=pairs * B * cfg.n_heads * qb * qb * (4 + 4 + 2),
-        moe_acts=E * cap * (2 * cfg.d_model + 4 * m.d_ff) * 2,
-        loss_logits=B * S * cfg.padded_vocab * (4 + 4 + 2),
-    )
-    parts["total"] = sum(parts.values())
-    return {k: v / 1e9 for k, v in parts.items()}
-
-
 def _under(e, name: str) -> bool:
     while e is not None:
         if e.name == name:
@@ -3667,6 +3673,7 @@ def train_router(K, cfg, router: str, card: str, total: dict, failures: list) ->
 
     def first_step():
         """A new model from seed 0 and its first step, counted."""
+        base_gb = torch.cuda.memory_allocated() / 1e9
         t0 = time.perf_counter()
         model = Model(cfg, device="cuda", seed=0)
         state = make_train_state(model)
@@ -3690,7 +3697,7 @@ def train_router(K, cfg, router: str, card: str, total: dict, failures: list) ->
         launches = _take_launches(K, total)
         first = dict(init_s=init_s, first_step_s=first_s, loss_inference=loss_inf, loss=float(m["loss"]),
                      grad_norm=float(m["grad_norm"]), lr=m["lr"], host_reads=reads[0], launches=launches,
-                     max_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+                     max_memory_gb=torch.cuda.max_memory_allocated() / 1e9, allocated_before_gb=base_gb)
         return model, state, step_fn, first, spans
 
     model, state, step_fn, first, spans = first_step()
@@ -3755,6 +3762,10 @@ def train_router(K, cfg, router: str, card: str, total: dict, failures: list) ->
     finally:
         lps.restore()
     out["steps_launches"] = _lp_launches(K, total, lps, f"(a) {router}: steps 2-{TRAIN_STEPS}", failures)
+    if router == "topk":  # phase 13 (b): one more step under the op counter (topk launches no kernel of the port)
+        done = []
+        out["counted"] = counted_on_card(lambda: done.append(step_fn(state, batch)))
+        state = done.pop()[0]  # the list keeps no state alive
     med = float(np.median(step_ms))
     out.update(losses=losses, step_ms=step_ms, ms_per_step=med, tokens_per_s=S / (med / 1e3),
                grad_norms_finite=bool(np.isfinite(float(m["grad_norm"]))))
@@ -3875,13 +3886,15 @@ def train_phase(K, card: str, failures: list) -> dict:
     base = get("mixtral-8x22b")
     cfg = replace(base, n_layers=TRAIN_LAYERS)
     S = shapes.SHAPES["train_4k"].seq_len
-    reckon = train_memory_reckoning(cfg, 1, S)
+    reckon = {r: reckoned(replace_moe(cfg, router=r), 1, S, "train") for r in ("topk", "mwu")}  # the dry run's
+    peaks = {r: rec["memory"]["peak_bytes"] / 1e9 for r, rec in reckon.items()}
     print(f"  {cfg.name}: {cfg.n_layers} of {base.n_layers} layers, {cfg.n_params() / 1e9:.3f}B f32 params, "
           f"{cfg.dtype} compute, remat {cfg.remat}, attention {cfg.attn_impl}; B 1 x S {S} (train_4k's sequence; "
-          f"its global batch 256 cut to 1); reckoned peak {json.dumps(reckon)} GB; "
+          f"its global batch 256 cut to 1); the dry run's reckoned peak {json.dumps(peaks)} GB "
+          f"({json.dumps(reckon['topk']['memory'])} bytes, topk); "
           f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated before the phase", flush=True)
     total: dict = {}
-    info = dict(reckoned_peak_gb=reckon)
+    info = dict(reckoned=reckon)
     for router in ("topk", "mwu"):
         info[router] = train_router(K, cfg, router, card, total, failures)
         end_phase(f"11 (a) {router}", failures)
@@ -3890,7 +3903,7 @@ def train_phase(K, card: str, failures: list) -> dict:
     info["tokens_routed_otherwise"] = routes
     print(f"  (a) tokens mwu routes to other experts than topk in the first forward, a layer: {routes}", flush=True)
     for r in ("topk", "mwu"):
-        print(f"  (a) {r}: peak {info[r]['first']['max_memory_gb']:.2f} GB (reckoned {reckon['total']:.2f}); "
+        print(f"  (a) {r}: peak {info[r]['first']['max_memory_gb']:.2f} GB (reckoned {peaks[r]:.2f}); "
               f"{info[r]['ms_per_step']:.2f} ms a step, {info[r]['tokens_per_s']:.1f} tokens/s", flush=True)
     info["trainer"] = trainer_restart(K, total, failures)
     info["launches"] = total
@@ -4001,37 +4014,6 @@ def _rel_l2(a, b) -> float:
     return ((a - b).norm() / b.norm()).item()
 
 
-def lm_train_reckoning(cfg, B: int, S: int) -> dict:
-    """Phase 12 (c)/(e)'s peak, reckoned from the config before the run:
-    params, grads and both moments in f32 (16 bytes a parameter), then the
-    larger of what the backward holds and what AdamW's plain passes hold.
-    The backward holds each remat unit's bf16 input; one layer's recompute
-    (its bf16 weights; an ssm layer's f32 (B, nc, H, Q, Q) decays and
-    scores, two saved and two gradients; an attn layer's chunked attention,
-    per block pair the masked scores and exp in f32 and exp in bf16, and
-    its MLP's three d_ff activations); the loss chunks' f32 logits (saved by
-    logsumexp and the gather) and the bf16 casts of the embedding and head.
-    AdamW holds ~4 temporaries of the largest parameter."""
-    d, V, L = cfg.d_model, cfg.padded_vocab, cfg.n_layers
-    n = cfg.n_params()
-    head = V * d * (1 if cfg.tie_embeddings else 2)
-    layer = (n - head) // L
-    parts = dict(state=16 * n, layer_inputs=L * B * S * d * 2, layer_weights_bf16=2 * layer,
-                 loss_logits=B * S * V * (4 + 4 + 2), vocab_casts=2 * head)
-    if cfg.family == "ssm":
-        s = cfg.ssm
-        Q = min(s.chunk, S)
-        parts["ssd"] = 4 * B * (-(-S // Q)) * s.n_heads(d) * Q * Q * 4
-    else:
-        qb = min(cfg.attn_chunk, S)
-        parts["attention"] = (-(-S // qb)) ** 2 * B * cfg.n_heads * qb * qb * (4 + 4 + 2)
-        parts["mlp_acts"] = 3 * B * S * cfg.d_ff * 2
-    backward = sum(v for k, v in parts.items() if k != "state")
-    parts["adamw_temporaries"] = 4 * 4 * max(V * d, layer // 3)
-    parts["total"] = parts["state"] + max(backward, parts["adamw_temporaries"])
-    return {k: v / 1e9 for k, v in parts.items()}
-
-
 def ssm_forward(K, card: str, failures: list) -> tuple[dict, object]:
     """Phase 12 (a): mamba2-1.3b's forward at full width and depth, B 1 x S
     SSM_TOKENS, bf16 over f32 params; the SSD's share (CUDA events around
@@ -4080,6 +4062,7 @@ def ssm_forward(K, card: str, failures: list) -> tuple[dict, object]:
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t0)
         wall_ms = 1e3 * float(np.median(walls))
+        counted = counted_on_card(lambda: model({"tokens": tokens}))  # phase 13 (b)
         finite = bool(torch.isfinite(h).all()) and bool(torch.isfinite(logits[..., :V]).all())
         shape_ok = list(h.shape) == [B, S, cfg.d_model] and list(logits.shape) == [B, 1, cfg.padded_vocab]
         del h, logits
@@ -4106,6 +4089,7 @@ def ssm_forward(K, card: str, failures: list) -> tuple[dict, object]:
                 ssd_calls=len(ssd_spans), ssd_ms=ssd_ms, ssd_share=ssd_ms / wall_ms, profile=split,
                 ssd_vs_recurrence=loop)
     print(f"  (a) on {card}: " + json.dumps(info), flush=True)
+    info["counted"] = counted
     for ms, count, key in kernels[:12]:
         print(f"    {ms:10.2f} ms {count:7d} x  {key[:110]}", flush=True)
     check(failures, all(n == 0 for n in launches.values()), f"(a) no kernel of the port in the forward ({launches})")
@@ -4271,12 +4255,14 @@ def lm_train(K, cfg, batch: dict, steps: int, card: str, what: str, failures: li
 
     opt = AdamWConfig(**TRAIN_OPT)
     B, S = batch["targets"].shape
-    reckon = lm_train_reckoning(cfg, B, S)
+    reckon = reckoned(cfg, B, S, "train")  # the dry run's
     print(f"  {what} {cfg.name}: {cfg.n_layers} layers at full width, {cfg.n_params() / 1e9:.3f}B f32 params, "
-          f"{cfg.dtype} compute, remat {cfg.remat}, attention {cfg.attn_impl}; B {B} x S {S}; reckoned peak "
-          f"{json.dumps(reckon)} GB; {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated before", flush=True)
+          f"{cfg.dtype} compute, remat {cfg.remat}, attention {cfg.attn_impl}; B {B} x S {S}; the dry run's "
+          f"reckoned peak {reckon['memory']['peak_bytes'] / 1e9:.2f} GB ({json.dumps(reckon['memory'])} bytes); "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated before", flush=True)
 
     def first_step():
+        base_gb = torch.cuda.memory_allocated() / 1e9
         t0 = time.perf_counter()
         model = Model(cfg, device="cuda", seed=0)
         state = make_train_state(model)
@@ -4289,7 +4275,8 @@ def lm_train(K, cfg, batch: dict, steps: int, card: str, what: str, failures: li
         state, m = step_fn(state, batch)
         torch.cuda.synchronize()
         return model, state, step_fn, dict(init_s=init_s, first_step_s=time.perf_counter() - t0,
-                                           loss=float(m["loss"]), grad_norm=float(m["grad_norm"]))
+                                           loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
+                                           allocated_before_gb=base_gb)
 
     model, state, step_fn, first = first_step()
     digests = _param_digests(model)
@@ -4302,6 +4289,8 @@ def lm_train(K, cfg, batch: dict, steps: int, card: str, what: str, failures: li
     step_ms = _step_events(step, steps - 1)
     peak = torch.cuda.max_memory_allocated() / 1e9
     launches = K.launch_counts()
+    counted = counted_on_card(step)  # phase 13 (b)
+    seen.pop()
     losses = [first["loss"]] + [float(x) for x in seen]
     split, kernels = _split(step, model, *mods)
     del model, state, step_fn, box
@@ -4315,9 +4304,11 @@ def lm_train(K, cfg, batch: dict, steps: int, card: str, what: str, failures: li
     torch.cuda.empty_cache()
     ms = float(np.median(step_ms))
     out = dict(config=cfg.name, layers=cfg.n_layers, batch=B, seq=S, first=first, losses=losses, ms_per_step=ms,
-               ms_runs=step_ms, tokens_per_s=B * S / (ms * 1e-3), max_memory_gb=peak, reckoned_peak_gb=reckon,
-               launches=launches, repeats_bit_for_bit=same, profiled_step=split)
+               ms_runs=step_ms, tokens_per_s=B * S / (ms * 1e-3), max_memory_gb=peak,
+               reckoned_peak_gb=reckon["memory"]["peak_bytes"] / 1e9, launches=launches, repeats_bit_for_bit=same,
+               profiled_step=split)
     print(f"  {what} on {card}: " + json.dumps(out), flush=True)
+    out.update(reckoned=reckon, counted=counted)
     for kms, count, key in kernels[:8]:
         print(f"    {kms:10.2f} ms {count:7d} x  {key[:110]}", flush=True)
     check(failures, same, f"{what} the first step from a new model of the same seed repeats bit for bit (loss "
@@ -4378,6 +4369,7 @@ def vlm_forward(K, card: str, failures: list) -> dict:
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t0)
         wall_ms = 1e3 * float(np.median(walls))
+        counted = counted_on_card(lambda: model(batch))  # phase 13 (b)
         finite = bool(torch.isfinite(h).all()) and bool(torch.isfinite(logits[..., :V]).all())
         model.cfg = replace(cfg, attn_impl="chunked")  # the same module: no second copy of the weights
         h_ref, logits_ref = run()
@@ -4391,6 +4383,7 @@ def vlm_forward(K, card: str, failures: list) -> dict:
                 tokens_per_s=B * S / (wall_ms * 1e-3), max_memory_gb=peak_gb, launches=launches,
                 rel_l2_hidden_vs_chunked=rel_h, rel_l2_logits_vs_chunked=rel_logits, profile=split)
     print(f"  (d) on {card}: " + json.dumps(info), flush=True)
+    info["counted"] = counted
     for ms, count, key in kernels[:10]:
         print(f"    {ms:10.2f} ms {count:7d} x  {key[:110]}", flush=True)
     check(failures, launches["flash_attention"] == L and all(v == 0 for k, v in launches.items()
@@ -4528,6 +4521,117 @@ def lm_phase(K, card: str, failures: list) -> dict:
     return info
 
 
+# -- phase 13 ----------------------------------------------------------------
+DRYRUN_ARCHS = ("mixtral-8x22b", "mixtral-8x22b-mwu", "mamba2-1.3b", "internvl2-26b")  # the configs of phases 9-12
+DRYRUN_WORKERS = 8  # (a): the cells run in this many processes (the host's 8 cores)
+COUNT_REL = 0.01  # (b): FLOPs and HBM bytes, the dry run's count vs the counter around the card's run
+PEAK_REL = 0.15  # (b): the dry run's peak vs the run's max_memory_allocated (less what was allocated before it)
+
+
+def _worker_init(src: str) -> None:
+    sys.path.insert(0, src)
+    torch.set_num_threads(1)
+
+
+def _dryrun_cell(job: tuple) -> dict:
+    from repro_torch.launch import dryrun
+
+    return dryrun.run_mwu_cell(job[2]) if job[0] == "mwu-graph" else dryrun.run_cell(*job)
+
+
+def dryrun_phase(card: str, moe9: dict, train11: dict, lm12: dict, failures: list) -> dict:
+    """Phase 13: (a) the dry run's cells of the configs phases 9-12 run, on
+    both production meshes, in DRYRUN_WORKERS processes on the host; (b) its
+    counts on a (1, 1) mesh at the shapes phases 9, 11 and 12 ran against
+    the op counter around those runs on the card (FLOPs and HBM bytes within
+    COUNT_REL), and its reckoned peaks against the phases' measured ones
+    (within PEAK_REL); (c) each run's roofline lower bound against its
+    measured time (a share over 1 fails: the count leaves out work)."""
+    import concurrent.futures
+    import multiprocessing
+    from dataclasses import replace
+
+    from repro_torch.configs import get
+    from repro_torch.configs.shapes import SHAPES, skip_reason
+    from repro_torch.launch.dryrun import summary
+    from repro_torch.utils.roofline import PEAK_FLOPS
+
+    print(f"  on {card}", flush=True)
+    t0 = time.perf_counter()
+    jobs = [(a, s, m) for s in ("prefill_32k", "train_4k", "decode_32k", "long_500k") for a in DRYRUN_ARCHS
+            for m in ("single", "pod2")] + [("mwu-graph", "match", m) for m in ("single", "pod2")]
+    src = str(Path(__file__).resolve().parent / "src")
+    ctx = multiprocessing.get_context("spawn")
+    with concurrent.futures.ProcessPoolExecutor(DRYRUN_WORKERS, mp_context=ctx, initializer=_worker_init,
+                                                initargs=(src,)) as pool:
+        recs = list(pool.map(_dryrun_cell, jobs))
+    cells = {}
+    for (a, s, m), rec in zip(jobs, recs):
+        reason = None if a == "mwu-graph" else skip_reason(get(a), SHAPES[s])
+        ok = rec.get("ok") if reason is None else rec.get("reason") == reason
+        check(failures, bool(ok), f"(a) {a} / {s} / {m}: " + (summary(rec) if rec.get("ok") else
+                                                              f"skipped: {rec.get('reason')}"))
+        cells[f"{a}/{s}/{m}"] = rec
+    print(f"  (a) {len(jobs)} cells in {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # (b), (c): each run as the dry run counts it and as the card ran it
+    moe_cfg = replace(get("mixtral-8x22b"), n_layers=MOE_LAYERS, attn_impl="pallas")
+    vlm_cfg = replace(get("internvl2-26b"), n_layers=VLM_LAYERS, attn_impl="pallas")
+    t9, t11, ssm, vlm = moe9["topk"], train11["topk"], lm12["ssm_train"], lm12["vlm_train"]
+
+    def step_peak(first: dict, peak_gb: float) -> float:  # the run's peak less what was allocated before its model
+        return peak_gb - first["allocated_before_gb"]
+
+    # (name, the dry run's record, the card's counts, the phase's ms, the phase's peak GB)
+    runs = [("9: mixtral-8x22b forward", reckoned(moe_cfg, 1, MOE_TOKENS, "forward"), t9["counted"], t9["wall_ms"],
+             None),
+            ("11 (a): mixtral-8x22b train step, topk", train11["reckoned"]["topk"], t11["counted"], t11["ms_per_step"],
+             step_peak(t11["first"], t11["first"]["max_memory_gb"])),
+            ("11 (a): mixtral-8x22b train step, mwu", train11["reckoned"]["mwu"], None, None,
+             step_peak(train11["mwu"]["first"], train11["mwu"]["first"]["max_memory_gb"])),
+            ("12 (a): mamba2-1.3b forward", reckoned(get("mamba2-1.3b"), 1, SSM_TOKENS, "forward"),
+             lm12["ssm_forward"]["counted"], lm12["ssm_forward"]["wall_ms"], None),
+            ("12 (c): mamba2-1.3b train step", ssm["reckoned"], ssm["counted"], ssm["ms_per_step"],
+             step_peak(ssm["first"], ssm["max_memory_gb"])),
+            ("12 (d): internvl2-26b forward", reckoned(vlm_cfg, 1, SSM_TOKENS, "forward"),
+             lm12["vlm_forward"]["counted"], lm12["vlm_forward"]["wall_ms"], None),
+            ("12 (e): internvl2-26b train step", vlm["reckoned"], vlm["counted"], vlm["ms_per_step"],
+             step_peak(vlm["first"], vlm["max_memory_gb"]))]
+    out = {"cells": cells, "runs": {}}
+    for name, rec, card_counts, ms, peak in runs:
+        row = {"reckoned_peak_gb": rec["memory"]["peak_bytes"] / 1e9, "flops": rec["counts"]["flops"],
+               "hbm_bytes": rec["counts"]["hbm_bytes"], "kernel_calls": rec["counts"]["kernel_calls"]}
+        if card_counts is not None:
+            rel_f = abs(rec["counts"]["flops"] - card_counts["flops"]) / card_counts["flops"]
+            rel_b = abs(rec["counts"]["hbm_bytes"] - card_counts["hbm_bytes"]) / card_counts["hbm_bytes"]
+            row.update(card_flops=card_counts["flops"], card_hbm_bytes=card_counts["hbm_bytes"],
+                       card_kernel_calls=card_counts["kernel_calls"], flops_rel=rel_f, bytes_rel=rel_b)
+            check(failures, rel_f <= COUNT_REL and rel_b <= COUNT_REL,
+                  f"(b) {name}: FLOPs {rec['counts']['flops']:.6g} (dry run) vs {card_counts['flops']:.6g} (card), "
+                  f"relative {rel_f:.3g}; HBM bytes {rec['counts']['hbm_bytes']:.6g} vs "
+                  f"{card_counts['hbm_bytes']:.6g}, relative {rel_b:.3g} (bar {COUNT_REL})")
+        if peak is not None:
+            rel_p = (row["reckoned_peak_gb"] - peak) / peak
+            row.update(measured_peak_gb=peak, peak_rel=rel_p)
+            check(failures, abs(rel_p) <= PEAK_REL,
+                  f"(b) {name}: reckoned peak {row['reckoned_peak_gb']:.3f} GB vs max_memory_allocated "
+                  f"{peak:.3f} GB (less what was allocated before the run), {rel_p:+.1%} (bar {PEAK_REL:.0%})")
+        if ms is not None:
+            r = rec["roofline"]
+            share = r["step_time_lb_s"] * 1e3 / ms
+            row.update(measured_ms=ms, step_time_lb_ms=r["step_time_lb_s"] * 1e3, roofline_share=share,
+                       bottleneck=r["bottleneck"], mfu_upper_bound=r.get("mfu_upper_bound"),
+                       mfu=rec["model_flops"]["total"] / (ms * 1e-3 * PEAK_FLOPS))
+            check(failures, share <= 1.0,
+                  f"(c) {name}: roofline lower bound {r['step_time_lb_s'] * 1e3:.2f} ms ({r['bottleneck']}; compute "
+                  f"{r['compute_s'] * 1e3:.2f}, memory {r['memory_s'] * 1e3:.2f}) vs measured {ms:.2f} ms: share "
+                  f"{share:.1%}; MFU {row['mfu']:.1%} (bound {r.get('mfu_upper_bound', 0):.1%})")
+        out["runs"][name] = row
+    out["seconds"] = time.perf_counter() - t0
+    print(f"  phase 13 runs: {json.dumps(out['runs'])}", flush=True)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n-users", type=int, default=480_189, help="users of the full-size bmatch graph")
@@ -4647,6 +4751,12 @@ def main() -> int:
     lm12 = lm_phase(K, smi, failures)
     print(f"  phase 12: {time.perf_counter() - t12:.1f} s", flush=True)
     end_phase("12", failures)
+
+    print("== phase 13: the dry run (repro_torch.launch) held against the card", flush=True)
+    t13 = time.perf_counter()
+    dryrun_phase(smi, moe9, train11, lm12, failures)
+    print(f"  phase 13: {time.perf_counter() - t13:.1f} s", flush=True)
+    end_phase("13", failures)
     print(f"  total {time.perf_counter() - t_start:.1f} s", flush=True)
 
     # one entry per kernel: for the MWU kernels their float64 row at the

@@ -291,21 +291,15 @@ def _advance(ln: _Lane, r: list) -> tuple:
     return (ln.it - 1, ln.viol, ln.alpha_prev, probes)
 
 
-def _run(lanes: list, opts: MWUOptions, rows: list | None = None, group=None,
-         init_cols: int | None = None) -> tuple[list, torch.Tensor]:
-    """The MWU loop over ``lanes``, a list of ``(P, C, p_mask, c_mask)``
-    of one shape; returns the finished lanes and the ``[K, n]`` x. With
-    ``rows`` a list of K lists, each lane's iterations append their
-    (iteration, violation at its start, alpha after it, probes) rows.
-    ``group`` and ``init_cols``: a distributed run's (module docstring).
-    Every rank of ``group`` reads the same record, bit for bit, since it is
-    built from replicated vectors only, so the ranks leave the loop
-    together."""
+def _start(lanes: list, opts: MWUOptions, group=None, init_cols: int | None = None) -> tuple:
+    """The state of ``lanes`` (a list of ``(P, C, p_mask, c_mask)`` of one
+    shape) before the loop's first iteration: x from ``init_x``, y and z
+    its images, each lane's record row and warm start. Returns (the lanes,
+    the ``[K, n]`` x, the ``[K, 9]`` record)."""
     K = len(lanes)
     P0, C0 = lanes[0][:2]
     dt = torch.promote_types(P0.colmax().dtype, C0.colmax().dtype)
     dt = dt if dt.is_floating_point else torch.float32
-    record_fn = _record_fn(opts.step_rule)
     x0 = [init_x(P, opts.eps, dt, n_cols=init_cols, group=group) for P, *_ in lanes]
     dev = x0[0].device
     X, Y, Z = _rows(K, P0.shape[1], dt, dev), _rows(K, P0.shape[0], dt, dev), _rows(K, C0.shape[0], dt, dev)
@@ -328,7 +322,21 @@ def _run(lanes: list, opts: MWUOptions, rows: list | None = None, group=None,
     start = torch.stack([torch.stack([_masked_min(ln.z, ln.cm), _masked_max(ln.y, ln.pm)]) for ln in state]).tolist()
     for ln, (min_z, max_y) in zip(state, start):
         ln.min_z, ln.max_y = min_z, max_y
+    return state, X, rec
 
+
+def _run(lanes: list, opts: MWUOptions, rows: list | None = None, group=None,
+         init_cols: int | None = None) -> tuple[list, torch.Tensor]:
+    """The MWU loop over ``lanes``, a list of ``(P, C, p_mask, c_mask)``
+    of one shape; returns the finished lanes and the ``[K, n]`` x. With
+    ``rows`` a list of K lists, each lane's iterations append their
+    (iteration, violation at its start, alpha after it, probes) rows.
+    ``group`` and ``init_cols``: a distributed run's (module docstring).
+    Every rank of ``group`` reads the same record, bit for bit, since it is
+    built from replicated vectors only, so the ranks leave the loop
+    together."""
+    state, X, rec = _start(lanes, opts, group, init_cols)
+    record_fn = _record_fn(opts.step_rule)
     active = [ln for ln in state if ln.running(opts.max_iter)]
     while active:
         for ln in active:

@@ -58,10 +58,13 @@ _MESH_CACHE: dict = {}
 
 
 def world_timeout():
-    """The default group's timeout, which the plan's groups take on."""
+    """The default group's timeout, which the plan's groups take on (the
+    default timeout where its backend has no options: the fake backend of
+    ``repro_torch.launch.dryrun``)."""
     backend = dist.get_backend()
     device = torch.device("cuda" if backend == "nccl" else "cpu")
-    return dist.group.WORLD._get_backend(device).options._timeout
+    options = dist.group.WORLD._get_backend(device).options
+    return dist.default_pg_timeout if options is None else options._timeout
 
 
 @dataclass(frozen=True)

@@ -18,6 +18,7 @@ from .. import loader
 from .ref import axpy_reduce_ref
 
 
+@loader.counted("axpy_reduce", lambda r, y, *a, **k: {loader.dtype_rate(y.dtype): 4 * y.shape[0]})
 def axpy_reduce(y: torch.Tensor, dy: torch.Tensor, alpha, *, out: torch.Tensor | None = None,
                 red: torch.Tensor | None = None, keep: torch.Tensor | None = None):
     """Returns ``(out, min, max)``; min and max are float64 0-d tensors on

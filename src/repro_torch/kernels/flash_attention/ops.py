@@ -5,7 +5,8 @@ Port of ``repro.kernels.flash_attention``: same signature and model layout,
 the hand-written kernel of ``csrc/flash_attention.cu``, which reads that
 layout with strides (query head h reads kv head h // (Hq // Hkv)), so
 nothing is transposed, repeated or padded. CPU tensors take the plain
-version in ``ref.py``.
+version in ``ref.py``, and so do ``meta`` tensors (the dry run's abstract
+forward, ``repro_torch.launch.dryrun``).
 
 No backward: an input that requires grad, with grad enabled, raises
 ``NotImplementedError`` (the CUDA launch would return an output with no
@@ -17,6 +18,7 @@ VMEM tiling; the CUDA kernel picks its own tiles and ignores them.
 """
 import ctypes
 
+import numpy as np
 import torch
 
 from .. import loader
@@ -50,6 +52,24 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window) -> None:
         raise ValueError(f"flash_attention: window must be None or >= 1, got {window}")
 
 
+def scored_pairs(S: int, causal: bool, window) -> int:
+    """(query, key) pairs that attention scores: S^2 bidirectional, S(S+1)/2
+    causal, the band for a window."""
+    q = np.arange(S)
+    lo = np.maximum(0, q - window + 1) if window else np.zeros(S, np.int64)
+    hi = q if causal else np.full(S, S - 1)
+    return int((hi - lo + 1).sum())
+
+
+def _flops(o, q, k, v, positions=None, *, causal=True, window=None, **_) -> dict:
+    """4 d FLOPs a scored pair a query head; the f32 kernel's products run
+    three times on the TF32 tensor cores (3xTF32)."""
+    B, S, Hq, dh = q.shape
+    n = 4 * B * Hq * dh * scored_pairs(S, causal, window)
+    return {"tf32": 3 * n} if q.dtype == torch.float32 else {"bf16": n}
+
+
+@loader.counted("flash_attention", _flops)
 def flash_attention(q, k, v, positions=None, *, causal=True, window=None, block_q=512, block_k=512):
     """q: (B,S,Hq,dh), k/v: (B,S,Hkv,dh) -> (B,S,Hq,dh) in q's dtype.
     Forward only, on both devices: raises ``NotImplementedError`` where grad
@@ -58,8 +78,9 @@ def flash_attention(q, k, v, positions=None, *, causal=True, window=None, block_
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         raise NotImplementedError("flash_attention has no backward (nor has the reference's Pallas kernel): "
                                   "train with attn_impl='chunked' or 'dense'")
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal, window=window)
+    if q.device.type in ("cpu", "meta"):  # meta: the dry run's abstract forward
+        # contiguous, the kernel's layout, so that what follows is the same on every device
+        return flash_attention_plain(q, k, v, causal=causal, window=window).contiguous()
     _check(q, k, v, window)
     B, S, Hq, dh = q.shape
     o = torch.empty((B, S, Hq, dh), dtype=q.dtype, device=q.device)

@@ -27,6 +27,7 @@ def check_factor(name: str, like: torch.Tensor, u: torch.Tensor, mask: torch.Ten
     return loader.check_keep(name, u, mask), None if weights is None else weights.data_ptr()
 
 
+@loader.counted("incidence_gather", lambda r, u, v, w, *a, **k: {loader.dtype_rate(w.dtype): u.shape[0]})
 def incidence_gather(u: torch.Tensor, v: torch.Tensor, w: torch.Tensor, mask: torch.Tensor | None = None,
                      weights: torch.Tensor | None = None) -> torch.Tensor:
     """g[e] = w[u[e]] + w[v[e]] in w's dtype; ``u``, ``v`` int32 of one

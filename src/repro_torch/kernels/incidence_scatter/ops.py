@@ -35,6 +35,11 @@ def _check(name: str, x: torch.Tensor, s: Segments, rows: int) -> None:
         raise ValueError(f"{name}: {s.nnz} entries read x[i] of {x.shape[0]} values")
 
 
+def _flops(out, x, a, b=None, *rest, **kw) -> dict:
+    return {loader.dtype_rate(x.dtype): 2 * (a.nnz + (0 if b is None else b.nnz))}
+
+
+@loader.counted("incidence_scatter", _flops)
 def incidence_scatter(x: torch.Tensor, a: Segments, b: Segments | None = None,
                       base: torch.Tensor | None = None, order: torch.Tensor | None = None) -> torch.Tensor:
     """The rows' sums of ``a`` and ``b`` over x, added to ``base`` (None: 0),

@@ -85,6 +85,15 @@ def _out(name, out, like, size):
     return out
 
 
+def _sweeps_flops(extra: int):
+    """FLOPs of a search: 9 a row of both sides for every sweep, the probes
+    (the record's second entry) and ``extra`` more."""
+    def flops(r, y, dy, z, dz, *a, **k):
+        return {loader.dtype_rate(y.dtype): 9 * (y.shape[0] + z.shape[0]) * (int(r[1]) + extra)}
+    return flops
+
+
+@loader.counted("linesearch_probe", lambda r, y, *a, **k: {loader.dtype_rate(y.dtype): 9 * y.shape[0]})
 def linesearch_probe(y: torch.Tensor, dy: torch.Tensor, alpha: float, eta: float, sign: float = 1.0,
                      out: torch.Tensor | None = None, keep: torch.Tensor | None = None) -> torch.Tensor:
     """``[lse, slope, min_v]`` as a 3-vector in y's dtype on y's device.
@@ -102,6 +111,8 @@ def linesearch_probe(y: torch.Tensor, dy: torch.Tensor, alpha: float, eta: float
     return _launch("linesearch_probe", y, dy, ky, y, dy, None, 0, float(sign) * float(eta), 0.0, alpha, out)
 
 
+@loader.counted("linesearch_probe", lambda r, y, dy, z, *a, **k: {loader.dtype_rate(y.dtype):
+                                                                   9 * (y.shape[0] + z.shape[0])})
 def linesearch_probe2(y: torch.Tensor, dy: torch.Tensor, z: torch.Tensor, dz: torch.Tensor, alpha: float,
                       eta: float, out: torch.Tensor | None = None, *, p_keep: torch.Tensor | None = None,
                       c_keep: torch.Tensor | None = None) -> torch.Tensor:
@@ -151,6 +162,7 @@ def _search(name: str, y, dy, z, dz, eta, ls_eps, alpha0, d_max, out, p_keep, c_
     return out
 
 
+@loader.counted("newton_search", _sweeps_flops(1))
 def newton_search(y: torch.Tensor, dy: torch.Tensor, z: torch.Tensor, dz: torch.Tensor, eta: float, ls_eps: float,
                   alpha0=None, *, d_max: torch.Tensor | None = None, out: torch.Tensor | None = None,
                   p_keep: torch.Tensor | None = None, c_keep: torch.Tensor | None = None) -> torch.Tensor:
@@ -177,6 +189,7 @@ def newton_search(y: torch.Tensor, dy: torch.Tensor, z: torch.Tensor, dz: torch.
     return _search("newton_search", y, dy, z, dz, eta, ls_eps, alpha0, d_max, out, p_keep, c_keep)
 
 
+@loader.counted("binary_search", _sweeps_flops(2))
 def binary_search(y: torch.Tensor, dy: torch.Tensor, z: torch.Tensor, dz: torch.Tensor, eta: float, ls_eps: float,
                   alpha0=None, *, d_max: torch.Tensor | None = None, out: torch.Tensor | None = None,
                   p_keep: torch.Tensor | None = None, c_keep: torch.Tensor | None = None) -> torch.Tensor:

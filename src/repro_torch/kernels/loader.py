@@ -13,7 +13,9 @@ raises.
 
 The wrappers count their launches in :data:`LAUNCHES` (one per call that
 launched the kernel on the card), so a run can show which kernels the main
-path went through.
+path went through. Each wrapper is decorated with :func:`counted`, which
+lets an op counter (``repro_torch.utils.opcount``) charge its calls by the
+kernel's own formula.
 """
 from __future__ import annotations
 
@@ -30,6 +32,7 @@ import time
 from pathlib import Path
 
 import torch
+from torch.utils._python_dispatch import _get_current_dispatch_mode
 
 __all__ = [
     "CSRC",
@@ -47,6 +50,8 @@ __all__ = [
     "check_slot",
     "check_indices",
     "check_keep",
+    "counted",
+    "dtype_rate",
 ]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -287,3 +292,27 @@ def check_keep(name: str, like: torch.Tensor, keep: torch.Tensor | None) -> int 
         raise ValueError(f"{name}: a row mask must be a contiguous 1-D tensor of {like.shape[0]} values, got shape "
                          f"{tuple(keep.shape)}")
     return keep.data_ptr()
+
+
+def dtype_rate(dtype: torch.dtype) -> str:
+    """The rate (``utils.roofline``) of a kernel's arithmetic outside the tensor cores."""
+    return "f64" if dtype == torch.float64 else "f32"
+
+
+def counted(name: str, flops):
+    """Decorator of kernel ``name``'s wrapper: where an op counter
+    (``repro_torch.utils.opcount.OpCounter``) is the active dispatch mode, a
+    call is charged to it as one op, ``flops(result, *args, **kwargs)``
+    (FLOPs by rate) and its tensors' bytes, whichever version runs; else
+    the wrapper runs untouched."""
+
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            mode = _get_current_dispatch_mode()
+            if mode is None or not hasattr(mode, "kernel_call"):
+                return fn(*args, **kwargs)
+            return mode.kernel_call(name, flops, fn, args, kwargs)
+        return call
+
+    return wrap

@@ -13,6 +13,7 @@ from .. import loader
 from .ref import softmax_weights_ref
 
 
+@loader.counted("softmax_weights", lambda r, v, *a, **k: {loader.dtype_rate(v.dtype): 7 * v.shape[0]})
 def softmax_weights(v: torch.Tensor, eta: float, sign: float = 1.0, keep: torch.Tensor | None = None):
     """Returns ``(lse, w)``: a 0-d tensor and a vector, both in v's dtype and
     on v's device. ``eta`` is a host float."""

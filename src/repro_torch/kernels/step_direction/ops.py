@@ -25,6 +25,11 @@ def _ticket(device: torch.device, stream: int) -> torch.Tensor:
     return torch.zeros(1, dtype=torch.int32, device=device)
 
 
+def _flops(r, h, x, scale, g=None, gather=None) -> dict:
+    return {loader.dtype_rate(x.dtype): (4 if gather is None else 6) * x.shape[0]}
+
+
+@loader.counted("step_direction", _flops)
 def step_direction(h: torch.Tensor, x: torch.Tensor, scale: float, g: torch.Tensor | None = None,
                    gather: tuple | None = None):
     """Returns ``(d, dmax)``, dmax a 0-d tensor on x's device. Give either

@@ -44,10 +44,10 @@ from typing import NamedTuple
 import torch
 
 from ...kernels.flash_attention import flash_attention
-from ..common import dense_init
+from ..common import TP, P, dense_init
 from .rope import apply_rope
 
-__all__ = ["attention_init", "attention_apply", "KVCache", "init_kv_cache"]
+__all__ = ["attention_init", "attention_spec", "attention_apply", "KVCache", "init_kv_cache"]
 
 _NEG_INF = -1e30
 
@@ -82,6 +82,16 @@ def attention_init(gen: torch.Generator, cfg, dtype, device) -> dict:
         p["bk"] = torch.zeros(kvd, dtype=dtype, device=device)
         p["bv"] = torch.zeros(kvd, dtype=dtype, device=device)
     return p
+
+
+def attention_spec(cfg, fsdp: bool) -> dict:
+    """Partition specs of ``attention_init``'s parameters (reference
+    ``attention.py:76``); fsdp also shards the non-TP dim over data."""
+    dp = "data" if fsdp else None
+    s = {"wq": P(dp, TP), "wk": P(dp, TP), "wv": P(dp, TP), "wo": P(TP, dp)}
+    if cfg.qkv_bias:
+        s.update({"bq": P(TP), "bk": P(TP), "bv": P(TP)})
+    return s
 
 
 def _mask_bias(q_pos, k_pos, *, causal, window, dtype):

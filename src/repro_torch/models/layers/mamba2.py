@@ -34,10 +34,10 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from ..common import dense_init
+from ..common import TP, P, dense_init
 from .norms import apply_norm
 
-__all__ = ["mamba2_init", "mamba2_apply", "mamba2_decode", "SSMState", "init_ssm_state"]
+__all__ = ["mamba2_init", "mamba2_spec", "mamba2_apply", "mamba2_decode", "SSMState", "init_ssm_state"]
 
 
 class SSMState(NamedTuple):
@@ -79,6 +79,13 @@ def mamba2_init(gen: torch.Generator, cfg, dtype, device) -> dict:
         "norm_scale": torch.ones(di, dtype=dtype, device=device),
         "out_proj": dense_init(gen, (di, d), dtype, device, scale=1.0 / math.sqrt(2 * cfg.n_layers)),
     }
+
+
+def mamba2_spec(cfg, fsdp: bool) -> dict:
+    """Partition specs of ``mamba2_init``'s parameters (reference ``mamba2.py:70``)."""
+    dp = "data" if fsdp else None
+    return {"in_proj": P(dp, TP), "conv_w": P(None, TP), "conv_b": P(TP), "A_log": P(TP), "D": P(TP),
+            "dt_bias": P(TP), "norm_scale": P(TP), "out_proj": P(TP, dp)}
 
 
 def _split_proj(cfg, proj: torch.Tensor):

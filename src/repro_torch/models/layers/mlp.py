@@ -10,9 +10,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ..common import dense_init
+from ..common import TP, P, dense_init
 
-__all__ = ["mlp_init", "mlp_apply"]
+__all__ = ["mlp_init", "mlp_spec", "mlp_apply"]
 
 
 def mlp_init(gen: torch.Generator, cfg, dtype, device) -> dict:
@@ -29,6 +29,14 @@ def mlp_init(gen: torch.Generator, cfg, dtype, device) -> dict:
         "bu": torch.zeros(f, dtype=dtype, device=device),
         "bd": torch.zeros(d, dtype=dtype, device=device),
     }
+
+
+def mlp_spec(cfg, fsdp: bool) -> dict:
+    """Partition specs of ``mlp_init``'s parameters (reference ``mlp.py:30``)."""
+    dp = "data" if fsdp else None
+    if cfg.mlp_type == "swiglu":
+        return {"wg": P(dp, TP), "wu": P(dp, TP), "wd": P(TP, dp)}
+    return {"wu": P(dp, TP), "wd": P(TP, dp), "bu": P(TP), "bd": P(None)}
 
 
 def mlp_apply(params, x: torch.Tensor, cfg) -> torch.Tensor:

@@ -47,9 +47,9 @@ import torch.nn.functional as F
 
 from ...core import MWUOptions, OnesRow, VStack, solve_lanes
 from ...core.operators import LinOp
-from ..common import dense_init
+from ..common import TP, P, dense_init
 
-__all__ = ["ExpertCapRows", "TokenSumRows", "BoxRows", "moe_init", "moe_apply", "dispatch_shape", "topk_route",
+__all__ = ["ExpertCapRows", "TokenSumRows", "BoxRows", "moe_init", "moe_spec", "moe_apply", "dispatch_shape", "topk_route",
            "mwu_route", "routing_ops", "router_options", "routing_lp", "round_plan", "expert_load"]
 
 
@@ -243,6 +243,24 @@ def moe_init(gen: torch.Generator, cfg, dtype, device) -> dict:
         "wu": dense_init(gen, (m.n_experts, d, m.d_ff), dtype, device),
         "wd": dense_init(gen, (m.n_experts, m.d_ff, d), dtype, device),
     }
+
+
+def moe_spec(cfg, fsdp: bool) -> dict:
+    """Partition specs of ``moe_init``'s parameters (reference ``moe.py:201``),
+    by ``cfg.moe.ep_axis``: "data" puts the experts over data and their
+    hidden dim over model (expert-parallel serving of dbrx's 16 experts);
+    "matrix" shards each expert's matrices 2-D over (data, model) (mixtral:
+    8 experts divide neither 16-way axis); otherwise the expert hidden dim
+    over model and, with fsdp, the experts over data."""
+    dp = "data" if fsdp else None
+    ep = cfg.moe.ep_axis
+    if ep == "data":
+        e_spec, d_spec = P("data", None, TP), P("data", TP, None)
+    elif ep == "matrix":
+        e_spec, d_spec = P(None, "data", TP), P(None, TP, "data")
+    else:
+        e_spec, d_spec = P(dp, None, TP), P(dp, TP, None)
+    return {"router": P(None, None), "wg": e_spec, "wu": e_spec, "wd": d_spec}
 
 
 def dispatch_shape(cfg, T: int) -> tuple[int, int]:

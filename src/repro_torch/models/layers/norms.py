@@ -6,7 +6,9 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["norm_init", "apply_norm"]
+from ..common import P
+
+__all__ = ["norm_init", "norm_spec", "apply_norm"]
 
 
 def norm_init(d: int, norm_type: str, dtype, device) -> dict:
@@ -14,6 +16,14 @@ def norm_init(d: int, norm_type: str, dtype, device) -> dict:
     if norm_type == "layernorm":
         p["bias"] = torch.zeros(d, dtype=dtype, device=device)
     return p
+
+
+def norm_spec(norm_type: str) -> dict:
+    """Partition specs of ``norm_init``'s parameters: replicated (reference ``norms.py:17``)."""
+    s = {"scale": P(None)}
+    if norm_type == "layernorm":
+        s["bias"] = P(None)
+    return s
 
 
 def apply_norm(params, x: torch.Tensor, norm_type: str, eps: float) -> torch.Tensor:

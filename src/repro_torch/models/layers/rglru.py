@@ -26,9 +26,9 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from ..common import dense_init
+from ..common import TP, P, dense_init
 
-__all__ = ["rglru_init", "rglru_apply", "rglru_decode", "RGLRUState", "init_rglru_state"]
+__all__ = ["rglru_init", "rglru_spec", "rglru_apply", "rglru_decode", "RGLRUState", "init_rglru_state"]
 
 _C = 8.0
 _CONV_K = 4
@@ -62,6 +62,13 @@ def rglru_init(gen: torch.Generator, cfg, dtype, device) -> dict:
         "lam": torch.linspace(0.9, 0.999, w, dtype=torch.float64, device=device).to(torch.float32),
         "wout": dense_init(gen, (w, d), dtype, device, scale=1.0 / math.sqrt(2 * cfg.n_layers)),
     }
+
+
+def rglru_spec(cfg, fsdp: bool) -> dict:
+    """Partition specs of ``rglru_init``'s parameters (reference ``rglru.py:63``)."""
+    dp = "data" if fsdp else None
+    return {"wx": P(dp, TP), "wgate": P(dp, TP), "conv_w": P(None, TP), "conv_b": P(TP), "wa": P(TP), "wi": P(TP),
+            "lam": P(TP), "wout": P(TP, dp)}
 
 
 def _gates(params, xi: torch.Tensor):

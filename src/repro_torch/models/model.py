@@ -24,6 +24,15 @@ precomputed (B, S, d_model) frames; ``vision_text`` consumes precomputed
 (B, n_patches, d_model) ``patches``, cast to the compute dtype and put
 before the text tokens' embeddings (a decode step is text only).
 
+Sharding (the reference's vocabulary, ``models.common``): ``param_spec()``
+gives each parameter its partition spec by name, ``cache_spec()`` each
+cache tensor its spec; ``mesh_axes`` and ``fsdp`` choose them, as the
+reference's ``Model(cfg, mesh_axes, fsdp)``. They annotate, and change
+nothing the model computes (the reference's annotations are a no-op
+outside a mesh context); ``repro_torch.launch`` reads them. A ``meta``
+model is the abstract build (the reference's ``abstract_params``): every
+parameter at its shape and dtype, nothing drawn.
+
 Training: ``decayed()`` gives the reference's weight-decay rule by
 parameter name (its stacked leaves are all decayed, see
 ``repro_torch.train.optimizer``); ``repro_torch.train.load_jax_train_state``
@@ -48,7 +57,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from .common import Dtypes, dense_init
+from .common import DP, TP, Dtypes, P, dense_init
 from .layers import attention as att
 from .layers import mamba2 as m2
 from .layers import mlp as mlpmod
@@ -59,6 +68,7 @@ from .layers import rglru as rg
 __all__ = ["Model", "DecodeCaches", "load_jax_params"]
 
 _MIXER_INIT = {"attn": att.attention_init, "ssm": m2.mamba2_init, "rglru": rg.rglru_init}
+_MIXER_SPEC = {"attn": att.attention_spec, "ssm": m2.mamba2_spec, "rglru": rg.rglru_spec}
 
 
 def _groups(kind: str, cfg) -> tuple:
@@ -102,20 +112,25 @@ class Block(nn.Module):
 
 
 class Model(nn.Module):
-    """``Model(cfg, device="cuda", seed=0)``: random init from a seeded
-    ``torch.Generator`` on ``device``; ``load_jax_params`` replaces it."""
+    """``Model(cfg, device="cuda", seed=0, mesh_axes=("data", "model"),
+    fsdp=True)``: random init from a seeded ``torch.Generator`` on
+    ``device`` (none on ``meta``); ``load_jax_params`` replaces it.
+    ``mesh_axes`` and ``fsdp`` choose the partition specs only."""
 
-    def __init__(self, cfg, device="cuda", seed: int = 0):
+    def __init__(self, cfg, device="cuda", seed: int = 0, mesh_axes=("data", "model"), fsdp: bool = True):
         super().__init__()
         pattern = cfg.pattern()
         self.cfg = cfg
+        self.mesh_axes = tuple(mesh_axes)
+        self.fsdp = fsdp
         self.dt = Dtypes(cfg)
         # the reference's layout of layers: reps repetitions of the pattern unit, then the tail
         self.pattern_unit = cfg.block_pattern or (pattern[0],)
         self.reps = cfg.n_layers // len(self.pattern_unit)
 
         device = torch.device(device)
-        gen = torch.Generator(device=device).manual_seed(seed)
+        # a meta build draws nothing (torch has no generator on meta)
+        gen = None if device.type == "meta" else torch.Generator(device=device).manual_seed(seed)
         dtp, V, d = self.dt.param, cfg.padded_vocab, cfg.d_model
         if cfg.modality == "audio_frames":
             self.frame_proj = nn.Parameter(dense_init(gen, (d, d), dtp, device))
@@ -208,6 +223,44 @@ class Model(nn.Module):
             where = name.split(".")
             out[name] = (where[0] == "blocks" and int(where[1]) < n_stacked) or p.dim() >= 2
         return out
+
+    # ------------------------------------------------------------------
+    # sharding
+    # ------------------------------------------------------------------
+
+    def param_spec(self) -> dict:
+        """Parameter name -> its partition spec (reference ``model.py:137-153``,
+        whose stacked leaves carry a leading None; here one tensor a layer):
+        fsdp shards each weight's non-TP dim over data."""
+        cfg = self.cfg
+        dp = "data" if self.fsdp else None
+        spec = {"embedding": P(TP, dp)}
+        if cfg.modality == "audio_frames":
+            spec["frame_proj"] = P(None, TP)
+        for i, blk in enumerate(self.blocks):
+            groups = {"ln1": norms.norm_spec(cfg.norm_type), blk.kind: _MIXER_SPEC[blk.kind](cfg, self.fsdp)}
+            if blk.kind != "ssm":
+                groups["ln2"] = norms.norm_spec(cfg.norm_type)
+                ffn = blk.groups[-1]
+                groups[ffn] = (moemod.moe_spec if ffn == "moe" else mlpmod.mlp_spec)(cfg, self.fsdp)
+            spec.update({f"blocks.{i}.{grp}.{n}": s for grp, leaves in groups.items() for n, s in leaves.items()})
+        spec.update({f"final_norm.{n}": s for n, s in norms.norm_spec(cfg.norm_type).items()})
+        if not cfg.tie_embeddings:
+            spec["lm_head"] = P(dp, TP)
+        return spec
+
+    def cache_spec(self, shard_seq: bool = True, shard_batch: bool = True) -> DecodeCaches:
+        """Partition specs of ``init_caches``' tensors, one a layer
+        (reference ``model.py:291``): the batch over the DP axes (not where
+        ``shard_batch`` is False: a global batch the DP axes do not divide),
+        a KV cache's slots over model (replicated where ``shard_seq`` is
+        False), a recurrent state's width or heads over model."""
+        dp = DP(self.mesh_axes) if shard_batch else None
+        seq = TP if shard_seq else None
+        one = {"attn": lambda: att.KVCache(k=P(dp, seq, None, None), v=P(dp, seq, None, None), slot_pos=P(seq)),
+               "ssm": lambda: m2.SSMState(conv=P(dp, None, TP), ssm=P(dp, TP, None, None), pos=P()),
+               "rglru": lambda: rg.RGLRUState(conv=P(dp, None, TP), h=P(dp, TP), pos=P())}
+        return DecodeCaches(layers=tuple(one[blk.kind]() for blk in self.blocks), pos=P())
 
     # ------------------------------------------------------------------
     # serving

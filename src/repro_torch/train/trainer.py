@@ -13,8 +13,9 @@ Straggler posture: a per-step wall-clock watchdog records slow steps
 pipeline), the state copied to host memory before the next step updates
 it in place.
 
-One device: ``mesh=`` raises ``NotImplementedError`` (the port has no
-``launch/mesh.py`` yet, ROADMAP queue 1 item 15.4).
+A mesh (a ``DeviceMesh``, ``repro_torch.launch.mesh``) sets the model's
+partition specs (its axis names, fsdp), as the reference's does; they
+annotate only, so a run with a mesh is bit for bit the run without one.
 """
 from __future__ import annotations
 
@@ -48,17 +49,21 @@ class TrainerConfig:
 
 
 class Trainer:
-    """``Trainer(model_cfg, tc, device="cuda")``: a ``Model`` initialized from
-    ``tc.seed`` on ``device``, the token pipeline of ``tc``, and ``run()``."""
+    """``Trainer(model_cfg, tc, mesh=None, device="cuda")``: a ``Model``
+    initialized from ``tc.seed`` on ``device``, with the partition specs of
+    ``mesh`` where one is given, the token pipeline of ``tc``, and ``run()``."""
 
     def __init__(self, model_cfg, tc: TrainerConfig, mesh=None, device="cuda"):
-        if mesh is not None:
-            raise NotImplementedError("Trainer(mesh=...): the port trains on one device; launch/mesh.py is not "
-                                      "ported yet (ROADMAP queue 1 item 15.4)")
+        if mesh is not None and not hasattr(mesh, "mesh_dim_names"):
+            raise TypeError(f"Trainer(mesh=...) takes a DeviceMesh (repro_torch.launch.mesh.make_mesh), not "
+                            f"{type(mesh).__name__}")
         self.cfg = model_cfg
         self.tc = tc
+        self.mesh = mesh
         self.device = torch.device(device)
-        self.model = Model(model_cfg, device=self.device, seed=tc.seed)
+        self.model = Model(model_cfg, device=self.device, seed=tc.seed,
+                           mesh_axes=mesh.mesh_dim_names if mesh is not None else ("data", "model"),
+                           fsdp=mesh is not None)
         self.pipe = TokenPipeline(model_cfg.vocab_size, tc.seq_len, tc.global_batch, tc.seed)
         self.step_fn = make_train_step(self.model, tc.opt, tc.microbatches, tc.loss_chunk)
         self.last_metrics = {}

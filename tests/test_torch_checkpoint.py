@@ -150,7 +150,9 @@ def test_trainer_restart_resumes_bit_for_bit(tmp_path, arch):
 
 
 def test_trainer_mesh_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """A mesh that is not a DeviceMesh is refused (a DeviceMesh trains:
+    tests/test_torch_launch.py)."""
+    with pytest.raises(TypeError, match="DeviceMesh"):
         Trainer(get("minitron-4b").reduced(), TrainerConfig(), mesh=object(), device="cpu")
 
 

@@ -1780,3 +1780,102 @@ def test_vlm_prefill_flash_matches_chunked_on_card(cuda):
             torch.testing.assert_close(a / scale, b / scale, atol=1e-4, rtol=0)
         else:
             assert torch.equal(a, b)
+
+
+# -- the dry run (repro_torch.launch) against the card -----------------------------------------------------
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["yi-34b", "qwen1.5-32b", "starcoder2-15b", "minitron-4b", "mamba2-1.3b",
+                                  "dbrx-132b", "mixtral-8x22b", "internvl2-26b", "hubert-xlarge",
+                                  "recurrentgemma-9b"])
+def test_launch_abstract_build(cuda, arch):
+    """The abstract build of each in-repo config: every parameter on meta at
+    the shape and dtype a build on the card gives it (reduced() built on the
+    card beside it), nothing drawn, at full size in no time."""
+    cfg = get(arch)
+    full = Model(cfg, device="meta")
+    assert all(p.is_meta for p in full.parameters())
+    assert sum(p.numel() for p in full.parameters()) > 1e9 or arch == "hubert-xlarge"
+    small = replace(cfg.reduced(), n_layers=cfg.reduced().n_layers)
+    on_meta = {n: (p.shape, p.dtype) for n, p in Model(small, device="meta").named_parameters()}
+    on_card = {n: (p.shape, p.dtype) for n, p in Model(small, device=cuda).named_parameters()}
+    assert on_meta == on_card
+
+
+def _launch_case(name: str):
+    """A config at a width the card measures in a moment, bf16 over f32 as the
+    in-repo configs, and its step: (config, B, S, step)."""
+    from repro_torch.configs.shapes import ShapeCell
+
+    narrow = dict(d_model=1024, n_heads=8, d_head=128, d_ff=4096, vocab_size=16384, remat="full")
+    if name == "mixtral forward":
+        base = get("mixtral-8x22b")
+        cfg = replace(base, n_layers=4, n_kv_heads=2, sliding_window=1024, attn_impl="pallas",
+                      moe=replace(base.moe, d_ff=4096), **narrow)
+        return cfg, ShapeCell("forward", 2048, 1, "forward")
+    if name == "mixtral train":
+        base = get("mixtral-8x22b")
+        cfg = replace(base, n_layers=2, n_kv_heads=2, sliding_window=1024, moe=replace(base.moe, d_ff=4096), **narrow)
+        return cfg, ShapeCell("train", 2048, 1, "train")
+    if name in ("mamba2 forward", "mamba2 train"):
+        cfg = replace(get("mamba2-1.3b"), n_layers=6, d_model=1024, vocab_size=16384)
+        return cfg, ShapeCell(name.split()[1], 2048, 1, name.split()[1])
+    cfg = replace(get("internvl2-26b"), n_layers=2, n_kv_heads=2, n_vision_patches=256,
+                  attn_impl="pallas" if name == "internvl2 forward" else "chunked", **narrow)
+    return cfg, ShapeCell(name.split()[1], 2048, 1, name.split()[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["mixtral forward", "mixtral train", "mamba2 forward", "mamba2 train",
+                                  "internvl2 forward", "internvl2 train"])
+def test_launch_counts_match_card(cuda, name):
+    """Phase 13 (b) of chip_smoke.py at a reduced size: the dry run's count
+    of a run on meta (``run_cell`` on a (1, 1) mesh) against the op counter
+    around the same run on the card: FLOPs and HBM bytes within 1% (they
+    differ only where a kernel runs in place of its plain version, and both
+    are charged alike), the reckoned peak within 15% of
+    ``max_memory_allocated`` (less what was allocated before the model)."""
+    from repro_torch.configs.shapes import input_specs
+    from repro_torch.launch import dryrun
+    from repro_torch.train import AdamWConfig, make_train_state, make_train_step
+    from repro_torch.utils.opcount import OpCounter
+
+    cfg, cell = _launch_case(name)
+    rec = dryrun.run_cell(cfg, cell, "one card", mesh={"data": 1, "model": 1})
+    assert rec["ok"]
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    batch = {}
+    for k, (shape, dtype) in input_specs(cfg, cell).items():
+        batch[k] = (torch.randint(0, cfg.vocab_size, shape, generator=gen, device=cuda, dtype=dtype)
+                    if dtype == torch.int32 else torch.randn(shape, generator=gen, device=cuda) * 0.02)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    model = Model(cfg, device=cuda, seed=0)
+    if cell.step == "train":
+        state = make_train_state(model)
+        step = make_train_step(model, AdamWConfig(lr=1e-3, warmup_steps=2), 1, 512)
+        run = lambda: step(state, batch)
+        grad = torch.enable_grad()
+    else:
+        run = lambda: model(batch)
+        grad = torch.inference_mode()
+    with grad:
+        run()  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        run()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        with OpCounter() as c:
+            run()
+        torch.cuda.synchronize()
+    card = c.report
+    rel_f = abs(rec["counts"]["flops"] - card.flops) / card.flops
+    rel_b = abs(rec["counts"]["hbm_bytes"] - card.hbm_bytes) / card.hbm_bytes
+    rel_p = (rec["memory"]["peak_bytes"] - peak) / peak
+    print(f"{name}: FLOPs {rec['counts']['flops']:.6g} vs {card.flops:.6g} ({rel_f:.3g}); bytes "
+          f"{rec['counts']['hbm_bytes']:.6g} vs {card.hbm_bytes:.6g} ({rel_b:.3g}); peak "
+          f"{rec['memory']['peak_bytes'] / 1e9:.3f} GB vs {peak / 1e9:.3f} GB ({rel_p:+.1%}); kernel calls "
+          f"{rec['counts']['kernel_calls']} vs {card.kernel_calls}")
+    assert rel_f <= 0.01 and rel_b <= 0.01
+    assert rec["counts"]["kernel_calls"] == card.kernel_calls
+    assert abs(rel_p) <= 0.15
