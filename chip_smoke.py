@@ -15,8 +15,10 @@ and the serving engine, ``repro_torch.serve``), mixtral-8x22b's training
 (``repro_torch.train``: the train step, AdamW, checkpoints, the Trainer),
 and the last two configs, mamba2-1.3b (the Mamba-2 SSD block) and
 internvl2-26b (the vision_text modality), forward, decode and training, in
-twelve phases, and in a thirteenth the dry run (``repro_torch.launch``) held
-against the card; any failed phase exits non-zero before the result lines are
+twelve phases, in a thirteenth the dry run (``repro_torch.launch``) held
+against the card, and in a fourteenth the performance-invariant gate
+(``repro_torch.tracecheck``) on the card; any failed phase exits non-zero
+before the result lines are
 printed.
 
 1. Card: its name and power limit (nvidia-smi) and the kernels' build time.
@@ -392,6 +394,22 @@ printed.
    model. (c) Each run's roofline lower bound (``roofline_terms``) against
    its phase's own measured ms: a share over 1 fails; the MFU and its bound
    are printed. The phase prints its seconds.
+14. The gate on the MWU loop's invariants (``tracecheck_phase``), the card's
+   name and power limit on its first line: (a) ``tracecheck.cli.run_matrix``
+   over the full matrix, the card cases on the card, the CPU cases on the
+   host: no finding, no case skipped, the counts and seconds printed; (b) each
+   family's solve on the card against the CPU's (the backend parity proof):
+   clean, its kernel regions printed; (c) the pod plans over the fake process
+   group: 2 psum and 1 pmax a lane iteration; (d) every card cell's
+   per-lane-iteration counts equal to its CPU reckoning (FLOPs exactly,
+   bytes within ``RECKON_REL``) and within the committed baseline's
+   tolerances; (e) the cost cell at phase 3's Netflix bmatch shape (counted
+   in phase 3, while its problem is on the card: one feasibility call at
+   the certified bound, capped at NETFLIX_CELL_ITERS iterations): its HBM
+   bytes a lane iteration, their bound at 3.35 TB/s and that bound's share
+   of phase 3's device ms a lane iteration (printed, gating nothing); (f) the
+   shared-memory rule over the whole compiler log. The MWU kernels of the
+   matrix (PHASE14_KERNELS) must each launch; the phase prints its seconds.
 
 The line before the last is ``{"kernels": [...]}``, one entry per kernel;
 the last is ``{"ok": true, "device": {...}}``. The flash entry takes row
@@ -406,15 +424,14 @@ each MWU kernel's masked row goes into its entry's ``masked`` field. Every
 entry's launches add phase 6's (``serving_launches``), phase 8's, (a)'s
 and both ranks' of (b) (``dist_launches``), phase 9's two forwards'
 and phase 10's runs (``moe_launches``), and every train step of phase 11
-(``train_launches``); the MWU kernels the router launches carry its rows at
-its shapes under ``router``. The script exits non-zero
-without a result when no CUDA device is present or when it is run outside
-the repository.
+(``train_launches``) and phase 14's (``tracecheck_launches``); the MWU
+kernels the router launches carry its rows at its shapes under ``router``.
+The script exits non-zero without a result when no CUDA device is present
+or when it is run outside the repository.
 """
 from __future__ import annotations
 
 import argparse
-import contextlib
 import gc
 import hashlib
 import json
@@ -539,32 +556,14 @@ def host_ms(fn, reps: int = 20) -> float:
     return 1e3 * (time.perf_counter() - t0) / reps
 
 
-@contextlib.contextmanager
 def counted_reads():
-    """Count the host's reads of CUDA tensors' values (``item``,
-    ``tolist``, ``float``, ``cpu``, ``numpy``) while active: yields a
-    one-element list that holds the count."""
-    reads, active = [0], [False]
-    saved = {name: getattr(torch.Tensor, name) for name in ("item", "tolist", "__float__", "cpu", "numpy")}
+    """Count the host's reads of CUDA tensors' values (``item``, ``tolist``,
+    ``float``, ``cpu``, ``numpy``) while active: a context manager that
+    yields a one-element list holding the count
+    (``repro_torch.tracecheck.capture.counted_reads``)."""
+    from repro_torch.tracecheck.capture import counted_reads as reads
 
-    def counting(method):
-        def read(t, *a, **k):
-            if t.is_cuda and not active[0]:
-                reads[0] += 1
-            active[0], outer = True, active[0]
-            try:
-                return method(t, *a, **k)
-            finally:
-                active[0] = outer
-        return read
-
-    for name, method in saved.items():
-        setattr(torch.Tensor, name, counting(method))
-    try:
-        yield reads
-    finally:
-        for name, method in saved.items():
-            setattr(torch.Tensor, name, method)
+    return reads("cuda")
 
 
 def counted_on_card(fn) -> dict:
@@ -1197,30 +1196,30 @@ PLAIN_SCORES_BYTES = 8e9  # above this many bytes of f32 scores the plain versio
 
 def flash_ptxas(failures: list) -> None:
     """The flash kernels' ptxas lines (registers, spills, shared memory) from
-    the loaded build's compiler log, one block per body and head dim; no
-    spills at the models' head dims, 80 and 128, in either body, nor at 256
-    in the bf16 body (the f32 body's d 256 is printed and may spill)."""
+    the loaded build's compiler log (``tracecheck.rules.parse_ptxas``), one
+    block per body and head dim; no spills at the models' head dims, 80 and
+    128, in either body, nor at 256 in the bf16 body (the f32 body's d 256
+    is printed and may spill)."""
     import re
 
     from repro_torch.kernels import loader
+    from repro_torch.tracecheck.rules import parse_ptxas
 
-    blocks, current = {}, None
-    for line in loader.build_log().read_text().splitlines():
-        if "Compiling entry function" in line:
-            m = re.search(r"flash_(bf16|f32)_kernelILi(\d+)E", line)
-            current = f"flash_{m.group(1)}_kernel<{m.group(2)}>" if m else None
-            if current is not None:
-                blocks[current] = []
-        elif current is not None and ("registers" in line or "spill" in line or "smem" in line):
-            blocks[current].append(line.strip())
+    blocks = {}
+    for entry, e in parse_ptxas(loader.build_log().read_text()).items():
+        m = re.search(r"flash_(bf16|f32)_kernelILi(\d+)E", entry)
+        if m:
+            blocks[f"flash_{m.group(1)}_kernel<{m.group(2)}>"] = e
     for name in sorted(blocks):
-        print(f"  ptxas, {name}: " + " | ".join(blocks[name]), flush=True)
+        print(f"  ptxas, {name}: " + " | ".join(blocks[name]["lines"]), flush=True)
     for body, dims in (("bf16", (80, 128, 256)), ("f32", (80, 128))):
         for d in dims:
             name = f"flash_{body}_kernel<{d}>"
-            spills = [int(n) for line in blocks.get(name, []) for n in re.findall(r"(\d+) bytes spill", line)]
-            check(failures, bool(spills) and not any(spills),
-                  f"{name}: no spills in ptxas's report ({spills or 'no report'})")
+            e = blocks.get(name)
+            reported = e is not None and any("spill" in line for line in e["lines"])
+            spills = None if e is None else (e["spill_stores"], e["spill_loads"])
+            check(failures, reported and spills == (0, 0),
+                  f"{name}: no spills in ptxas's report (stores, loads: {spills or 'no report'})")
 
 
 def tail_fault_rel_l2(q, k, v, block_k: int, ref) -> float:
@@ -1502,6 +1501,7 @@ def full_solve(n_users: int, failures: list) -> tuple:
                                       "the certified bound", failures)
         info["profile_round"] = profile_run(lambda: Solver(opts).solve_batch(prob, rounds[0]["bounds"]),
                                             "round 1's batch of 4 lanes", failures)
+        info["cost_cell"] = netflix_cost_cell(prob, sol.bound, opts)  # phase 14 (e), while prob is on the card
     return info, prob, g
 
 
@@ -4632,6 +4632,124 @@ def dryrun_phase(card: str, moe9: dict, train11: dict, lm12: dict, failures: lis
     return out
 
 
+# -- phase 14 ----------------------------------------------------------------
+# the kernels the matrix launches (the binary search and flash are off its path)
+PHASE14_KERNELS = ("softmax_weights", "step_direction", "newton_search", "axpy_reduce", "incidence_scatter",
+                   "incidence_gather", "linesearch_probe")
+NETFLIX_CELL_ITERS = 2  # (e): the feasibility call's iteration cap; the second iteration is the one counted
+
+
+def netflix_cost_cell(prob, bound: float, opts) -> dict:
+    """Phase 14 (e)'s count, taken in phase 3 while its problem is on the
+    card: one feasibility call at ``bound`` capped at NETFLIX_CELL_ITERS
+    iterations, recorded (``tracecheck.capture.record``), and its steady
+    lane iteration's counts (``tracecheck.costmodel.iteration_cost``)."""
+    from dataclasses import replace
+
+    from repro_torch.api import Solver
+    from repro_torch.tracecheck.capture import record
+    from repro_torch.tracecheck.costmodel import iteration_cost
+
+    t0 = time.perf_counter()
+    art, _ = record(lambda: Solver(replace(opts, max_iter=NETFLIX_CELL_ITERS)).feasible(prob, bound),
+                    "bmatch:netflix", "cuda")
+    torch.cuda.synchronize()
+    cost = iteration_cost(art)
+    cost.update(seconds=time.perf_counter() - t0, lane_iterations=len(art.lane_iterations()),
+                loop_reads=[it.all_reads() for it in art.solves[0].iterations])
+    return cost
+
+
+def tracecheck_phase(K, card: str, phase3: dict, failures: list) -> dict:
+    """Phase 14 (module docstring); returns its launches and numbers."""
+    from repro_torch.kernels import loader
+    from repro_torch.tracecheck.cli import run_matrix
+    from repro_torch.tracecheck.costmodel import RECKON_REL
+    from repro_torch.tracecheck.diff import canonical_tokens, diff_tokens
+    from repro_torch.tracecheck.matrix import FAMILIES
+    from repro_torch.tracecheck.rules import SmemFootprintRule, TraceArtifact, entry_name, parse_ptxas
+
+    print(card, flush=True)
+    t0 = time.perf_counter()
+    K.reset_launch_counts()
+    report = run_matrix(verbose=False)
+    torch.cuda.synchronize()
+    launches = K.launch_counts()
+    seconds = time.perf_counter() - t0
+    arts = {a.name: a for a in report.pop("_artifacts")}
+    findings = report["findings"]
+    print(f"  (a) {len(report['matrix'])} cases, {len(report['artifacts'])} artifacts, {len(findings)} findings "
+          f"({report['n_new_errors']} new errors), {len(report['skipped'])} skipped, {seconds:.1f} s", flush=True)
+    for f in findings:
+        print(f"    [{f['severity']}] {f['fingerprint']}: {f['message'][:400]}", flush=True)
+    check(failures, not findings, f"(a) the full matrix on the card: {len(findings)} findings")
+    check(failures, not report["skipped"], f"(a) no case skipped ({report['skipped']})")
+
+    out = dict(seconds=seconds, cases=len(report["matrix"]), artifacts=len(report["artifacts"]),
+               findings=len(findings), skipped=len(report["skipped"]), parity={}, pods={}, cells={})
+    for fam in FAMILIES:  # (b)
+        cpu, dev = arts.get(f"solve:{fam}:plain"), arts.get(f"solve:{fam}:kernel")
+        parity = [f for f in findings if f["artifact"] == f"parity:{fam}:backend"]
+        regions = [] if cpu is None or dev is None else diff_tokens(
+            canonical_tokens(cpu.steady_iteration()), canonical_tokens(dev.steady_iteration()))
+        kernels = sorted({t for r in regions for t in r.a_tokens + r.b_tokens if t.startswith("kernel:")})
+        out["parity"][fam] = dict(regions=len(regions), kernels=kernels, findings=len(parity))
+        print(f"  (b) {fam}: card vs CPU, {len(regions)} divergent region(s), each holding a kernel ({kernels})",
+              flush=True)
+        check(failures, cpu is not None and dev is not None and not parity,
+              f"(b) {fam}: the card's steady iteration equals the CPU's outside kernel regions")
+    for name, art in sorted(arts.items()):  # (c)
+        if name.startswith("dist:") and ":pod1x" not in name:
+            got = [dict(ln.collectives) for ln in art.lane_iterations()]
+            out["pods"][name] = got[0] if got else None
+            print(f"  (c) {name}: {len(got)} lane iterations, collectives a lane iteration {got[:1]}", flush=True)
+            check(failures, bool(got) and all(g == {"psum": 2, "pmax": 1} for g in got),
+                  f"(c) {name}: 2 psum and 1 pmax a lane iteration over the fake group")
+    for name, cell in sorted(report["costs"].items()):  # (d)
+        if cell.get("device") != "cuda":
+            continue
+        rk = report["reckoned"].get(name)
+        rel = None if rk is None else abs(cell["hbm_bytes"] - rk["hbm_bytes"]) / max(rk["hbm_bytes"], 1.0)
+        out["cells"][name] = dict(flops=cell["flops"], hbm_bytes=cell["hbm_bytes"], n_collectives=cell["n_collectives"],
+                                  reckoned_flops=None if rk is None else rk["flops"], bytes_rel=rel)
+        print(f"  (d) {name}: card {cell['flops']!r} FLOP, {cell['hbm_bytes']!r} B, {cell['n_collectives']!r} "
+              f"collectives a lane iteration; CPU reckoning {rk and rk['flops']!r} FLOP, bytes rel {rel!r}", flush=True)
+        check(failures, rk is not None and cell["flops"] == rk["flops"] and rel <= RECKON_REL,
+              f"(d) {name}: FLOPs equal to the CPU reckoning's, bytes within {RECKON_REL}")
+    check(failures, bool(out["cells"]), f"(d) {len(out['cells'])} card cells compared; none over the baseline's "
+                                        f"tolerances ({sum(f['rule'] == 'cost-regression' for f in findings)})")
+    cc = phase3.get("cost_cell")  # (e)
+    dev_ms = phase3.get("profile", {}).get("device_ms_per_lane_iter")
+    if cc is not None:
+        bound_ms = cc["hbm_bytes"] / HBM_BYTES_PER_S * 1e3
+        share = bound_ms / dev_ms if dev_ms else None
+        out["netflix"] = dict(hbm_bytes=cc["hbm_bytes"], flops=cc["flops"], kernel_calls=cc["kernel_calls"],
+                              bound_ms=bound_ms, device_ms_per_lane_iter=dev_ms, share=share,
+                              seconds=cc["seconds"], loop_reads=cc["loop_reads"])
+        print(f"  (e) bmatch at phase 3's shape, one lane iteration (iteration 2 of {NETFLIX_CELL_ITERS}, counted in "
+              f"phase 3): {cc['hbm_bytes']:.6g} B of HBM, {cc['flops']:.6g} FLOP, kernels {cc['kernel_calls']}; "
+              f"bound {bound_ms:.4f} ms at 3.35 TB/s; phase 3's device ms a lane iteration {dev_ms}: share "
+              f"{share}; reads by loop iteration {cc['loop_reads']} ({cc['seconds']:.2f} s)", flush=True)
+    log = loader.build_log().read_text()  # (f)
+    entries = parse_ptxas(log)
+    smem = SmemFootprintRule().check(TraceArtifact(name="build log", ptxas=log))
+    out["smem"] = dict(entries=len(entries), findings=len(smem), max_smem=max((e["smem"] for e in entries.values()),
+                                                                                default=None),
+                       max_registers=max((e["registers"] for e in entries.values()), default=None),
+                       spills={entry_name(k): [e["spill_stores"], e["spill_loads"]] for k, e in entries.items()
+                               if e["spill_stores"] + e["spill_loads"]})  # those SPILL_ALLOWED names only
+    print(f"  (f) smem-footprint over the build log: {json.dumps(out['smem'])}", flush=True)
+    for f in smem:
+        print(f"    [{f.severity}] {f.fingerprint}: {f.message}", flush=True)
+    check(failures, bool(entries) and not smem, f"(f) {len(entries)} kernel entries within 227 KB of shared "
+                                                f"memory, 255 registers, no spills ({len(smem)} findings)")
+    for name in PHASE14_KERNELS:
+        check(failures, launches[name] > 0, f"{name} launched {launches[name]} times in phase 14")
+    print(f"  phase 14 launches: {json.dumps(launches)}", flush=True)
+    print(f"  phase 14: {json.dumps(out)}", flush=True)
+    return dict(out, launches=launches)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n-users", type=int, default=480_189, help="users of the full-size bmatch graph")
@@ -4757,6 +4875,12 @@ def main() -> int:
     dryrun_phase(smi, moe9, train11, lm12, failures)
     print(f"  phase 13: {time.perf_counter() - t13:.1f} s", flush=True)
     end_phase("13", failures)
+
+    print("== phase 14: the performance-invariant gate (repro_torch.tracecheck) on the card", flush=True)
+    t14 = time.perf_counter()
+    tc = tracecheck_phase(K, smi, info, failures)
+    print(f"  phase 14: {time.perf_counter() - t14:.1f} s", flush=True)
+    end_phase("14", failures)
     print(f"  total {time.perf_counter() - t_start:.1f} s", flush=True)
 
     # one entry per kernel: for the MWU kernels their float64 row at the
@@ -4783,12 +4907,12 @@ def main() -> int:
         moe_launches = moe9["topk"]["launches"][name] + moe9["mwu"]["launches"][name] + decode10["launches"][name]
         train_launches = train11["launches"].get(name, 0)
         launches += (serve["launches"][name] + ident["launches"][name] + dist8["launches"][name] + moe_launches
-                     + train_launches)
+                     + train_launches + tc["launches"][name])
         masked = min((m for m in rows if name in MASKED_FORM and m["name"] == name and m["dtype"] == "float64"
                       and m.get("form") == MASKED_FORM[name]), key=lambda m: m["shape"][0], default=None)
         kernels.append(dict(name=name, route="cuda", source=source, replaces=replaces, launches=launches,
                             serving_launches=serve["launches"][name], moe_launches=moe_launches,
-                            train_launches=train_launches,
+                            train_launches=train_launches, tracecheck_launches=tc["launches"][name],
                             dist_launches=dict(identity=ident["launches"][name], ranks=dist8["launches"][name]),
                             **{k: r.get(k) for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                                      "library_ms", "call_ms", "plain_call_ms", "shape", "dtype", "bar",

@@ -70,7 +70,7 @@ def mpc_solve(P: LinOp, C: LinOp, opts: MPCOptions = MPCOptions(), c_mask=None):
     # the operators' float type (the reference's canonical float under x64)
     cm = P.colmax()
     dt = torch.promote_types(cm.dtype, C.colmax().dtype)
-    dt = dt if dt.is_floating_point else torch.float64
+    dt = dt if dt.is_floating_point else torch.float64  # repro: noqa[RPR003] an integer operator's float type: the reference's canonical float under x64
 
     # start tiny like MWU so packing starts satisfied
     cm = cm.to(dt)

@@ -303,8 +303,8 @@ def _start(lanes: list, opts: MWUOptions, group=None, init_cols: int | None = No
     x0 = [init_x(P, opts.eps, dt, n_cols=init_cols, group=group) for P, *_ in lanes]
     dev = x0[0].device
     X, Y, Z = _rows(K, P0.shape[1], dt, dev), _rows(K, P0.shape[0], dt, dev), _rows(K, C0.shape[0], dt, dev)
-    rec = torch.zeros(K, _FIELDS, dtype=torch.float64, device=dev)
-    alpha = torch.ones(K, dtype=torch.float64, device=dev)
+    rec = torch.zeros(K, _FIELDS, dtype=torch.float64, device=dev)  # repro: noqa[RPR003] the lane record: one f64 row a lane
+    alpha = torch.ones(K, dtype=torch.float64, device=dev)  # repro: noqa[RPR003] the lanes' last steps, f64 as the record's alpha
     state = []
     for k, (P, C, pm, cm) in enumerate(lanes):
         if (P.shape, C.shape) != (P0.shape, C0.shape):
@@ -319,7 +319,7 @@ def _start(lanes: list, opts: MWUOptions, group=None, init_cols: int | None = No
         state.append(_Lane(k=k, P=P, C=C, pm=pm, cm=cm, eta=eta, scale=scale, x=X[k], y=Y[k], z=Z[k], rec=rec[k],
                            alpha_dev=alpha[k:k + 1], group=group))
     # the starting min z and max y of every lane in one read
-    start = torch.stack([torch.stack([_masked_min(ln.z, ln.cm), _masked_max(ln.y, ln.pm)]) for ln in state]).tolist()
+    start = torch.stack([torch.stack([_masked_min(ln.z, ln.cm), _masked_max(ln.y, ln.pm)]) for ln in state]).tolist()  # repro: noqa[RPR002] the start read, once a solve
     for ln, (min_z, max_y) in zip(state, start):
         ln.min_z, ln.max_y = min_z, max_y
     return state, X, rec
@@ -342,7 +342,7 @@ def _run(lanes: list, opts: MWUOptions, rows: list | None = None, group=None,
         for ln in active:
             ln.viol = max(ln.max_y - 1.0, 1.0 - ln.min_z, 0.0)
             _iteration(ln, record_fn, opts.ls_tol)
-        r = rec.tolist()  # the one host read of a loop iteration, for all lanes
+        r = rec.tolist()  # repro: noqa[RPR002] the one host read of a loop iteration, for all lanes
         for ln in active:
             row = _advance(ln, r[ln.k])
             if rows is not None:
@@ -353,7 +353,7 @@ def _run(lanes: list, opts: MWUOptions, rows: list | None = None, group=None,
 
 def _finalize(opts: MWUOptions, state: list, X: torch.Tensor) -> MWUResult:
     """The batch's result: every field with the leading lane dim."""
-    max_px = torch.stack([_masked_max(ln.y, ln.pm) for ln in state]).tolist()  # one read
+    max_px = torch.stack([_masked_max(ln.y, ln.pm) for ln in state]).tolist()  # repro: noqa[RPR002] the finalize read, once a solve
     status = []
     for ln, mp in zip(state, max_px):
         covered = ln.min_z >= 1.0

@@ -79,7 +79,7 @@ def dist_matching_solve(part: Partition2D, n_vertices: int, bound: float, mesh, 
 
     u, v, cell_idx = _flatten_partition(part)
     u_t, v_t = torch.as_tensor(u, device=device), torch.as_tensor(v, device=device)
-    prob = _match_problem(u_t, v_t, n_vertices, torch.ones(u.shape[0], dtype=torch.float64, device=device),
+    prob = _match_problem(u_t, v_t, n_vertices, torch.ones(u.shape[0], dtype=torch.float64, device=device),  # repro: noqa[RPR003] the shim's documented f64
                           bound, device)
     n_devices = mesh.n_devices if mesh is not None else 1
     solver = DistSolver(
@@ -131,9 +131,9 @@ def make_pod_parallel_solver(mesh, G: int, block: int, n_vertices: int, n_edges:
         blocks = torch.arange(G, dtype=u.dtype, device=device) * block
         u_g = (u + blocks[:, None, None]).reshape(-1)
         v_g = (v + blocks[None, :, None]).reshape(-1)
-        c = em.to(torch.float64)
+        c = em.to(torch.float64)  # repro: noqa[RPR003] the shim's documented f64
         p_mask = torch.arange(n_pad, device=device) < n_vertices  # padded vertex rows stay out of smax
-        bounds = np.atleast_1d(np.asarray(bounds, dtype=np.float64))
+        bounds = np.atleast_1d(np.asarray(bounds, dtype=np.float64))  # repro: noqa[RPR003] host bounds
         prob = _match_problem(u_g, v_g, n_pad, c, float(bounds.max()), device, edge_mask=em, p_mask=p_mask)
         res = solver.solve_batch(prob, bounds)
         obj = (res.x * c).sum(dim=1).cpu().numpy()

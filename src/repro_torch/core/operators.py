@@ -107,7 +107,7 @@ class LinOp:
     def T(self) -> "LinOp":
         return Transposed(self)
 
-    def materialize(self, dtype: torch.dtype = torch.float64, device="cpu") -> torch.Tensor:
+    def materialize(self, dtype: torch.dtype = torch.float64, device="cpu") -> torch.Tensor:  # repro: noqa[RPR003] a dense copy for tests
         """Dense (m, n) matrix — for tests/small problems only."""
         eye = torch.eye(self.shape[1], dtype=dtype, device=device)
         return torch.stack([self.matvec(e) for e in eye], dim=1)

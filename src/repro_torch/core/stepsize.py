@@ -145,7 +145,7 @@ def standard_step_record(y, z, dy, dz, eta, ls_eps, d_max, alpha_prev, out=None,
     becomes 1 when the step is taken. No host read."""
     bad = (d_max <= 0).reshape(())
     completes = _masked_min(z + dz, c_mask) >= 1
-    one = torch.ones((), dtype=torch.float64, device=y.device)
+    one = torch.ones((), dtype=torch.float64, device=y.device)  # repro: noqa[RPR003] the std rule's f64 record row
     rec = torch.stack([one, torch.zeros_like(one), completes.double(), (~bad).double(), bad.double()])
     alpha_prev.copy_(torch.where(bad, alpha_prev, one))
     return rec if out is None else out.copy_(rec)
@@ -181,7 +181,7 @@ def host_rule_record(step_fn: Callable[..., StepSizeResult]) -> Callable[..., to
         if not bad:
             alpha_prev.fill_(ss.alpha)
         rec = torch.tensor([ss.alpha, ss.probes, ss.completes, 0.0 if bad else ss.alpha, float(bad)],
-                           dtype=torch.float64, device=y.device)
+                           dtype=torch.float64, device=y.device)  # repro: noqa[RPR003] a host rule's f64 record row
         return rec if out is None else out.copy_(rec)
 
     return record

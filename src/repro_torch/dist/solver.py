@@ -170,14 +170,23 @@ class DistSolver(Solver):
     # -- feasibility primitives (everything else is inherited) -------------
     def lower_batch(self, problem, bounds, *, batched_problem: bool = False):
         """The reference lowers its shard_map program here; the port compiles
-        none. Its static-analysis analogues are ROADMAP.md queue 1 item 14."""
-        raise NotImplementedError("DistSolver.lower_batch: no program to lower in the port (ROADMAP.md queue 1 "
-                                  "item 14: the tracecheck analogues)")
+        none, so this records one ``solve_batch`` run instead: the
+        ``repro_torch.tracecheck`` artifact of its op stream (its solves,
+        loop and lane iterations, kernel calls, reads, collectives and
+        counts) on the problem's device."""
+        from ..tracecheck.capture import record
+
+        art, _ = record(lambda: self.solve_batch(problem, bounds, batched_problem=batched_problem),
+                        f"dist:{problem.name}:pod{self.plan.pod}x{self.plan.data}", torch.device(problem.device).type,
+                        opts=self.opts, plan=self.plan)
+        return art
 
     def jaxpr_batch(self, problem, bounds, *, batched_problem: bool = False):
-        """See :meth:`lower_batch`."""
-        raise NotImplementedError("DistSolver.jaxpr_batch: no jaxpr in the port (ROADMAP.md queue 1 item 14: "
-                                  "the tracecheck analogues)")
+        """The canonical tokens (``repro_torch.tracecheck.diff``) of
+        :meth:`lower_batch`'s recorded run: what the identity proof diffs."""
+        from ..tracecheck.diff import canonical_tokens
+
+        return canonical_tokens(self.lower_batch(problem, bounds, batched_problem=batched_problem))
 
     def solve_batch(self, problem, bounds, *, batched_problem: bool = False) -> MWUResult:
         """Batched feasibility fanned out over the (pod, data) mesh.

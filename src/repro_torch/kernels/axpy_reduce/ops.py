@@ -47,7 +47,7 @@ def axpy_reduce(y: torch.Tensor, dy: torch.Tensor, alpha, *, out: torch.Tensor |
         loader.check_slot("axpy_reduce", y, alpha, 1, "alpha")
         alpha_dev = alpha
     if red is None:
-        red = torch.empty(2, dtype=torch.float64, device=y.device)
+        red = torch.empty(2, dtype=torch.float64, device=y.device)  # repro: noqa[RPR003] [min, max] exact in f64
     loader.check_slot("axpy_reduce", y, red, 2, "red")
     nb = loader.partial_blocks(n)
     if out is None:

@@ -62,7 +62,7 @@ def search_plan(ny: int, nz: int, dtype: torch.dtype, device=None) -> dict:
     if dtype not in (torch.float32, torch.float64):
         raise TypeError(f"search_plan: dtype must be float32 or float64, got {dtype}")
     out = (ctypes.c_int * 4)()
-    with torch.cuda.device(device if device is not None else torch.cuda.current_device()):
+    with torch.cuda.device(device if device is not None else torch.cuda.current_device()):  # repro: noqa[RPR001] a plan asked for with no device: no tensor decides
         rc = loader.load().rt_search_plan(int(ny), int(nz), torch.finfo(dtype).bits // 8, out)
     loader.check_status(rc, "search_plan")
     return dict(gy=out[0], gz=out[1], tiles=out[2], path="shared memory" if out[3] else "streamed")
@@ -147,7 +147,7 @@ def _search(name: str, y, dy, z, dz, eta, ls_eps, alpha0, d_max, out, p_keep, c_
             raise ValueError(f"{name}: d_max must be one {dtype} value on {dev}")
         loader.check_slot(name, y, alpha0, 1, "alpha0 (the step form's alpha_prev)")
     if out is None:
-        out = torch.empty(size, dtype=torch.float64, device=dev)
+        out = torch.empty(size, dtype=torch.float64, device=dev)  # repro: noqa[RPR003] the search's f64 record
     loader.check_slot(name, y, out, size, "out")
     with torch.cuda.device(dev):
         part = _scratch(name, y)

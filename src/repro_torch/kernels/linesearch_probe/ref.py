@@ -216,7 +216,7 @@ def newton_search_ref(y, dy, z, dz, eta: float, ls_eps: float, alpha0: float | N
     """The Newton search over plain two-sided probes: ``[alpha, probes,
     completes]`` as a float64 3-vector on y's device."""
     probe = _plain_probe(y, dy, z, dz, eta, p_keep, c_keep)
-    return torch.tensor(newton_search_loop(probe, torch.finfo(y.dtype).tiny, ls_eps, alpha0), dtype=torch.float64,
+    return torch.tensor(newton_search_loop(probe, torch.finfo(y.dtype).tiny, ls_eps, alpha0), dtype=torch.float64,  # repro: noqa[RPR003] the search's f64 record
                         device=y.device)
 
 
@@ -225,7 +225,7 @@ def binary_search_ref(y, dy, z, dz, eta: float, ls_eps: float, alpha0: float | N
     """The binary search over plain two-sided probes: ``[alpha, probes,
     completes]`` as a float64 3-vector on y's device."""
     probe = _plain_probe(y, dy, z, dz, eta, p_keep, c_keep)
-    return torch.tensor(binary_search_loop(probe, ls_eps, alpha0), dtype=torch.float64, device=y.device)
+    return torch.tensor(binary_search_loop(probe, ls_eps, alpha0), dtype=torch.float64, device=y.device)  # repro: noqa[RPR003] the search's f64 record
 
 
 def _step_ref(search, y, dy, z, dz, eta, ls_eps, d_max, alpha_prev, p_keep, c_keep) -> torch.Tensor:
@@ -233,7 +233,7 @@ def _step_ref(search, y, dy, z, dz, eta, ls_eps, d_max, alpha_prev, p_keep, c_ke
     bad = float(d_max) <= 0 or alpha < 1
     if not bad:
         alpha_prev.fill_(alpha)
-    return torch.tensor([alpha, probes, completes, 0.0 if bad else alpha, float(bad)], dtype=torch.float64,
+    return torch.tensor([alpha, probes, completes, 0.0 if bad else alpha, float(bad)], dtype=torch.float64,  # repro: noqa[RPR003] the search's f64 record
                         device=y.device)
 
 

@@ -29,7 +29,7 @@ from . import LPEngine, LPServeConfig
 
 def _sync(device: str) -> None:
     if torch.device(device).type == "cuda":
-        torch.cuda.synchronize()
+        torch.cuda.synchronize()  # repro: noqa[RPR004] the CLI's wall clock ends on the card's work
 
 
 def main(argv=None) -> int:

@@ -67,7 +67,7 @@ def mamba2_init(gen: torch.Generator, cfg, dtype, device) -> dict:
     s, di, H, conv_dim = _dims(cfg)
     d = cfg.d_model
     proj_out = 2 * di + 2 * s.ngroups * s.d_state + H  # z, x, B, C, dt
-    f64 = dict(dtype=torch.float64, device=device)
+    f64 = dict(dtype=torch.float64, device=device)  # repro: noqa[RPR003] A_log and dt_bias drawn in f64, then cast to f32
     return {
         "in_proj": dense_init(gen, (d, proj_out), dtype, device),
         "conv_w": dense_init(gen, (s.d_conv, conv_dim), dtype, device, scale=1.0),

@@ -59,7 +59,7 @@ def rglru_init(gen: torch.Generator, cfg, dtype, device) -> dict:
         # diagonal recurrence and input gates, as the reference's
         "wa": dense_init(gen, (w,), torch.float32, device, scale=1.0),
         "wi": dense_init(gen, (w,), torch.float32, device, scale=1.0),
-        "lam": torch.linspace(0.9, 0.999, w, dtype=torch.float64, device=device).to(torch.float32),
+        "lam": torch.linspace(0.9, 0.999, w, dtype=torch.float64, device=device).to(torch.float32),  # repro: noqa[RPR003] drawn in f64, then cast to f32
         "wout": dense_init(gen, (w, d), dtype, device, scale=1.0 / math.sqrt(2 * cfg.n_layers)),
     }
 

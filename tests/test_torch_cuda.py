@@ -1879,3 +1879,47 @@ def test_launch_counts_match_card(cuda, name):
     assert rel_f <= 0.01 and rel_b <= 0.01
     assert rec["counts"]["kernel_calls"] == card.kernel_calls
     assert abs(rel_p) <= 0.15
+
+
+# -- tracecheck: the gate's card side --------------------------------------
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["match", "vcover", "dense-sub", "gen-match"])
+def test_tracecheck_backend_parity_on_card(cuda, family):
+    """The card's solve differs from the CPU's only in kernel regions, every
+    rule holds on the card's run, and its per-lane-iteration counts equal
+    its CPU reckoning (the card's path counted on the CPU)."""
+    from repro_torch.tracecheck import costmodel
+    from repro_torch.tracecheck.capture import capture_case, reckon_case
+    from repro_torch.tracecheck.diff import check_backend_parity
+    from repro_torch.tracecheck.matrix import Case
+    from repro_torch.tracecheck.rules import run_rules
+
+    card = capture_case(Case("solve", family, "kernel"))
+    cpu = capture_case(Case("solve", family, "plain"))
+    assert card.device == "cuda" and card.lane_iterations()
+    assert run_rules([card]) == []
+    assert check_backend_parity(cpu, card, family) == []
+    cells = costmodel.cost_cells([card])
+    reckoned = costmodel.cost_cells([reckon_case(Case("solve", family, "kernel"))])
+    assert costmodel.check_reckoned(cells, reckoned) == [] and cells.keys() == reckoned.keys()
+    assert costmodel.check_costs(cells, costmodel.load_cost_baseline()) == []
+
+
+@pytest.mark.cuda
+def test_tracecheck_smem_rule_over_the_build_log(cuda):
+    from repro_torch.kernels import loader
+    from repro_torch.tracecheck.rules import SmemFootprintRule, TraceArtifact, parse_ptxas
+
+    loader.build()
+    log = loader.build_log().read_text()
+    entries = parse_ptxas(log)
+    assert any("flash_bf16_kernel" in e for e in entries) and any("search_kernel" in e for e in entries)
+    assert SmemFootprintRule().check(TraceArtifact(name="build log", ptxas=log)) == []
+
+
+@pytest.mark.cuda
+def test_tracecheck_quick_matrix_on_card(cuda):
+    from repro_torch.tracecheck.cli import run_matrix
+
+    report = run_matrix(quick=True, verbose=False)
+    assert report["skipped"] == [] and report["findings"] == [], [f["fingerprint"] for f in report["findings"]]

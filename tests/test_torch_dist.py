@@ -112,10 +112,19 @@ def test_mesh_plan_validation():
 
 
 def test_lower_batch_names_the_roadmap_item():
+    """The roadmap item these hooks named (the tracecheck analogues) is in:
+    ``lower_batch`` records one ``solve_batch`` run, ``jaxpr_batch`` gives
+    its canonical tokens, and on the identity plan those equal the plain
+    ``Solver``'s token for token."""
+    from repro_torch.tracecheck.capture import record
+    from repro_torch.tracecheck.diff import canonical_tokens
+
     prob = build("match", erdos(20, 40, seed=0), device="cpu")
-    for fn in (DistSolver().lower_batch, DistSolver().jaxpr_batch):
-        with pytest.raises(NotImplementedError, match="item 14"):
-            fn(prob, [2.0])
+    opts = MWUOptions(max_iter=4)
+    art = DistSolver(opts).lower_batch(prob, [2.0])
+    assert len(art.solves) == 1 and len(art.lane_iterations()) == art.solves[0].stops[0][1] > 0
+    plain, _ = record(lambda: Solver(opts).solve_batch(prob, [2.0]), "solve_batch")
+    assert DistSolver(opts).jaxpr_batch(prob, [2.0]) == canonical_tokens(plain)
 
 
 # --------------------------------------------------------------- layout ----
